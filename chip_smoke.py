@@ -1,0 +1,401 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (deepreduce_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed 0] [--steps 5]
+
+Phases, one line each; any failure raises and exits non-zero:
+  1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
+  2. build every kernel from the sources in the checkout (nvcc, sm_90a);
+  3. each kernel against its plain PyTorch version on the card's inputs,
+     at every size the main path launches it with and at an odd size:
+     QSGD levels bitwise equal, |level| <= q, unbiased over many seeds,
+     repeatable for a fixed (seed, offset);
+  4. one Embed_0-sized gradient through TensorCodec on the card and on the
+     CPU with the same seed: filter words, nsel and levels equal, decoded
+     tensors within the stated tolerance;
+  5. the main path: `Trainer.step` of DRQSGD-BF-P0 (top-k 0.1, mod-blocked
+     bloom p0 at fpr 0.02, QSGD q=127 / 512, residual memory, SGD lr 0.1
+     momentum 0.9) on the full-width WordLSTM (4,050,748 parameters), batch
+     64 x 20 synthetic tokens, through a one-rank NCCL group so the real
+     all_gather_into_tensor runs. Kernel launch counts are zeroed just
+     before and read just after, and every kernel must have launched;
+  6. per-launch device times (torch.profiler) of each kernel and its plain
+     version at the main path's sizes, then the `kernels` JSON line.
+`--profile` adds one profiled training step after phase 5: the device's
+busy and idle share over the step and its largest kernels.
+The last line is {"ok": true, "device": {...}}. Without CUDA, or without
+the package beside it, the script exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+QSGD_BYTES_PER_ELEM = 9  # read value f32 + scale f32, write level int8
+QSGD_F32_OPS_PER_ELEM = 8  # abs, mul, floor, sub, cvt+mul (uniform), cmp, add, sign-mul
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+def _flagship_cfg(seed: int):
+    from deepreduce_tpu_torch import DeepReduceConfig
+
+    return DeepReduceConfig(
+        compressor="topk", compress_ratio=0.1, approx_topk=False, memory="residual",
+        communicator="allgather", deepreduce="both", index="bloom", value="qsgd",
+        fpr=0.02, policy="p0", bloom_blocked="mod", quantum_num=127, bucket_size=512,
+        fused=True, decode_strategy="loop", seed=seed,
+    )
+
+
+def _time_ms(fn, reps: int) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _device_ms(fn, reps: int, name_part: str = "") -> float:
+    """Device time per call from torch.profiler: the self device time of the
+    kernels whose name contains `name_part` (all kernels when empty),
+    summed over `reps` calls, divided by `reps`. 0.0 if the profiler saw
+    no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(us for key, _, us in _kernel_rows(prof) if name_part in key)
+    return total_us / 1e3 / reps
+
+
+def _kernel_rows(prof):
+    """(name, count, device us) of the device-side events only: the CPU-side
+    operator rows also carry their kernels' device time, and summing both
+    would count it twice."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", 0.0) or getattr(evt, "self_cuda_time_total", 0.0)
+        rows.append((evt.key, evt.count, us))
+    return rows
+
+
+def _profile_step(step_fn) -> dict:
+    """Device busy time of one step and its largest kernels, from
+    torch.profiler; the wall time comes from CUDA events around the step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step_fn()
+        end.record()
+        end.synchronize()
+    wall_ms = start.elapsed_time(end)
+    rows = sorted(((us / 1e3, cnt, key[:70]) for key, cnt, us in _kernel_rows(prof)), reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    return {
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms,
+        "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms) if wall_ms else None,
+        "kernel_launches": sum(r[1] for r in rows),
+        "top_device_ms": [[round(ms, 4), cnt, key] for ms, cnt, key in rows[:15]],
+    }
+
+
+def _qsgd_inputs(n: int, seed: int, device):
+    """f32 values (30% exact zeros) and their bucket scale q/||bucket||."""
+    import torch
+
+    from deepreduce_tpu_torch.codecs.qsgd import bucket_scale
+
+    gen = torch.Generator().manual_seed(seed)
+    v = torch.randn(n, generator=gen)
+    v[torch.rand(n, generator=gen) < 0.3] = 0.0
+    padded = torch.zeros(-(-n // 512) * 512)
+    padded[:n] = v
+    scale, _ = bucket_scale(padded, 127, 512)
+    return v.to(device), scale[:n].contiguous().to(device)
+
+
+def phase_device() -> None:
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(smi)
+    print(f"phase 1 ok: torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} "
+          f"python {sys.version.split()[0]}", flush=True)
+
+
+def phase_build() -> None:
+    from deepreduce_tpu_torch.ops import build
+
+    times = build.build_all()
+    for name, log in build.build_logs.items():
+        ptxas = " | ".join(l.strip() for l in log.splitlines() if "ptxas info" in l and "Used" in l)
+        print(f"  {name}: {ptxas}")
+    print(f"phase 2 ok: built {json.dumps({k: round(v, 2) for k, v in times.items()})} s", flush=True)
+
+
+def phase_kernels(sizes) -> float:
+    """Kernel vs plain on the card's inputs; returns the max |difference|."""
+    import torch
+
+    from deepreduce_tpu_torch.ops import philox_uniforms_plain, quantize_levels, quantize_levels_plain
+
+    dev = torch.device("cuda")
+    max_err = 0.0
+    for i, n in enumerate(sorted(set(sizes)) + [1_000_003]):
+        seed, offset = (0xC0FFEE << 32) | i, (i << 32) | 5
+        v, s = _qsgd_inputs(n, 100 + i, dev)
+        got = quantize_levels(v, s, seed, offset, device=dev)
+        torch.cuda.synchronize()
+        ref = quantize_levels_plain(v.cpu(), s.cpu(), philox_uniforms_plain(n, seed, offset))
+        err = float((got.cpu().int() - ref.int()).abs().max())
+        max_err = max(max_err, err)
+        _check(torch.equal(got.cpu(), ref), f"qsgd_quantize != plain at n={n} (max |diff| {err})")
+        _check(int(got.abs().max()) <= 127, f"|level| > q at n={n}")
+        _check(torch.equal(got, quantize_levels(v, s, seed, offset, device=dev)), f"not repeatable at n={n}")
+        _check(not torch.equal(got, quantize_levels(v, s, seed, offset + 1, device=dev)) or n < 64,
+               f"offset does not change the draw at n={n}")
+    # unbiasedness: mean of level * norm / q over many offsets matches v
+    n, draws = 8192, 256
+    v, s = _qsgd_inputs(n, 7, dev)
+    acc = torch.zeros(n, dtype=torch.float64, device=dev)
+    for d in range(draws):
+        acc += quantize_levels(v, s, 99, d, device=dev).double() / s.double()
+    dev_max = float(((acc / draws) - v.double()).abs().max())
+    level_size = float((1.0 / s.double()).max())
+    # Bernoulli rounding: sd of one draw <= level/2; 6 sd of the mean
+    bound = 6 * level_size / 2 / math.sqrt(draws)
+    _check(dev_max < bound, f"biased quantizer: max |mean - v| {dev_max} >= {bound}")
+    print(f"phase 3 ok: qsgd_quantize bitwise equal to plain at n={sorted(set(sizes)) + [1_000_003]}, "
+          f"max_abs_err {max_err}, unbiased (max |mean-v| {dev_max:.3g} < {bound:.3g})", flush=True)
+    return max_err
+
+
+def phase_codec(seed: int) -> None:
+    import torch
+
+    from deepreduce_tpu_torch import TensorCodec
+
+    shape = (10_004, 96)
+    gen = torch.Generator().manual_seed(seed)
+    g = torch.zeros(shape)
+    rows = torch.randperm(shape[0], generator=gen)[:1280]  # rows the batch's tokens touch
+    g[rows] = torch.randn(len(rows), shape[1], generator=gen)
+    cfg = _flagship_cfg(seed)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        codec = TensorCodec(shape, cfg, name="Embed_0/embedding", device=dev)
+        pay = codec.encode(g.to(dev), step=3, worker=0)
+        out[dev] = (codec, pay, codec.decode(pay).cpu())
+    (codec, gp, gdec), (_, cp, cdec) = out["cuda"], out["cpu"]
+    _check(torch.equal(gp.index_payload.words.cpu(), cp.index_payload.words), "bloom words differ")
+    _check(int(gp.nsel) == int(cp.nsel), "nsel differs")
+    meta = codec.val_codec.meta
+    grows = gp.value_payload.data.cpu().view(meta.num_buckets, -1)
+    crows = cp.value_payload.data.view(meta.num_buckets, -1)
+    gnorm = grows[:, meta.bucket_size:].contiguous().view(torch.float32)
+    cnorm = crows[:, meta.bucket_size:].contiguous().view(torch.float32)
+    _check(torch.allclose(gnorm, cnorm, rtol=1e-6, atol=0), "bucket norms differ beyond rtol 1e-6")
+    same = (gnorm == cnorm).reshape(-1)
+    _check(torch.equal(grows[same], crows[same]), "levels differ in a bucket with equal norm")
+    # decoded values are norm/q * level: equal norms and levels decode alike
+    _check(torch.allclose(gdec, cdec, rtol=1e-6, atol=1e-6), "decoded tensors differ")
+    print(f"phase 4 ok: Embed_0 {shape} codec cuda == cpu: words, nsel={int(gp.nsel)}, levels "
+          f"({int(same.sum())}/{meta.num_buckets} norms bitwise), decoded within rtol 1e-6", flush=True)
+
+
+def phase_train(seed: int, steps: int, batch: int, seq: int, profile: bool = False) -> dict:
+    import torch
+    import torch.distributed as dist
+
+    from deepreduce_tpu_torch import Trainer
+    from deepreduce_tpu_torch.models import WordLSTM
+    from deepreduce_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        model = WordLSTM(seed=seed)
+        n_params = sum(p.numel() for p in model.parameters())
+        _check(n_params == 4_050_748, f"WordLSTM has {n_params} parameters")
+        gen = torch.Generator().manual_seed(seed + 1)
+        tokens = torch.randint(0, model.vocab_size, (steps, batch, seq + 1), generator=gen)
+        # reference loss of the first batch at the initial weights, on the CPU
+        with torch.no_grad():
+            logits = model(tokens[0, :, :-1])
+            ref_loss = float(torch.nn.functional.cross_entropy(
+                logits.reshape(-1, logits.shape[-1]), tokens[0, :, 1:].reshape(-1)))
+        trainer = Trainer(model, _flagship_cfg(seed), lr=0.1, momentum=0.9, device="cuda",
+                          group=dist.group.WORLD)
+        state = trainer.init_state()
+        tokens = tokens.cuda()
+        losses, dev_ms, host_ms = [], [], []
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        for i in range(steps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            state, loss, wire = trainer.step(state, (tokens[i, :, :-1], tokens[i, :, 1:]))
+            end.record()
+            end.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            dev_ms.append(start.elapsed_time(end))
+            losses.append(float(loss))
+        launches = launch_counts()
+        ex = trainer.exchanger
+        sizes = [c.val_codec.meta.padded_len for c in ex.codecs.values() if c.compressed]
+        for name, count in launches.items():
+            _check(count > 0, f"kernel {name} was not launched on the main path")
+        _check(launches["qsgd_quantize"] == len(sizes) * steps,
+               f"qsgd_quantize launched {launches['qsgd_quantize']} times, expected {len(sizes) * steps}")
+        _check(all(math.isfinite(l) for l in losses), f"non-finite loss {losses}")
+        _check(all(bool(torch.isfinite(p).all()) for p in state.params.values()), "non-finite parameters")
+        _check(abs(losses[0] - ref_loss) <= 1e-4 * abs(ref_loss),
+               f"first-step loss {losses[0]} vs CPU reference {ref_loss}")
+        rel_volume = float(wire.rel_volume())
+        _check(0.0 < rel_volume < 1.0, f"rel_volume {rel_volume}")
+        res = {
+            "losses": losses, "cpu_ref_loss0": ref_loss, "rel_volume": rel_volume,
+            "payload_bytes": ex.payload_bytes(), "params": n_params,
+            "step_ms_median": statistics.median(dev_ms[1:]) if steps > 1 else dev_ms[0],
+            "step_ms_first": dev_ms[0], "step_ms_all": dev_ms, "host_step_ms_all": host_ms,
+            "launches": launches, "qsgd_sizes": sizes,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        }
+        print("phase 5 ok: " + json.dumps(res), flush=True)
+        if profile:
+            # one more step, after the counted run, under the profiler
+            x, y = tokens[0, :, :-1], tokens[0, :, 1:]
+            prof = _profile_step(lambda: trainer.step(state, (x, y)))
+            print("phase 5 profile: " + json.dumps(prof), flush=True)
+        return res
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_timing(sizes, launches: dict, max_err: float) -> None:
+    import torch
+
+    from deepreduce_tpu_torch.ops import philox_uniforms_plain, quantize_levels, quantize_levels_plain
+
+    dev = torch.device("cuda")
+    per_n = []
+    for i, n in enumerate(sorted(set(sizes))):
+        v, s = _qsgd_inputs(n, 200 + i, dev)
+        seed, offset = 1234, i
+        kernel = lambda: quantize_levels(v, s, seed, offset, device=dev)
+        plain = lambda: quantize_levels_plain(v, s, philox_uniforms_plain(n, seed, offset, device=dev))
+        # device time from the profiler; back-to-back launches timed with
+        # CUDA events measure the wrapper's host cost instead (the card idles)
+        ms = _device_ms(kernel, 200, "qsgd_quantize_kernel")
+        plain_ms = _device_ms(plain, 20)
+        _check(ms > 0 and plain_ms > 0, "the profiler saw no device time")
+        bound_ms = max(QSGD_BYTES_PER_ELEM * n / HBM_BYTES_PER_S, QSGD_F32_OPS_PER_ELEM * n / F32_OPS_PER_S) * 1e3
+        per_n.append({
+            "n": n, "count_per_step": sizes.count(n), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "wrapper_ms": _time_ms(kernel, 200), "plain_wrapper_ms": _time_ms(plain, 20),
+        })
+    print("phase 6 ok: qsgd_quantize per launch " + json.dumps(per_n), flush=True)
+    step_sum = lambda key: sum(r[key] * r["count_per_step"] for r in per_n)
+    bytes_bound = QSGD_BYTES_PER_ELEM * sum(sizes) / HBM_BYTES_PER_S
+    ops_bound = QSGD_F32_OPS_PER_ELEM * sum(sizes) / F32_OPS_PER_S
+    kernels = [{
+        "name": "qsgd_quantize",
+        "route": "cuda",
+        "source": "deepreduce_tpu_torch/ops/csrc/qsgd_quantize.cu",
+        "replaces": "deepreduce_tpu/ops/qsgd_kernel.py:42",
+        "launches": launches["qsgd_quantize"],
+        "max_abs_err": max_err,
+        # one worker-step's launches: the sum over the main path's sizes
+        "ms": step_sum("ms"),
+        "plain_ms": step_sum("plain_ms"),
+        "bound_ms": max(bytes_bound, ops_bound) * 1e3,
+        "bound_by": "bytes" if bytes_bound >= ops_bound else "operations",
+        "library_ms": None,  # no single PyTorch call computes this function
+    }]
+    print(json.dumps({"kernels": kernels}), flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--seq", type=int, default=20)
+    ap.add_argument("--profile", action="store_true",
+                    help="profile one extra training step: device busy share and top kernels")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script runs only on the GPU", file=sys.stderr)
+        return 2
+    try:
+        import deepreduce_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the deepreduce_tpu_torch package is missing ({e})", file=sys.stderr)
+        return 2
+
+    t0 = time.perf_counter()
+    phase_device()
+    phase_build()
+    # the main path's QSGD sizes, from the codec geometry (no card work)
+    from deepreduce_tpu_torch import GradientExchanger
+    from deepreduce_tpu_torch.models import WordLSTM
+
+    shapes = {n: tuple(p.shape) for n, p in WordLSTM(embed_dim=96, hidden_dim=670).flax_params().items()}
+    ex = GradientExchanger(shapes, _flagship_cfg(args.seed), device="cuda")
+    sizes = [c.val_codec.meta.padded_len for c in ex.codecs.values() if c.compressed]
+    max_err = phase_kernels(sizes)
+    phase_codec(args.seed)
+    res = phase_train(args.seed, args.steps, args.batch, args.seq, args.profile)
+    _check(res["qsgd_sizes"] == sizes, "main-path QSGD sizes differ from the codec geometry")
+    phase_timing(sizes, res["launches"], max_err)
+    print(f"chip_smoke total {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({
+        "ok": True,
+        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

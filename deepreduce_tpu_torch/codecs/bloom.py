@@ -1,0 +1,254 @@
+"""Bloom-filter index codec, mod-blocked layout with the prefix policies
+(leftmost, p0), ported from `deepreduce_tpu/codecs/bloom.py`.
+
+Indices go into a register-blocked filter: index j sets `lane_mask(j)` (h
+bit lanes from murmur-mixed words) in word `j mod W`, W odd. Only the
+words cross the wire; both sides re-derive the index set by querying the
+whole universe and taking the first `budget` positives in ascending order.
+The encoder is FP-aware: it re-reads the dense values at exactly those
+positions, so receivers place true values where they derive them.
+
+The hashes are wrapping uint32 arithmetic, done here in int64 with
+masking (`u32`); filter words, `nsel` and positions are bitwise equal to
+the JAX package's. Words travel as int32 tensors holding the uint32 bit
+pattern. The hash and classic layouts and the random/conflict-set policies
+are not ported yet; `BloomMeta.create` raises for them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from deepreduce_tpu_torch import sparse as _sparse
+from deepreduce_tpu_torch import u32
+from deepreduce_tpu_torch.sparse import SparseGrad, _prefix_positions
+
+_LN2 = 0.6931471805599453
+_SEED_LANE1 = 0x6A09E667
+_SEED_LANE2 = 0xBB67AE85
+
+
+def fmix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3 32-bit finalizer over int64 words in [0, 2**32)."""
+    x = x & u32.MASK32
+    x = x ^ (x >> 16)
+    x = u32.mul_lo(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = u32.mul_lo(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def _lanes(indices: torch.Tensor, num_hash: int):
+    """The h bit lanes (int64 in [0, 32)) of each index, in hash order."""
+    idx = indices.to(torch.int64) & u32.MASK32
+    r1 = fmix32(idx ^ _SEED_LANE1)
+    r2 = fmix32(idx ^ _SEED_LANE2) if num_hash > 6 else None
+    return [((r1 if j < 6 else r2) >> (5 * (j % 6))) & 31 for j in range(num_hash)]
+
+
+def lane_mask(indices: torch.Tensor, num_hash: int) -> torch.Tensor:
+    """32-bit in-word mask (int64) for each index: h lanes from 5-bit fields
+    of one or two murmur-mixed words."""
+    mask = torch.zeros(indices.shape, dtype=torch.int64, device=indices.device)
+    for lane in _lanes(indices, num_hash):
+        mask = mask | (torch.ones_like(lane) << lane)
+    return mask
+
+
+def bloom_config(k: int, d: int, fpr: Optional[float]) -> Tuple[int, int, float]:
+    """(m_bits, num_hash, fpr) of the classic filter for (k, d)."""
+    if fpr is None:
+        fpr = 0.1 * k / d
+    m_bytes = int(math.ceil(k * abs(math.log(fpr)) / (_LN2 * _LN2) / 8.0))
+    m_bytes = max(8, (m_bytes + 7) // 8 * 8)
+    num_hash = max(1, int(math.ceil((m_bytes * 8.0 / k) * _LN2)))
+    return m_bytes * 8, num_hash, fpr
+
+
+def _blocked_fpr(k: int, n_words: int, h: int) -> float:
+    """FPR of a register-blocked filter: the Poisson mixture over block loads."""
+    lam = k / n_words
+    total = 0.0
+    pj = math.exp(-lam)
+    for j in range(0, 64):
+        set_bits = 32.0 * (1.0 - (1.0 - 1.0 / 32.0) ** (j * h))
+        total += pj * (set_bits / 32.0) ** h
+        pj *= lam / (j + 1)
+        if pj < 1e-12 and j > lam:
+            break
+    return total
+
+
+def blocked_bloom_config(
+    k: int, d: int, fpr: Optional[float], mode: str = "hash"
+) -> Tuple[int, int, float]:
+    if fpr is None:
+        fpr = 0.1 * k / d
+    classic_bits, _, _ = bloom_config(k, d, fpr)
+    best = None
+    n_words = max(1, classic_bits // 32)
+    for _ in range(16):
+        for h in range(1, 13):
+            if _blocked_fpr(k, n_words, h) <= fpr:
+                best = (n_words, h)
+                break
+        if best:
+            break
+        n_words = int(n_words * 1.3) + 1
+    if best is None:
+        best = (n_words, 12)
+    n_words, h = best
+    if mode == "mod":
+        n_words |= 1  # odd: coprime to power-of-2 index strides
+    return n_words * 32, h, fpr
+
+
+def p0_budget(k: int, d: int, fpr: float) -> int:
+    """Static slot budget of policy p0: the Lemma-6 expectation of the
+    positive count plus headroom."""
+    return min(d, int(math.ceil(k + 1.05 * fpr * (d - k))) + 64)
+
+
+def policy_budget(policy: str, k: int, d: int, fpr: float) -> int:
+    return p0_budget(k, d, fpr) if policy == "p0" else k
+
+
+@dataclasses.dataclass(frozen=True)
+class BloomMeta:
+    """Static codec geometry, shared by encode and decode."""
+
+    d: int
+    k: int
+    m_bits: int
+    num_hash: int
+    fpr: float
+    policy: str
+    budget: int
+    blocked: str = "mod"
+
+    @property
+    def n_words(self) -> int:
+        return self.m_bits // 32
+
+    @staticmethod
+    def create(
+        k: int, d: int, fpr: Optional[float] = None, policy: str = "leftmost", blocked="mod"
+    ) -> "BloomMeta":
+        if blocked is True:
+            blocked = "mod"
+        if blocked != "mod":
+            raise ValueError(
+                f"bloom_blocked={blocked!r}: only the 'mod' blocked layout is ported"
+            )
+        if policy not in ("leftmost", "p0"):
+            raise ValueError(f"bloom policy {policy!r}: only 'leftmost' and 'p0' are ported")
+        m_bits, num_hash, fpr_eff = blocked_bloom_config(k, d, fpr, mode="mod")
+        return BloomMeta(
+            d=d,
+            k=k,
+            m_bits=m_bits,
+            num_hash=num_hash,
+            fpr=fpr_eff,
+            policy=policy,
+            budget=policy_budget(policy, k, d, fpr_eff),
+            blocked="mod",
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class BloomPayload:
+    values: torch.Tensor  # f32[budget] (f32[0] once stripped in 'both' mode)
+    words: torch.Tensor  # int32[W] — uint32 filter words as bit patterns
+    nsel: torch.Tensor  # i32[] — live selected count
+
+    def leaves(self) -> Tuple[torch.Tensor, ...]:
+        return (self.values, self.words, self.nsel)
+
+
+def saturated(payload: BloomPayload, meta: BloomMeta) -> torch.Tensor:
+    """True when the selection filled every slot (nsel == budget), i.e.
+    trailing positives may have been cut."""
+    return payload.nsel.to(torch.int32) >= meta.budget
+
+
+def insert(indices: torch.Tensor, nnz: torch.Tensor, meta: BloomMeta) -> torch.Tensor:
+    """Filter words (int32 bit patterns) from the live indices. Word w is
+    the OR of the lane masks of the indices j = w mod W: every (index, lane)
+    pair sets one bit of a [W, 32] bitmap (dead slots set a parked bit past
+    the end), and the bitmap rows are summed as distinct powers of two."""
+    dev = indices.device
+    n_words = meta.n_words
+    live = torch.arange(indices.shape[0], device=dev) < nnz
+    word = indices.to(torch.int64) % n_words
+    parked = torch.full_like(word, n_words * 32)
+    bits = torch.zeros(n_words * 32 + 1, dtype=torch.int64, device=dev)
+    for lane in _lanes(indices, meta.num_hash):
+        bits[torch.where(live, word * 32 + lane, parked)] = 1
+    shifts = torch.arange(32, device=dev)
+    words = (bits[: n_words * 32].view(n_words, 32) << shifts).sum(dim=1)
+    return u32.to_bits(words)
+
+
+def _mod_grid(meta: BloomMeta, device: torch.device) -> Tuple[int, torch.Tensor, torch.Tensor]:
+    """(rows, universe index grid j [rows, W], lane masks [rows, W]) — the
+    [ceil(d/W), W] layout the universe query broadcasts over."""
+    n_words = meta.n_words
+    rows = (meta.d + n_words - 1) // n_words
+    j = torch.arange(rows * n_words, dtype=torch.int64, device=device).view(rows, n_words)
+    return rows, j, lane_mask(j, meta.num_hash)
+
+
+def query_universe(words: torch.Tensor, meta: BloomMeta) -> torch.Tensor:
+    """bool[d]: membership of every universe index. block(j) = j mod W, so
+    laying the universe out as [ceil(d/W), W] makes each row test against
+    the whole word array by broadcast — no gather."""
+    _, j, mask = _mod_grid(meta, words.device)
+    w = u32.from_bits(words)
+    hit = ((w[None, :] & mask) == mask) & (j < meta.d)
+    return hit.reshape(-1)[: meta.d]
+
+
+def _fp_aware_payload(words: torch.Tensor, flat: torch.Tensor, meta: BloomMeta) -> BloomPayload:
+    """Query the universe, take the first `budget` positives and re-read the
+    true dense values there (one ascending gather)."""
+    mask = query_universe(words, meta)
+    pos, nsel = _prefix_positions(mask, meta.budget)
+    live = torch.arange(meta.budget, device=flat.device) < nsel
+    values = torch.where(live, flat[pos.long()], torch.zeros((), dtype=flat.dtype, device=flat.device))
+    return BloomPayload(values=values, words=words, nsel=nsel)
+
+
+def encode(sp: SparseGrad, dense: torch.Tensor, meta: BloomMeta) -> BloomPayload:
+    """Insert + FP-aware value re-read from the dense tensor."""
+    words = insert(sp.indices, sp.nnz, meta)
+    return _fp_aware_payload(words, dense.reshape(-1), meta)
+
+
+def decode_dense(
+    payload: BloomPayload,
+    meta: BloomMeta,
+    shape: Tuple[int, ...],
+    *,
+    values: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Rank-inversion decode straight to the dense tensor: value slot s goes
+    to universe position `_prefix_positions(mask)[s]` for s < nsel.
+    `values` overrides the payload's values ('both' mode passes the value
+    codec's output, already in rank order)."""
+    vals = payload.values if values is None else values
+    n_v = vals.shape[0]
+    vals = _sparse.fit_length(vals, meta.budget)
+    mask = query_universe(payload.words, meta)
+    pos, derived = _prefix_positions(mask, meta.budget)
+    nsel = torch.minimum(torch.clamp(payload.nsel, max=meta.budget), derived)
+    nsel = torch.clamp(nsel, max=n_v)
+    return _sparse.scatter_ascending(vals, pos, nsel, meta.d).reshape(shape)
+
+
+def wire_bits(payload: BloomPayload, meta: BloomMeta) -> torch.Tensor:
+    """Filter bits + selected values + count word."""
+    return (64.0 + meta.m_bits) + payload.nsel.to(torch.float32) * 32

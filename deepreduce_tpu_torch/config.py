@@ -1,0 +1,107 @@
+"""DeepReduce configuration for the port: the main-path knobs only.
+
+A copy of the knobs of `deepreduce_tpu/config.py` that the DRQSGD-BF-P0
+slice runs, with the same names and defaults. A value the port does not
+implement raises `ConfigError` naming the knob, so that no run quietly
+takes another path than the one it asked for (for instance
+`approx_topk=True`: torch has no `approx_max_k`, and exact top-k in its
+place would be a silent substitute).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+
+class ConfigError(ValueError):
+    """A rejected configuration; `.knob` names the offending field."""
+
+    def __init__(self, knob: str, message: str):
+        super().__init__(f"{message} [knob={knob}]")
+        self.knob = knob
+
+
+# knob -> the values the port implements
+_SUPPORTED = {
+    "compressor": ("topk",),
+    "approx_topk": (False,),
+    "memory": ("residual", "none"),
+    "communicator": ("allgather",),
+    "deepreduce": (None, "both"),
+    "fused": (True,),
+    "decode_strategy": ("loop",),
+}
+# codec knobs, read only when a codec runs (deepreduce is not None)
+_SUPPORTED_CODEC = {
+    "index": ("bloom",),
+    "value": ("qsgd",),
+    "policy": ("p0", "leftmost"),
+    "bloom_blocked": ("mod", True),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepReduceConfig:
+    compressor: str = "topk"
+    compress_ratio: float = 0.01
+    approx_topk: bool = False
+    memory: str = "residual"
+    beta: float = 1.0
+    gamma: float = 1.0
+    communicator: str = "allgather"
+    deepreduce: Optional[str] = None
+    value: str = "polyfit"
+    index: str = "bloom"
+    fpr: Optional[float] = None
+    policy: str = "leftmost"
+    bloom_blocked: Any = False
+    quantum_num: int = 127
+    bucket_size: int = 512
+    seed: int = 0
+    fused: bool = True
+    decode_strategy: str = "loop"
+    min_compress_size: Optional[int] = None
+
+    def __post_init__(self):
+        checked = dict(_SUPPORTED, **(_SUPPORTED_CODEC if self.deepreduce is not None else {}))
+        for knob, allowed in checked.items():
+            val = getattr(self, knob)
+            # `is` for the booleans: 1 == True would let 1 through
+            if not any(val is a or (type(val) is type(a) and val == a) for a in allowed):
+                raise ConfigError(
+                    knob,
+                    f"{knob}={val!r} is not ported to deepreduce_tpu_torch yet "
+                    f"(supported: {list(allowed)})",
+                )
+        if not 0.0 < self.compress_ratio <= 1.0:
+            raise ConfigError("compress_ratio", "compress_ratio must lie in (0, 1]")
+        if self.fpr is not None and not 0.0 < self.fpr < 1.0:
+            raise ConfigError("fpr", "fpr must lie in (0, 1)")
+        if not 0 < self.quantum_num <= 127:
+            raise ConfigError("quantum_num", "quantum_num must lie in [1, 127] (int8 levels)")
+        if self.bucket_size <= 0:
+            raise ConfigError("bucket_size", "bucket_size must be positive")
+
+    def codec_params(self) -> Dict[str, Any]:
+        return {
+            "fpr": self.fpr,
+            "policy": self.policy,
+            "bloom_blocked": self.bloom_blocked,
+            "quantum_num": self.quantum_num,
+            "bucket_size": self.bucket_size,
+            "seed": self.seed,
+        }
+
+
+def from_params(params: Dict[str, Any]) -> DeepReduceConfig:
+    """Build a config from a reference-style params dict. Unlike the JAX
+    package's lenient default, every key must be a knob of the port: a key
+    that would be dropped raises `ConfigError` naming it."""
+    fields = {f.name for f in dataclasses.fields(DeepReduceConfig)}
+    for key in params:
+        if key not in fields:
+            raise ConfigError(
+                key, f"{key!r} is not a knob of deepreduce_tpu_torch (known: {sorted(fields)})"
+            )
+    return DeepReduceConfig(**params)

@@ -1,0 +1,31 @@
+"""Hand-written CUDA kernels of the port, each beside its plain version."""
+
+from typing import Dict
+
+from deepreduce_tpu_torch.ops.qsgd_kernel import (
+    philox_uniforms_plain,
+    quantize_levels,
+    quantize_levels_plain,
+)
+
+# kernel name -> its wrapper (each wrapper counts its own launches)
+KERNELS = {"qsgd_quantize": quantize_levels}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+__all__ = [
+    "KERNELS",
+    "launch_counts",
+    "philox_uniforms_plain",
+    "quantize_levels",
+    "quantize_levels_plain",
+    "reset_launch_counts",
+]

@@ -1,0 +1,108 @@
+"""Data-parallel training step, ported from `deepreduce_tpu/train.py`.
+
+One process per worker (rank of the process group; one worker without a
+group). The step is forward/backward -> `compensate` -> fused exchange ->
+`update` -> optimizer, with `torch.optim.SGD(lr, momentum)`, whose update
+matches `optax.sgd(lr, momentum)`. Parameters and optimizer state are
+updated in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+from torch import nn
+
+from deepreduce_tpu_torch.comm import GradientExchanger
+from deepreduce_tpu_torch.config import DeepReduceConfig
+from deepreduce_tpu_torch.device import DeviceLike, resolve_device
+from deepreduce_tpu_torch.metrics import WireStats
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainState:
+    params: Dict[str, nn.Parameter]  # by flax name; the model's own tensors
+    optimizer: torch.optim.Optimizer
+    residuals: Optional[Dict[str, torch.Tensor]]  # worker-local error feedback
+    step: int
+
+
+def classification_loss(model: nn.Module) -> Callable:
+    """batch = (inputs, int labels) -> mean softmax cross-entropy over every
+    position (the JAX package's `classification_loss` without BatchNorm)."""
+
+    def loss_fn(batch) -> torch.Tensor:
+        inputs, labels = batch
+        logits = model(inputs)
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1).long())
+
+    return loss_fn
+
+
+class Trainer:
+    """Synchronous data-parallel trainer over a process group."""
+
+    def __init__(
+        self,
+        model: nn.Module,
+        cfg: DeepReduceConfig,
+        *,
+        lr: float,
+        momentum: float = 0.0,
+        device: DeviceLike = "cuda",
+        group: Optional[dist.ProcessGroup] = None,
+        loss_fn: Optional[Callable] = None,
+    ):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.cfg = cfg
+        self.lr = lr
+        self.momentum = momentum
+        self.group = group
+        self.loss_fn = loss_fn or classification_loss(self.model)
+        self.exchanger: Optional[GradientExchanger] = None
+
+    def init_state(self) -> TrainState:
+        params = self.model.flax_params()
+        self.exchanger = GradientExchanger(params, self.cfg, device=self.device, group=self.group)
+        residuals = self.exchanger.init_state({n: p.detach() for n, p in params.items()})
+        opt = torch.optim.SGD(list(params.values()), lr=self.lr, momentum=self.momentum)
+        return TrainState(params=params, optimizer=opt, residuals=residuals, step=0)
+
+    def _mean_over_workers(self, x: torch.Tensor) -> torch.Tensor:
+        if self.group is None:
+            return x
+        x = x.clone()
+        dist.all_reduce(x, group=self.group)
+        return x / dist.get_world_size(self.group)
+
+    def step(
+        self, state: TrainState, batch, *, uniforms: Optional[Dict[str, torch.Tensor]] = None
+    ) -> Tuple[TrainState, torch.Tensor, WireStats]:
+        """One synchronous step on this worker's batch shard. Returns the new
+        state, the loss (mean over workers) and the wire stats (index and
+        value bits averaged over workers, saturation counts summed).
+        `uniforms` is the CPU parity tests' QSGD hook (see `GradientExchanger`)."""
+        params = state.params
+        for p in params.values():
+            p.grad = None
+        loss = self.loss_fn(batch)
+        loss.backward()
+        grads = {n: p.grad for n, p in params.items()}
+        agg, residuals, wire = self.exchanger.exchange(
+            grads, state.residuals, step=state.step, uniforms=uniforms
+        )
+        for n, p in params.items():
+            p.grad = agg[n]
+        state.optimizer.step()
+        loss = self._mean_over_workers(loss.detach())
+        if self.group is not None:
+            w = dist.get_world_size(self.group)
+            bits = torch.stack([wire.index_bits, wire.value_bits, wire.saturated * w])
+            bits = self._mean_over_workers(bits)
+            wire = WireStats(bits[0], bits[1], wire.dense_bits, bits[2])
+        return dataclasses.replace(state, residuals=residuals, step=state.step + 1), loss, wire
