@@ -6,21 +6,25 @@
 Phases, one line each; any failure raises and exits non-zero:
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
   2. build every kernel from the sources in the checkout (nvcc, sm_90a);
-  3. each kernel against its plain PyTorch version on the card's inputs,
-     at every size the main path launches it with and at an odd size:
-     QSGD levels bitwise equal, |level| <= q, unbiased over many seeds,
-     repeatable for a fixed (seed, offset);
+  3. each kernel against its plain PyTorch version on the card's inputs:
+     qsgd_quantize at every size the per-leaf encode launched it with and at
+     an odd size; qsgd_encode_rows on the main path's own 12-segment table and
+     on single segments at odd sizes, bucket sizes and alignments. Levels
+     and norm bytes bitwise equal, |level| <= q, unbiased over many
+     offsets, repeatable for a fixed (seed, offset);
   4. one Embed_0-sized gradient through TensorCodec on the card and on the
-     CPU with the same seed: filter words, nsel and levels equal, decoded
-     tensors within the stated tolerance;
+     CPU with the same seed: filter words, nsel, every bucket norm and every
+     level bitwise equal, decoded tensors within the stated tolerance;
   5. the main path: `Trainer.step` of DRQSGD-BF-P0 (top-k 0.1, mod-blocked
      bloom p0 at fpr 0.02, QSGD q=127 / 512, residual memory, SGD lr 0.1
      momentum 0.9) on the full-width WordLSTM (4,050,748 parameters), batch
      64 x 20 synthetic tokens, through a one-rank NCCL group so the real
      all_gather_into_tensor runs. Kernel launch counts are zeroed just
-     before and read just after, and every kernel must have launched;
-  6. per-launch device times (torch.profiler) of each kernel and its plain
-     version at the main path's sizes, then the `kernels` JSON line.
+     before and read just after: qsgd_encode_rows once per worker-step,
+     qsgd_quantize never (it is no longer on the main path);
+  6. device times (torch.profiler) and host times of each kernel and its
+     plain version at the main path's shapes, beside the per-leaf QSGD
+     composition the fused kernel replaced, then the `kernels` JSON line.
 `--profile` adds one profiled training step after phase 5: the device's
 busy and idle share over the step and its largest kernels.
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without
@@ -39,8 +43,12 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+F64_OPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores, NVIDIA data sheet
 QSGD_BYTES_PER_ELEM = 9  # read value f32 + scale f32, write level int8
 QSGD_F32_OPS_PER_ELEM = 8  # abs, mul, floor, sub, cvt+mul (uniform), cmp, add, sign-mul
+ENCODE_F64_OPS_PER_ELEM = 2  # the norm: square, add
+# the main path's stream coordinates in the tables phase 3 and 6 build
+TABLE_STEP, TABLE_WORKER = 3, 0
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -59,25 +67,26 @@ def _flagship_cfg(seed: int):
     )
 
 
-def _time_ms(fn, reps: int) -> float:
+def _host_ms(fn, reps: int) -> float:
+    """Host time per call: the wrapper's checks, allocations and launches,
+    over `reps` back-to-back calls, without waiting for the card."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
 
 
-def _device_ms(fn, reps: int, name_part: str = "") -> float:
-    """Device time per call from torch.profiler: the self device time of the
-    kernels whose name contains `name_part` (all kernels when empty),
-    summed over `reps` calls, divided by `reps`. 0.0 if the profiler saw
-    no device time."""
+def _device_ms(fn, reps: int, name_part: str = "") -> tuple:
+    """(device ms, kernel launches) per call from torch.profiler: the self
+    device time and count of the kernels whose name contains `name_part`
+    (all kernels when empty) over `reps` calls, divided by `reps`. The time
+    is 0.0 if the profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -87,8 +96,8 @@ def _device_ms(fn, reps: int, name_part: str = "") -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(us for key, _, us in _kernel_rows(prof) if name_part in key)
-    return total_us / 1e3 / reps
+    rows = [(cnt, us) for key, cnt, us in _kernel_rows(prof) if name_part in key]
+    return sum(us for _, us in rows) / 1e3 / reps, sum(cnt for cnt, _ in rows) / reps
 
 
 def _kernel_rows(prof):
@@ -171,8 +180,13 @@ def phase_build() -> None:
     print(f"phase 2 ok: built {json.dumps({k: round(v, 2) for k, v in times.items()})} s", flush=True)
 
 
-def phase_kernels(sizes) -> float:
-    """Kernel vs plain on the card's inputs; returns the max |difference|."""
+def phase_kernels(sizes, ex) -> dict:
+    """Each kernel vs its plain version on the card's inputs; returns the
+    max |difference| per kernel."""
+    return {"qsgd_quantize": _check_quantize(sizes), "qsgd_encode_rows": _check_encode(ex)}
+
+
+def _check_quantize(sizes) -> float:
     import torch
 
     from deepreduce_tpu_torch.ops import philox_uniforms_plain, quantize_levels, quantize_levels_plain
@@ -188,7 +202,7 @@ def phase_kernels(sizes) -> float:
         err = float((got.cpu().int() - ref.int()).abs().max())
         max_err = max(max_err, err)
         _check(torch.equal(got.cpu(), ref), f"qsgd_quantize != plain at n={n} (max |diff| {err})")
-        _check(int(got.abs().max()) <= 127, f"|level| > q at n={n}")
+        _check(int(got.int().abs().max()) <= 127, f"|level| > q at n={n}")
         _check(torch.equal(got, quantize_levels(v, s, seed, offset, device=dev)), f"not repeatable at n={n}")
         _check(not torch.equal(got, quantize_levels(v, s, seed, offset + 1, device=dev)) or n < 64,
                f"offset does not change the draw at n={n}")
@@ -205,6 +219,121 @@ def phase_kernels(sizes) -> float:
     _check(dev_max < bound, f"biased quantizer: max |mean - v| {dev_max} >= {bound}")
     print(f"phase 3 ok: qsgd_quantize bitwise equal to plain at n={sorted(set(sizes)) + [1_000_003]}, "
           f"max_abs_err {max_err}, unbiased (max |mean-v| {dev_max:.3g} < {bound:.3g})", flush=True)
+    return max_err
+
+
+def _main_path_table(ex, seed: int):
+    """The main path's segment table on the card: one segment per compressed
+    leaf of `ex`, f32[budget] values (30% exact zeros, gradient-sized) made
+    from `seed`, rows at the leaf's offset in the fused buffer, the leaf's
+    own stream at (TABLE_STEP, TABLE_WORKER)."""
+    import torch
+
+    from deepreduce_tpu_torch.ops import EncodeSegment
+    from deepreduce_tpu_torch.sparse import per_tensor_stream
+    from deepreduce_tpu_torch.wrappers import ROWS_LEAF
+
+    gen = torch.Generator().manual_seed(seed)
+    segs = []
+    for n in ex.names:
+        codec = ex.codecs[n]
+        if not codec.compressed:
+            continue
+        k = codec.val_codec.meta.k
+        v = torch.randn(k, generator=gen) * 1e-3
+        v[torch.rand(k, generator=gen) < 0.3] = 0.0
+        rows_lo = ex.offsets[n] + ex.layouts[n].leaf_offsets[ROWS_LEAF]
+        st_seed, st_offset = per_tensor_stream(ex.cfg.seed, n, TABLE_STEP, TABLE_WORKER)
+        segs.append(EncodeSegment(v.cuda(), rows_lo, st_seed, st_offset))
+    return segs
+
+
+def _encode_on_card_and_cpu(segs, nbytes: int, q: int, bs: int):
+    """(rows from the kernel, rows from the plain version on the CPU) of
+    one table, both uint8[nbytes] on the CPU."""
+    import dataclasses
+
+    import torch
+
+    from deepreduce_tpu_torch.ops import qsgd_encode_rows
+
+    out = torch.zeros(nbytes, dtype=torch.uint8, device="cuda")
+    qsgd_encode_rows(segs, out, quantum_num=q, bucket_size=bs, device="cuda")
+    torch.cuda.synchronize()
+    ref = torch.zeros(nbytes, dtype=torch.uint8)
+    cpu_segs = [dataclasses.replace(s, values=s.values.cpu()) for s in segs]
+    qsgd_encode_rows(cpu_segs, ref, quantum_num=q, bucket_size=bs, device="cpu")
+    return out.cpu(), ref
+
+
+def _segment_rows(buf, seg, bs: int):
+    """(int8 levels [B, bs], f32 norms [B]) of one segment's rows in `buf`."""
+    import torch
+
+    from deepreduce_tpu_torch.ops.qsgd_encode import num_buckets
+
+    b = num_buckets(seg.values.shape[0], bs)
+    rows = buf[seg.out_offset : seg.out_offset + b * (bs + 4)].view(b, bs + 4)
+    return rows[:, :bs].view(torch.int8), rows[:, bs:].contiguous().view(torch.float32).reshape(b)
+
+
+def _check_rows(got, ref, segs, bs: int, q: int, what: str) -> float:
+    """Bitwise equality of every segment's rows and |level| <= q; returns
+    the max |difference| over levels and norms."""
+    err = 0.0
+    for i, seg in enumerate(segs):
+        gl, gn = _segment_rows(got, seg, bs)
+        rl, rn = _segment_rows(ref, seg, bs)
+        err = max(err, float((gl.int() - rl.int()).abs().max()), float((gn - rn).abs().max()))
+        _check(int(gl.int().abs().max()) <= q, f"|level| > q in {what} segment {i}")
+    _check(bool((got == ref).all()), f"qsgd_encode_rows != plain on {what} (max |diff| {err})")
+    return err
+
+
+def _check_encode(ex) -> float:
+    import torch
+
+    from deepreduce_tpu_torch.ops import EncodeSegment, qsgd_encode_rows
+    from deepreduce_tpu_torch.ops.qsgd_encode import rows_nbytes
+
+    q, bs = ex.cfg.quantum_num, ex.cfg.bucket_size
+    # the main path's own table, at its offsets in the fused buffer
+    segs = _main_path_table(ex, seed=11)
+    got, ref = _encode_on_card_and_cpu(segs, ex.fused_nbytes, q, bs)
+    max_err = _check_rows(got, ref, segs, bs, q, "the main path's table")
+    again, _ = _encode_on_card_and_cpu(segs, ex.fused_nbytes, q, bs)
+    _check(torch.equal(got, again), "qsgd_encode_rows is not repeatable")
+    moved = [EncodeSegment(s.values, s.out_offset, s.seed, s.offset + 1) for s in segs]
+    other, _ = _encode_on_card_and_cpu(moved, ex.fused_nbytes, q, bs)
+    _check(not torch.equal(got, other), "the offset does not change the draw")
+    # single segments: odd sizes, a bucket size that is not a multiple of 4,
+    # one above 512, values off a 16-byte boundary, rows off a 4-byte one
+    cases = [(1, 512, 0, 0), (5, 512, 0, 0), (513, 512, 0, 0), (1_000_003, 512, 0, 0),
+             (5, 100, 0, 0), (513, 100, 0, 0), (1_000_003, 100, 0, 0), (3001, 1024, 0, 0),
+             (114_688, 512, 1, 0), (53_760, 512, 0, 1), (513, 512, 3, 2)]
+    gen = torch.Generator().manual_seed(12)
+    for i, (k, cbs, vshift, oshift) in enumerate(cases):
+        v = torch.randn(k + vshift, generator=gen)
+        v[torch.rand(k + vshift, generator=gen) < 0.3] = 0.0
+        seg = [EncodeSegment(v.cuda()[vshift:], oshift, (0xFEED << 32) | i, (i << 32) | 1)]
+        got1, ref1 = _encode_on_card_and_cpu(seg, oshift + rows_nbytes(k, cbs), q, cbs)
+        max_err = max(max_err, _check_rows(got1, ref1, seg, cbs, q, f"k={k} bucket {cbs} shifts {vshift}/{oshift}"))
+    # unbiasedness: the decoded mean over many offsets matches the values
+    k, draws = 8192, 256
+    v = torch.randn(k, generator=gen).cuda()
+    out = torch.zeros(rows_nbytes(k, bs), dtype=torch.uint8, device="cuda")
+    acc = torch.zeros(k, dtype=torch.float64, device="cuda")
+    for d in range(draws):
+        seg = EncodeSegment(v, 0, 99, d)
+        qsgd_encode_rows([seg], out, quantum_num=q, bucket_size=bs, device="cuda")
+        levels, norms = _segment_rows(out, seg, bs)
+        acc += (levels.double() * (norms.double() / q)[:, None]).reshape(-1)
+    dev_max = float(((acc / draws) - v.double()).abs().max())
+    bound = 6 * float(norms.double().max()) / q / 2 / math.sqrt(draws)
+    _check(dev_max < bound, f"biased encode: max |mean - v| {dev_max} >= {bound}")
+    print(f"phase 3 ok: qsgd_encode_rows bitwise equal to plain (levels and norm bytes) on the main path's "
+          f"{len(segs)}-segment table and at (k, bucket, value shift, row shift) {cases}, max_abs_err {max_err}, "
+          f"repeatable, unbiased (max |mean-v| {dev_max:.3g} < {bound:.3g})", flush=True)
     return max_err
 
 
@@ -232,13 +361,14 @@ def phase_codec(seed: int) -> None:
     crows = cp.value_payload.data.view(meta.num_buckets, -1)
     gnorm = grows[:, meta.bucket_size:].contiguous().view(torch.float32)
     cnorm = crows[:, meta.bucket_size:].contiguous().view(torch.float32)
-    _check(torch.allclose(gnorm, cnorm, rtol=1e-6, atol=0), "bucket norms differ beyond rtol 1e-6")
-    same = (gnorm == cnorm).reshape(-1)
-    _check(torch.equal(grows[same], crows[same]), "levels differ in a bucket with equal norm")
-    # decoded values are norm/q * level: equal norms and levels decode alike
+    same = int((gnorm == cnorm).sum())
+    _check(same == meta.num_buckets, f"bucket norms differ: {same}/{meta.num_buckets} bitwise equal")
+    _check(torch.equal(grows, crows), "levels differ")
+    # decoded values are norm/q * level; the divide may round differently
+    # on the two devices, hence the tolerance
     _check(torch.allclose(gdec, cdec, rtol=1e-6, atol=1e-6), "decoded tensors differ")
-    print(f"phase 4 ok: Embed_0 {shape} codec cuda == cpu: words, nsel={int(gp.nsel)}, levels "
-          f"({int(same.sum())}/{meta.num_buckets} norms bitwise), decoded within rtol 1e-6", flush=True)
+    print(f"phase 4 ok: Embed_0 {shape} codec cuda == cpu: words, nsel={int(gp.nsel)}, "
+          f"{same}/{meta.num_buckets} norms and every level bitwise, decoded within rtol 1e-6", flush=True)
 
 
 def phase_train(seed: int, steps: int, batch: int, seq: int, profile: bool = False) -> dict:
@@ -281,10 +411,10 @@ def phase_train(seed: int, steps: int, batch: int, seq: int, profile: bool = Fal
         launches = launch_counts()
         ex = trainer.exchanger
         sizes = [c.val_codec.meta.padded_len for c in ex.codecs.values() if c.compressed]
-        for name, count in launches.items():
-            _check(count > 0, f"kernel {name} was not launched on the main path")
-        _check(launches["qsgd_quantize"] == len(sizes) * steps,
-               f"qsgd_quantize launched {launches['qsgd_quantize']} times, expected {len(sizes) * steps}")
+        # one grouped QSGD encode per worker-step; the per-leaf quantizer
+        # is no longer on the main path
+        expected = {"qsgd_quantize": 0, "qsgd_encode_rows": steps}
+        _check(launches == expected, f"kernel launches on the main path {launches}, expected {expected}")
         _check(all(math.isfinite(l) for l in losses), f"non-finite loss {losses}")
         _check(all(bool(torch.isfinite(p).all()) for p in state.params.values()), "non-finite parameters")
         _check(abs(losses[0] - ref_loss) <= 1e-4 * abs(ref_loss),
@@ -310,7 +440,35 @@ def phase_train(seed: int, steps: int, batch: int, seq: int, profile: bool = Fal
         dist.destroy_process_group()
 
 
-def phase_timing(sizes, launches: dict, max_err: float) -> None:
+def _per_leaf_composition(segs, q: int, bs: int):
+    """The QSGD encode of a worker-step as the port's first slice composed
+    it, leaf by leaf: zero padding, the bucket norm (a float64 `sum`) and
+    scale (`q / norm` through torch's reciprocal) broadcast to a scale
+    vector, one `quantize_levels` launch, the `cat` of levels and norm bytes
+    into rows, then one `cat` of every leaf's rows. The "before" of the
+    fused kernel."""
+    import torch
+
+    from deepreduce_tpu_torch.ops import quantize_levels
+
+    leaves = []
+    for seg in segs:
+        k = seg.values.shape[0]
+        b = -(-k // bs)
+        padded = torch.zeros(b * bs, dtype=torch.float32, device=seg.values.device)
+        padded[:k] = seg.values
+        buckets = padded.reshape(b, bs)
+        norms = buckets.double().square().sum(dim=1).sqrt().float()
+        safe = torch.where(norms > 0, norms, torch.ones_like(norms))
+        scale = (q / safe)[:, None].expand(buckets.shape).reshape(-1)
+        levels = quantize_levels(padded, scale.contiguous(), seg.seed, seg.offset, device=padded.device)
+        leaves.append(torch.cat([levels.reshape(b, bs), norms.view(torch.int8).reshape(b, 4)], dim=1).reshape(-1))
+    return torch.cat(leaves)
+
+
+def _time_quantize(sizes, launches: dict, max_err: float) -> dict:
+    """qsgd_quantize per launch at each of the sizes the per-leaf encode
+    gave it; its `kernels` entry sums one worker-step's 12 launches."""
     import torch
 
     from deepreduce_tpu_torch.ops import philox_uniforms_plain, quantize_levels, quantize_levels_plain
@@ -322,34 +480,103 @@ def phase_timing(sizes, launches: dict, max_err: float) -> None:
         seed, offset = 1234, i
         kernel = lambda: quantize_levels(v, s, seed, offset, device=dev)
         plain = lambda: quantize_levels_plain(v, s, philox_uniforms_plain(n, seed, offset, device=dev))
-        # device time from the profiler; back-to-back launches timed with
-        # CUDA events measure the wrapper's host cost instead (the card idles)
-        ms = _device_ms(kernel, 200, "qsgd_quantize_kernel")
-        plain_ms = _device_ms(plain, 20)
+        # device time from the profiler: back-to-back launches leave the
+        # card idle between them, so events would time the host instead
+        ms, _ = _device_ms(kernel, 200, "qsgd_quantize_kernel")
+        plain_ms, _ = _device_ms(plain, 20)
         _check(ms > 0 and plain_ms > 0, "the profiler saw no device time")
         bound_ms = max(QSGD_BYTES_PER_ELEM * n / HBM_BYTES_PER_S, QSGD_F32_OPS_PER_ELEM * n / F32_OPS_PER_S) * 1e3
         per_n.append({
             "n": n, "count_per_step": sizes.count(n), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "wrapper_ms": _time_ms(kernel, 200), "plain_wrapper_ms": _time_ms(plain, 20),
+            "host_ms": _host_ms(kernel, 200), "plain_host_ms": _host_ms(plain, 20),
         })
     print("phase 6 ok: qsgd_quantize per launch " + json.dumps(per_n), flush=True)
     step_sum = lambda key: sum(r[key] * r["count_per_step"] for r in per_n)
     bytes_bound = QSGD_BYTES_PER_ELEM * sum(sizes) / HBM_BYTES_PER_S
     ops_bound = QSGD_F32_OPS_PER_ELEM * sum(sizes) / F32_OPS_PER_S
-    kernels = [{
+    return {
         "name": "qsgd_quantize",
         "route": "cuda",
         "source": "deepreduce_tpu_torch/ops/csrc/qsgd_quantize.cu",
         "replaces": "deepreduce_tpu/ops/qsgd_kernel.py:42",
         "launches": launches["qsgd_quantize"],
         "max_abs_err": max_err,
-        # one worker-step's launches: the sum over the main path's sizes
+        # one worker-step's launches as the per-leaf encode made them: the
+        # sum over the 12 sizes
         "ms": step_sum("ms"),
         "plain_ms": step_sum("plain_ms"),
         "bound_ms": max(bytes_bound, ops_bound) * 1e3,
         "bound_by": "bytes" if bytes_bound >= ops_bound else "operations",
         "library_ms": None,  # no single PyTorch call computes this function
-    }]
+    }
+
+
+def _time_encode(ex, launches: dict, max_err: float) -> dict:
+    """qsgd_encode_rows on the main path's 12-segment table (one launch per
+    worker-step) beside its plain version and the per-leaf composition it
+    replaced."""
+    import dataclasses
+
+    import torch
+
+    from deepreduce_tpu_torch.ops import qsgd_encode_rows, qsgd_encode_rows_plain
+    from deepreduce_tpu_torch.ops.qsgd_encode import num_buckets
+
+    q, bs = ex.cfg.quantum_num, ex.cfg.bucket_size
+    segs = _main_path_table(ex, seed=13)
+    out = torch.zeros(ex.fused_nbytes, dtype=torch.uint8, device="cuda")
+    kernel = lambda: qsgd_encode_rows(segs, out, quantum_num=q, bucket_size=bs, device="cuda")
+    plain = lambda: qsgd_encode_rows_plain(segs, q, bs, out)
+    before = lambda: _per_leaf_composition(segs, q, bs)
+    ms, per_call = _device_ms(kernel, 200, "qsgd_encode_rows_kernel")
+    # the launch floor at this table's parameter size: one bucket of work
+    one = [dataclasses.replace(segs[0], values=segs[0].values[:bs])]
+    floor_ms, _ = _device_ms(lambda: qsgd_encode_rows(one, out, quantum_num=q, bucket_size=bs, device="cuda"),
+                             200, "qsgd_encode_rows_kernel")
+    plain_ms, plain_launches = _device_ms(plain, 10)
+    before_ms, before_launches = _device_ms(before, 20)
+    _check(ms > 0 and plain_ms > 0 and before_ms > 0, "the profiler saw no device time")
+    _check(per_call == 1, f"{per_call} qsgd_encode_rows kernels per call on the 12-segment table, expected 1")
+    # the fused rows against the composition's, bucket by bucket
+    kernel()
+    composed = before()
+    fused = torch.cat([out[s.out_offset : s.out_offset + num_buckets(s.values.shape[0], bs) * (bs + 4)]
+                       for s in segs]).view(torch.int8)
+    equal_rows = int((fused.view(-1, bs + 4) == composed.view(-1, bs + 4)).all(dim=1).sum())
+    live = sum(s.values.shape[0] for s in segs)
+    padded = sum(num_buckets(s.values.shape[0], bs) * bs for s in segs)
+    buckets = padded // bs
+    nbytes = 4 * live + padded + 4 * buckets  # read each live value, write each row byte
+    bytes_bound = nbytes / HBM_BYTES_PER_S
+    ops_bound = QSGD_F32_OPS_PER_ELEM * padded / F32_OPS_PER_S + ENCODE_F64_OPS_PER_ELEM * padded / F64_OPS_PER_S
+    detail = {
+        "segments": len(segs), "live_values": live, "padded_elements": padded, "buckets": buckets,
+        "bytes": nbytes, "device_ms": ms, "one_bucket_device_ms": floor_ms, "host_ms": _host_ms(kernel, 200),
+        "plain_ms": plain_ms, "plain_launches": plain_launches, "plain_host_ms": _host_ms(plain, 10),
+        "before_device_ms": before_ms, "before_launches": before_launches, "before_host_ms": _host_ms(before, 20),
+        "rows_equal_to_before": f"{equal_rows}/{buckets}",
+    }
+    print("phase 6 ok: qsgd_encode_rows per worker-step " + json.dumps(detail), flush=True)
+    return {
+        "name": "qsgd_encode_rows",
+        "route": "cuda",
+        "source": "deepreduce_tpu_torch/ops/csrc/qsgd_encode.cu",
+        "replaces": "deepreduce_tpu/ops/qsgd_kernel.py:42",
+        "launches": launches["qsgd_encode_rows"],
+        "max_abs_err": max_err,
+        "ms": ms,  # one launch per worker-step
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_bound, ops_bound) * 1e3,
+        "bound_by": "bytes" if bytes_bound >= ops_bound else "operations",
+        "library_ms": None,  # no single PyTorch call computes this function
+    }
+
+
+def phase_timing(sizes, ex, launches: dict, errs: dict) -> None:
+    kernels = [
+        _time_quantize(sizes, launches, errs["qsgd_quantize"]),
+        _time_encode(ex, launches, errs["qsgd_encode_rows"]),
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
 
 
@@ -384,11 +611,11 @@ def main(argv=None) -> int:
     shapes = {n: tuple(p.shape) for n, p in WordLSTM(embed_dim=96, hidden_dim=670).flax_params().items()}
     ex = GradientExchanger(shapes, _flagship_cfg(args.seed), device="cuda")
     sizes = [c.val_codec.meta.padded_len for c in ex.codecs.values() if c.compressed]
-    max_err = phase_kernels(sizes)
+    errs = phase_kernels(sizes, ex)
     phase_codec(args.seed)
     res = phase_train(args.seed, args.steps, args.batch, args.seq, args.profile)
     _check(res["qsgd_sizes"] == sizes, "main-path QSGD sizes differ from the codec geometry")
-    phase_timing(sizes, res["launches"], max_err)
+    phase_timing(sizes, ex, res["launches"], errs)
     print(f"chip_smoke total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({
         "ok": True,

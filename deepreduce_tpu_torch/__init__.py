@@ -8,9 +8,10 @@ each counterpart is easy to find. Every entry point takes an explicit
 `device="cpu"`.
 
 The slice ported so far is the DRQSGD-BF-P0 data-parallel step: exact
-top-k, a mod-blocked bloom index under the p0 policy, QSGD values (the
-quantizer is a hand-written CUDA kernel, `ops/csrc/qsgd_quantize.cu`), one
-fused uint8 allgather, residual error feedback and SGD.
+top-k, a mod-blocked bloom index under the p0 policy, QSGD values (every
+compressed leaf of a step encoded by one launch of a hand-written CUDA
+kernel, `ops/csrc/qsgd_encode.cu`), one fused uint8 allgather, residual
+error feedback and SGD.
 """
 
 from deepreduce_tpu_torch.config import ConfigError, DeepReduceConfig, from_params

@@ -5,10 +5,13 @@ Wire layout ``[bucket_size int8 levels | 4 norm bytes] x B``: the norm is
 the bucket's float32 L2 norm as its little-endian bit pattern. Values are
 zero-padded to whole buckets; padding quantizes to level 0.
 
-The bucket norm is accumulated in float64 and rounded once to float32, so
-the CPU and the card derive the same norm (a float32 sum would round in a
-device-dependent order) and therefore the same scale; the JAX package sums
-in float32, so norms agree with it to float32 rounding, not bitwise.
+`encode` writes the rows with the fused kernel `ops.qsgd_encode_rows` (a
+one-segment table; the exchange groups every leaf of a step into one
+launch). The bucket norm is summed in float64 in one fixed order
+(`ops.bucket_norms_ordered`) and rounded once to float32, so the CPU and
+the card derive the same norm bit for bit, and the scale `q / norm` is one
+IEEE divide, as in the JAX package. The JAX package sums in float32, so
+norms agree with it to float32 rounding, not bitwise.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from deepreduce_tpu_torch.ops import quantize_levels, quantize_levels_plain
+from deepreduce_tpu_torch.ops import EncodeSegment, bucket_norms_ordered, qsgd_encode_rows, scale_from_norms
 from deepreduce_tpu_torch.sparse import SparseGrad
 
 
@@ -57,12 +60,11 @@ class QSGDPayload:
 
 
 def bucket_scale(flat: torch.Tensor, quantum_num: int, bucket_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(scale f32[n], norms f32[n/bucket]) with the zero-norm guard; `flat`
-    length must be a multiple of bucket_size."""
-    buckets = flat.reshape(-1, bucket_size)
-    norms = buckets.double().square().sum(dim=1).sqrt().float()
-    safe = torch.where(norms > 0, norms, torch.ones_like(norms))
-    scale = (quantum_num / safe)[:, None].expand(buckets.shape).reshape(-1)
+    """(scale f32[n], norms f32[n/bucket]) with the zero-norm guard, exactly
+    as the fused kernel derives them; `flat` length must be a multiple of
+    bucket_size. The scale is what `ops.quantize_levels` takes."""
+    norms = bucket_norms_ordered(flat, bucket_size)
+    scale = scale_from_norms(norms, quantum_num)[:, None].expand(-1, bucket_size).reshape(-1)
     return scale, norms
 
 
@@ -74,25 +76,19 @@ def encode(
     *,
     uniforms: Optional[torch.Tensor] = None,
 ) -> QSGDPayload:
-    """Quantize `sp.values` with the Philox stream (seed, offset).
+    """Quantize `sp.values` (f32[meta.k]) with the Philox stream (seed,
+    offset) into fresh wire rows.
 
     `uniforms` (f32[B*bucket], CPU only) replaces the stream with given
     draws: the parity tests feed the uniforms JAX draws, to hold the port's
     bytes against the JAX package's. On a CUDA tensor it raises, so a run
     on the card always goes through the kernel."""
-    b, bs, q = meta.num_buckets, meta.bucket_size, meta.quantum_num
+    if sp.values.shape != (meta.k,):
+        raise ValueError(f"values have shape {tuple(sp.values.shape)}, the codec expects ({meta.k},)")
     dev = sp.values.device
-    padded = torch.zeros(b * bs, dtype=torch.float32, device=dev)
-    padded[: meta.k] = sp.values
-    scale, norms = bucket_scale(padded, q, bs)
-    if uniforms is None:
-        levels = quantize_levels(padded, scale.contiguous(), seed, offset, device=dev)
-    else:
-        if dev.type != "cpu":
-            raise ValueError("injected uniforms are a CPU parity hook; on CUDA the kernel draws them")
-        levels = quantize_levels_plain(padded, scale, uniforms)
-    norm_bytes = norms.view(torch.int8).reshape(b, 4)
-    data = torch.cat([levels.reshape(b, bs), norm_bytes], dim=1).reshape(-1)
+    data = torch.empty(meta.payload_len, dtype=torch.int8, device=dev)
+    seg = EncodeSegment(values=sp.values.contiguous(), out_offset=0, seed=seed, offset=offset, uniforms=uniforms)
+    qsgd_encode_rows([seg], data, quantum_num=meta.quantum_num, bucket_size=meta.bucket_size, device=dev)
     return QSGDPayload(data=data, indices=sp.indices, nnz=sp.nnz)
 
 

@@ -4,8 +4,7 @@ the bloom index codec and the QSGD value codec."""
 
 from __future__ import annotations
 
-import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -53,20 +52,11 @@ class QSGDCodec(Codec):
             bucket_size=int(self.params.get("bucket_size", 512)),
         )
 
-    def encode(self, sp: SparseGrad, seed: int, offset: int, *, uniforms=None) -> qsgd.QSGDPayload:
-        return qsgd.encode(sp, self.meta, seed, offset, uniforms=uniforms)
-
     def decode(self, payload, shape) -> SparseGrad:
         return qsgd.decode(payload, self.meta, shape)
 
     def value_wire_bits(self, payload) -> torch.Tensor:
         return qsgd.wire_bits(payload, self.meta)
-
-    def strip_for_both(self, payload) -> Tuple[qsgd.QSGDPayload, None, int]:
-        """Order-preserving: the 'both'-mode mapping is the identity, so it
-        is elided and the index field goes empty."""
-        empty = torch.zeros(0, dtype=torch.int32, device=payload.data.device)
-        return dataclasses.replace(payload, indices=empty), None, 0
 
 
 INDEX_CODECS: Dict[str, type] = {"bloom": BloomCodec}

@@ -4,10 +4,12 @@ mean, ported from `deepreduce_tpu/comm.py` for `communicator='allgather'`,
 
 The exchange is split into three parts so that each can be driven alone:
 
-1. `encode_worker`: compensate with the residual, encode every tensor and
-   pack all payloads into one uint8[B] buffer at static offsets (tensors in
-   sorted name order, each payload's leaves in the JAX pytree's order, so
-   the bytes are comparable with the JAX package's fused buffer);
+1. `encode_worker`: compensate with the residual, run every tensor's index
+   stage, write each payload's leaves into one uint8[B] buffer at static
+   offsets (tensors in sorted name order, each payload's leaves in the JAX
+   pytree's order, so the bytes are comparable with the JAX package's fused
+   buffer), and write the QSGD wire rows of every compressed tensor straight
+   into the buffer with one grouped kernel launch;
 2. `gather`: `dist.all_gather_into_tensor` over the process group into
    [W, B], or the identity at world size 1 without a group;
 3. `decode_aggregate`: decode every row in worker order into one running
@@ -28,7 +30,8 @@ from deepreduce_tpu_torch import memory
 from deepreduce_tpu_torch.config import DeepReduceConfig
 from deepreduce_tpu_torch.device import DeviceLike, resolve_device
 from deepreduce_tpu_torch.metrics import WireStats, combine
-from deepreduce_tpu_torch.wrappers import TensorCodec
+from deepreduce_tpu_torch.ops import qsgd_encode_rows
+from deepreduce_tpu_torch.wrappers import ROWS_LEAF, TensorCodec
 
 Tree = Dict[str, torch.Tensor]
 
@@ -44,23 +47,30 @@ class PayloadLayout:
     def __init__(self, specs: List[Tuple[Tuple[int, ...], torch.dtype]]):
         self.specs = [(tuple(s), dt) for s, dt in specs]
         self.leaf_bytes = [math.prod(s) * _itemsize(dt) for s, dt in self.specs]
+        self.leaf_offsets = [sum(self.leaf_bytes[:i]) for i in range(len(self.leaf_bytes))]
         self.nbytes = int(sum(self.leaf_bytes))
 
     def pack(self, leaves) -> torch.Tensor:
         """payload leaves -> uint8[nbytes]."""
-        segs = [leaf.reshape(-1).contiguous().view(torch.uint8) for leaf in leaves]
-        return torch.cat(segs)
+        buf = torch.empty(self.nbytes, dtype=torch.uint8, device=leaves[0].device)
+        self.write_into(buf, leaves)
+        return buf
+
+    def write_into(self, dst: torch.Tensor, leaves, skip=()) -> None:
+        """Copy the payload leaves into `dst` (uint8[nbytes]) at their
+        offsets, leaving the leaves numbered in `skip` untouched."""
+        for i, (leaf, off, nb) in enumerate(zip(leaves, self.leaf_offsets, self.leaf_bytes)):
+            if nb and i not in skip:
+                dst[off : off + nb].copy_(leaf.reshape(-1).contiguous().view(torch.uint8))
 
     def unpack(self, buf: torch.Tensor) -> List[torch.Tensor]:
         """uint8[nbytes] -> payload leaves (inverse of pack)."""
         leaves = []
-        off = 0
-        for (shape, dt), nb in zip(self.specs, self.leaf_bytes):
+        for (shape, dt), off, nb in zip(self.specs, self.leaf_offsets, self.leaf_bytes):
             seg = buf[off : off + nb]
             if seg.storage_offset() % _itemsize(dt):
                 seg = seg.clone()  # a dtype view needs an aligned start
             leaves.append(seg.view(dt).reshape(shape))
-            off += nb
         return leaves
 
 
@@ -125,14 +135,28 @@ class GradientExchanger:
         compensated = grads
         if residuals is not None:
             compensated = memory.compensate(grads, residuals, beta=cfg.beta, gamma=cfg.gamma)
-        segs, stats = [], {}
+        buf = torch.empty(self.fused_nbytes, dtype=torch.uint8, device=self.device)
+        segments, stats = [], {}
+        # (a) every tensor's index stage; its leaves go straight into the buffer
         for n in self.names:
-            codec = self.codecs[n]
-            u = None if uniforms is None else uniforms.get(n)
-            payload = codec.encode(compensated[n], step=step, worker=worker, uniforms=u)
+            codec, layout, lo = self.codecs[n], self.layouts[n], self.offsets[n]
+            payload = codec.encode_index(compensated[n])
+            skip = ()
+            if codec.compressed:
+                rows_lo = lo + layout.leaf_offsets[ROWS_LEAF]
+                u = None if uniforms is None else uniforms.get(n)
+                segments.append(codec.value_segment(payload, rows_lo, step=step, worker=worker, uniforms=u))
+                rows = buf[rows_lo : rows_lo + layout.leaf_bytes[ROWS_LEAF]].view(torch.int8)
+                payload = codec.both_payload(payload, rows)
+                skip = (ROWS_LEAF,)
+            layout.write_into(buf[lo : lo + layout.nbytes], payload.leaves(), skip=skip)
             stats[n] = codec.wire_stats(payload)
-            segs.append(self.layouts[n].pack(payload.leaves()))
-        return torch.cat(segs), compensated, combine(stats)
+        # (b) the value stage of every compressed tensor: one grouped launch
+        if segments:
+            qsgd_encode_rows(
+                segments, buf, quantum_num=cfg.quantum_num, bucket_size=cfg.bucket_size, device=self.device
+            )
+        return buf, compensated, combine(stats)
 
     # -- 2. gather ------------------------------------------------------- #
 

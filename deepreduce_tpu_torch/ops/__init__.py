@@ -2,6 +2,13 @@
 
 from typing import Dict
 
+from deepreduce_tpu_torch.ops.qsgd_encode import (
+    EncodeSegment,
+    bucket_norms_ordered,
+    qsgd_encode_rows,
+    qsgd_encode_rows_plain,
+    scale_from_norms,
+)
 from deepreduce_tpu_torch.ops.qsgd_kernel import (
     philox_uniforms_plain,
     quantize_levels,
@@ -9,7 +16,7 @@ from deepreduce_tpu_torch.ops.qsgd_kernel import (
 )
 
 # kernel name -> its wrapper (each wrapper counts its own launches)
-KERNELS = {"qsgd_quantize": quantize_levels}
+KERNELS = {"qsgd_quantize": quantize_levels, "qsgd_encode_rows": qsgd_encode_rows}
 
 
 def reset_launch_counts() -> None:
@@ -22,10 +29,15 @@ def launch_counts() -> Dict[str, int]:
 
 
 __all__ = [
+    "EncodeSegment",
     "KERNELS",
+    "bucket_norms_ordered",
     "launch_counts",
     "philox_uniforms_plain",
+    "qsgd_encode_rows",
+    "qsgd_encode_rows_plain",
     "quantize_levels",
     "quantize_levels_plain",
     "reset_launch_counts",
+    "scale_from_norms",
 ]

@@ -3,8 +3,8 @@
 Each source under `ops/csrc/` is compiled by `nvcc` into a shared library
 with a plain C interface, for `sm_90a`, and loaded with ctypes. Builds go to
 `deepreduce_tpu_torch/_build/` (listed in .gitignore), named by a hash of
-the source and flags, so a changed source is rebuilt and an unchanged one is
-reused within a checkout. Nothing is built at import: the first launch of a
+the source, the shared headers (`csrc/*.cuh`) and the flags, so a changed
+source is rebuilt and an unchanged one is reused within a checkout. Nothing is built at import: the first launch of a
 kernel builds it, or `build_all()` builds every source at once, one `nvcc`
 process per source, all started together.
 """
@@ -27,6 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 # kernel library name -> source file under csrc/
 SOURCES: Dict[str, str] = {
     "qsgd_quantize": "qsgd_quantize.cu",
+    "qsgd_encode": "qsgd_encode.cu",
 }
 
 NVCC_FLAGS = [
@@ -53,8 +54,11 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

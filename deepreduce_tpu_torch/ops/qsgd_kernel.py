@@ -8,7 +8,7 @@ Replaces the JAX package's Pallas TPU kernel
 
 with `u = (bits >> 8) * 2**-24`. The TPU's in-core PRNG becomes a
 counter-based Philox-4x32-10 keyed by a 64-bit `seed` with a 64-bit `offset`
-in the counter's upper half (see `csrc/qsgd_quantize.cu`). The plain version
+in the counter's upper half (see `csrc/qsgd_common.cuh`). The plain version
 repeats the kernel's arithmetic in int64 with 32-bit masking, so on the
 card the two agree bitwise; given the uniforms `jax.random.uniform` draws,
 `quantize_levels_plain` equals the JAX package's `quantize_levels_xla`
@@ -16,7 +16,9 @@ bitwise.
 
 `quantize_levels` launches the kernel for CUDA tensors and takes the plain
 version only for CPU tensors. If the kernel fails to build or launch it
-raises; it never falls back.
+raises; it never falls back. It is the direct counterpart of the Pallas
+kernel, (values, scale) -> levels; the training step's QSGD encode runs
+the fused `qsgd_encode_rows` (`ops/qsgd_encode.py`) instead.
 """
 
 from __future__ import annotations

@@ -25,6 +25,7 @@ from deepreduce_tpu_torch.codecs.registry import get_codec
 from deepreduce_tpu_torch.config import DeepReduceConfig
 from deepreduce_tpu_torch.device import DeviceLike, check_on, resolve_device
 from deepreduce_tpu_torch.metrics import WireStats
+from deepreduce_tpu_torch.ops import EncodeSegment, qsgd_encode_rows
 from deepreduce_tpu_torch.sparse import SparseGrad
 
 
@@ -51,6 +52,11 @@ class BothPayload:
 
     def leaves(self) -> Tuple[torch.Tensor, ...]:
         return self.index_payload.leaves() + self.value_payload.leaves() + (self.nsel,)
+
+
+# index of the QSGD wire rows among a compressed payload's leaves
+# (`TensorCodec.payload_specs`)
+ROWS_LEAF = 3
 
 
 class TensorCodec:
@@ -92,29 +98,56 @@ class TensorCodec:
         worker: int = 0,
         uniforms: Optional[torch.Tensor] = None,
     ) -> Any:
-        """tensor -> payload. `uniforms` (CPU only) replaces the QSGD Philox
-        draws; see `codecs.qsgd.encode`."""
+        """tensor -> payload: the index stage, then the value stage as a
+        one-segment fused QSGD encode. `uniforms` (CPU only) replaces the
+        QSGD Philox draws; see `codecs.qsgd.encode`."""
+        ipay = self.encode_index(tensor)
+        if not self.compressed:
+            return ipay
+        data = torch.empty(self.val_codec.meta.payload_len, dtype=torch.int8, device=tensor.device)
+        seg = self.value_segment(ipay, 0, step=step, worker=worker, uniforms=uniforms)
+        meta = self.val_codec.meta
+        qsgd_encode_rows([seg], data, quantum_num=meta.quantum_num, bucket_size=meta.bucket_size, device=self.device)
+        return self.both_payload(ipay, data)
+
+    def encode_index(self, tensor: torch.Tensor) -> Any:
+        """The index stage. A compressed leaf gives its bloom payload (top-k,
+        then `bloom.encode`: f32[budget] values in rank order, words, nsel),
+        whose values the value stage quantizes; any other leaf gives its
+        whole payload."""
         check_on(tensor, self.device, f"tensor {self.name!r}")
         if self.dense_fallback:
             return DensePayload(tensor=tensor)
         sp = sparse.topk(tensor, self.cfg.compress_ratio, k=self.k)
         if not self.compressed:
             return sp
-        ipay = self.idx_codec.encode(sp, dense=tensor)
-        vk = ipay.values.shape[0]
-        inner = SparseGrad(
-            values=ipay.values,
-            indices=torch.arange(vk, dtype=torch.int32, device=tensor.device),
-            nnz=ipay.nsel,
-            shape=(vk,),
-        )
+        return self.idx_codec.encode(sp, dense=tensor)
+
+    def value_segment(
+        self,
+        ipay: bloom.BloomPayload,
+        out_offset: int,
+        *,
+        step: int,
+        worker: int,
+        uniforms: Optional[torch.Tensor] = None,
+    ) -> EncodeSegment:
+        """The value stage of a compressed leaf as one segment of a fused
+        QSGD encode: the index stage's values, the wire rows' byte offset in
+        the caller's buffer, and this leaf's Philox stream at (step, worker)."""
         seed, offset = sparse.per_tensor_stream(self.cfg.seed, self.name, step, worker)
-        vpay = self.val_codec.encode(inner, seed, offset, uniforms=uniforms)
-        vpay, _, _ = self.val_codec.strip_for_both(vpay)
-        empty = torch.zeros(0, dtype=torch.float32, device=tensor.device)
+        return EncodeSegment(values=ipay.values, out_offset=out_offset, seed=seed, offset=offset, uniforms=uniforms)
+
+    def both_payload(self, ipay: bloom.BloomPayload, data: torch.Tensor) -> BothPayload:
+        """The 'both' payload from the index stage and the QSGD wire rows
+        (int8[payload_len]); the value payload's indices are stripped, since
+        QSGD preserves order and the mapping is elided."""
+        empty = torch.zeros(0, dtype=torch.float32, device=data.device)
         return BothPayload(
             index_payload=dataclasses.replace(ipay, values=empty),
-            value_payload=vpay,
+            value_payload=qsgd.QSGDPayload(
+                data=data, indices=torch.zeros(0, dtype=torch.int32, device=data.device), nnz=ipay.nsel
+            ),
             nsel=ipay.nsel,
         )
 

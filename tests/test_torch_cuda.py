@@ -8,7 +8,15 @@ repository's conftest imports jax, which the GPU machine need not have)."""
 import pytest
 import torch
 
-from deepreduce_tpu_torch.ops import philox_uniforms_plain, quantize_levels, quantize_levels_plain
+from deepreduce_tpu_torch.ops import (
+    EncodeSegment,
+    philox_uniforms_plain,
+    qsgd_encode_rows,
+    qsgd_encode_rows_plain,
+    quantize_levels,
+    quantize_levels_plain,
+)
+from deepreduce_tpu_torch.ops.qsgd_encode import MAX_SEGMENTS, rows_nbytes
 
 pytestmark = pytest.mark.cuda
 
@@ -41,3 +49,60 @@ def test_qsgd_kernel_rejects_cpu_tensors_and_bad_dtypes(cuda):
         quantize_levels(v, v, 0, 0, device=cuda)
     with pytest.raises(ValueError):
         quantize_levels(v.to(cuda).half(), v.to(cuda).half(), 0, 0, device=cuda)
+
+
+def _values(k, seed):
+    gen = torch.Generator().manual_seed(seed)
+    v = torch.randn(k, generator=gen) * 0.05
+    v[torch.rand(k, generator=gen) < 0.3] = 0.0
+    return v
+
+
+@pytest.mark.parametrize("bs", [512, 100, 1024])
+@pytest.mark.parametrize("k", [1, 5, 513, 114_688, 1_000_003])
+def test_qsgd_encode_rows_bitwise_equals_plain(cuda, k, bs):
+    v = _values(k, k + bs)
+    seed, offset = (5 << 32) | k, (bs << 32) | 3
+    n = rows_nbytes(k, bs)
+    seg = EncodeSegment(v, 0, seed, offset)
+    ref = torch.zeros(n, dtype=torch.uint8)
+    qsgd_encode_rows_plain([seg], 127, bs, ref)
+    out = torch.zeros(n, dtype=torch.uint8, device=cuda)
+    before = qsgd_encode_rows.launches
+    qsgd_encode_rows([EncodeSegment(v.to(cuda), 0, seed, offset)], out, quantum_num=127, bucket_size=bs, device=cuda)
+    torch.cuda.synchronize()
+    assert qsgd_encode_rows.launches == before + 1
+    assert torch.equal(out.cpu(), ref)
+
+
+@pytest.mark.parametrize("values_shift,out_shift", [(0, 0), (1, 0), (0, 1), (3, 2)])
+def test_qsgd_encode_rows_table_and_alignment(cuda, values_shift, out_shift):
+    """More segments than one launch's table (two launches), values that
+    start off a 16-byte boundary and rows off a 4-byte boundary."""
+    bs, count = 512, MAX_SEGMENTS + 6
+    ks = [1 + (37 * i) % 2000 for i in range(count)]
+    segs_cpu, segs_dev, off = [], [], out_shift
+    for i, k in enumerate(ks):
+        v = _values(k + values_shift, 1000 + i)
+        vd = v.to(cuda)[values_shift:]
+        segs_cpu.append(EncodeSegment(v[values_shift:].contiguous(), off, 77 + i, i))
+        segs_dev.append(EncodeSegment(vd, off, 77 + i, i))
+        off += rows_nbytes(k, bs)
+    ref = torch.zeros(off, dtype=torch.uint8)
+    qsgd_encode_rows_plain(segs_cpu, 127, bs, ref)
+    out = torch.zeros(off, dtype=torch.uint8, device=cuda)
+    before = qsgd_encode_rows.launches
+    qsgd_encode_rows(segs_dev, out, quantum_num=127, bucket_size=bs, device=cuda)
+    torch.cuda.synchronize()
+    assert qsgd_encode_rows.launches == before + 2
+    assert torch.equal(out.cpu(), ref)
+
+
+def test_qsgd_encode_rows_refuses_uniforms_and_cpu_tensors(cuda):
+    out = torch.zeros(516, dtype=torch.uint8, device=cuda)
+    v = torch.zeros(512, device=cuda)
+    with pytest.raises(ValueError):
+        qsgd_encode_rows([EncodeSegment(v, 0, 0, 0, uniforms=torch.zeros(512))], out,
+                         quantum_num=127, bucket_size=512, device=cuda)
+    with pytest.raises(ValueError):
+        qsgd_encode_rows([EncodeSegment(v.cpu(), 0, 0, 0)], out, quantum_num=127, bucket_size=512, device=cuda)

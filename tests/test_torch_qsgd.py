@@ -13,9 +13,14 @@ from deepreduce_tpu.ops.qsgd_kernel import quantize_levels_xla
 from deepreduce_tpu.sparse import SparseGrad as JSparseGrad
 from deepreduce_tpu_torch.codecs import qsgd as tqsgd
 from deepreduce_tpu_torch.ops import (
+    EncodeSegment,
+    bucket_norms_ordered,
     philox_uniforms_plain,
+    qsgd_encode_rows,
+    qsgd_encode_rows_plain,
     quantize_levels,
     quantize_levels_plain,
+    scale_from_norms,
 )
 from deepreduce_tpu_torch.ops.qsgd_kernel import philox4x32_10
 from deepreduce_tpu_torch.sparse import SparseGrad
@@ -150,3 +155,116 @@ def test_qsgd_encode_decode_matches_jax(k):
     jdec = jqsgd.decode(jpay, jmeta, (k,))
     np.testing.assert_array_equal(tdec.values.numpy(), np.asarray(jdec.values))
     assert float(tqsgd.wire_bits(tpay, tmeta)) == float(jqsgd.wire_bits(jpay, jmeta))
+
+
+def _per_leaf_rows(vals, bs, q, seed, offset, uniforms=None):
+    """The per-leaf QSGD encode as the port's first slice composed it: zero
+    padding, a float64 `sum` norm, `q / norm` through torch's reciprocal,
+    the quantizer over a broadcast scale vector, then `cat` of the levels
+    and the norm bytes into rows."""
+    k = vals.shape[0]
+    b = (k + bs - 1) // bs
+    padded = torch.zeros(b * bs)
+    padded[:k] = vals
+    buckets = padded.reshape(b, bs)
+    norms = buckets.double().square().sum(dim=1).sqrt().float()
+    safe = torch.where(norms > 0, norms, torch.ones_like(norms))
+    scale = (q / safe)[:, None].expand(buckets.shape).reshape(-1)
+    u = philox_uniforms_plain(b * bs, seed, offset) if uniforms is None else uniforms
+    levels = quantize_levels_plain(padded, scale.contiguous(), u)
+    return torch.cat([levels.reshape(b, bs), norms.view(torch.int8).reshape(b, 4)], dim=1).reshape(-1)
+
+
+@pytest.mark.parametrize("bs", [512, 100])
+@pytest.mark.parametrize("k", [1, 511, 512, 513, 700, 3001])
+def test_encode_rows_plain_equals_per_leaf_composition(k, bs):
+    vals = torch.from_numpy(_values(k, 40 + k, zeros=0.2) * np.float32(0.01 * k))
+    seed, offset = (0xBEEF << 32) | k, (2 << 32) | bs
+    want = _per_leaf_rows(vals, bs, 127, seed, offset)
+    # rows written at an unaligned offset of a larger buffer; the bytes
+    # around them stay untouched
+    out = torch.full((want.shape[0] + 7,), 0x5A, dtype=torch.uint8)
+    qsgd_encode_rows([EncodeSegment(vals, 3, seed, offset)], out, quantum_num=127, bucket_size=bs, device="cpu")
+    np.testing.assert_array_equal(out[3:-4].view(torch.int8).numpy(), want.numpy())
+    assert out[:3].eq(0x5A).all() and out[-4:].eq(0x5A).all()
+    assert int(out[3:-4].view(torch.int8).reshape(-1, bs + 4)[:, :bs].int().abs().max()) <= 127
+
+
+@pytest.mark.parametrize("bs", [512, 100])
+def test_encode_rows_grouped_table_equals_each_leaf(bs):
+    """One call over a mixed table (sizes around the bucket edges, one
+    segment with injected uniforms, gaps between the rows) writes what each
+    leaf's own composition writes."""
+    rng = np.random.default_rng(bs)
+    ks = [1536, 1, 513, 8192, 777, 2 * bs, 5]
+    segs, wants, off = [], [], 0
+    for i, k in enumerate(ks):
+        vals = torch.from_numpy(_values(k, 100 + i))
+        b = (k + bs - 1) // bs
+        u = torch.from_numpy(rng.random(b * bs).astype(np.float32)) if i == 3 else None
+        seed, offset = 1000 + i, (i << 32) | 9
+        segs.append(EncodeSegment(vals, off, seed, offset, uniforms=u))
+        wants.append((off, _per_leaf_rows(vals, bs, 127, seed, offset, uniforms=u)))
+        off += b * (bs + 4) + 4 * (i % 2)
+    out = torch.zeros(off, dtype=torch.int8)
+    qsgd_encode_rows(segs, out, quantum_num=127, bucket_size=bs, device="cpu")
+    for lo, want in wants:
+        np.testing.assert_array_equal(out[lo : lo + want.shape[0]].numpy(), want.numpy())
+    plain = torch.zeros_like(out)
+    qsgd_encode_rows_plain(segs, 127, bs, plain)
+    assert torch.equal(plain, out)
+
+
+@pytest.mark.parametrize("bs,seed", [(512, 0), (512, 1), (100, 2), (1000, 3), (128, 4)])
+def test_bucket_norms_ordered_match_jax(bs, seed):
+    rng = np.random.default_rng(seed)
+    b = 9
+    x = (rng.normal(size=b * bs) * rng.uniform(1e-3, 1e3, size=b * bs)).astype(np.float32)
+    x[rng.random(b * bs) < 0.3] = 0.0
+    x[:bs] = 0.0  # a zero bucket
+    got = bucket_norms_ordered(_t(x), bs)
+    assert got.dtype == torch.float32 and got.shape == (b,)
+    want = np.asarray(jnp.linalg.norm(jnp.asarray(x).reshape(b, bs), axis=1))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+    # the float64 sum rounded once is the correctly rounded norm here
+    exact = np.sqrt((x.astype(np.float64).reshape(b, bs) ** 2).sum(axis=1)).astype(np.float32)
+    np.testing.assert_array_equal(got.numpy(), exact)
+
+
+def test_scale_from_norms_is_jax_divide():
+    # given the same float32 norms, the scale equals JAX's `q / norm` bit for
+    # bit (one IEEE divide), zero-norm guard included
+    rng = np.random.default_rng(8)
+    norms = (rng.uniform(0.01, 100.0, size=4096)).astype(np.float32)
+    norms[::97] = 0.0
+    safe = jnp.where(jnp.asarray(norms) > 0, jnp.asarray(norms), 1.0)
+    np.testing.assert_array_equal(scale_from_norms(_t(norms), 127).numpy(), np.asarray(127 / safe))
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["out_dtype", "out_range", "values_dtype", "values_strided", "uniforms_shape", "bucket_size", "quantum_num", "seed"],
+)
+def test_encode_rows_wrapper_checks_inputs(case):
+    v = torch.zeros(700)
+    seg = EncodeSegment(v, 0, 1, 2)
+    out = torch.zeros(2 * 516, dtype=torch.uint8)
+    kw = dict(quantum_num=127, bucket_size=512, device="cpu")
+    if case == "out_dtype":
+        out = out.float()
+    elif case == "out_range":
+        seg = EncodeSegment(v, 1, 1, 2)
+    elif case == "values_dtype":
+        seg = EncodeSegment(v.double(), 0, 1, 2)
+    elif case == "values_strided":
+        seg = EncodeSegment(torch.zeros(1400)[::2], 0, 1, 2)
+    elif case == "uniforms_shape":
+        seg = EncodeSegment(v, 0, 1, 2, uniforms=torch.zeros(700))
+    elif case == "bucket_size":
+        kw["bucket_size"] = 0
+    elif case == "quantum_num":
+        kw["quantum_num"] = 128
+    else:
+        seg = EncodeSegment(v, 0, -1, 2)
+    with pytest.raises(ValueError):
+        qsgd_encode_rows([seg], out, **kw)

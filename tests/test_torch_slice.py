@@ -33,7 +33,7 @@ from deepreduce_tpu.wrappers import TensorCodec as JTensorCodec
 import deepreduce_tpu_torch as port
 from deepreduce_tpu_torch import memory as tmemory
 from deepreduce_tpu_torch.models import WordLSTM
-from deepreduce_tpu_torch.ops import quantize_levels
+from deepreduce_tpu_torch.ops import qsgd_encode_rows, quantize_levels
 from deepreduce_tpu_torch.weights import params_from_jax
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -175,6 +175,37 @@ def test_four_worker_exchange_matches_jax_mesh():
             np.testing.assert_allclose(new_res[n].numpy(), np.asarray(jres[n][w]), rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("inject", [False, True])
+@pytest.mark.parametrize("memory", ["residual", "none"])
+def test_grouped_encode_equals_per_tensor_packs(memory, inject):
+    """`encode_worker` writes every leaf into one buffer and all QSGD rows
+    with one grouped call: the bytes equal the concatenation of each
+    tensor's own encode, packed, under the same streams."""
+    step, worker = 2, 1
+    shapes = {"b": (40,), "a/kernel": (48, 40), "c": (3000,), "d/bias": (12,), "e": (2000,)}
+    rng = np.random.default_rng(6)
+    g = {n: _t(x) for n, x in _grad_tree(rng, shapes).items()}
+    r = {n: _t(x) for n, x in _grad_tree(rng, shapes).items()} if memory == "residual" else None
+    _, tcfg = _cfgs(seed=11, memory=memory, min_compress_size=100)
+    ex = port.GradientExchanger(shapes, tcfg, device="cpu")
+    uniforms = None
+    if inject:
+        uniforms = {
+            n: torch.from_numpy(rng.random(c.val_codec.meta.num_buckets * c.val_codec.meta.bucket_size).astype(np.float32))
+            for n, c in ex.codecs.items() if c.compressed
+        }
+    buf, comp, stats = ex.encode_worker(g, r, step=step, worker=worker, uniforms=uniforms)
+    assert buf.dtype == torch.uint8 and buf.shape == (ex.payload_bytes(),)
+    packs = []
+    for n in ex.names:
+        u = None if uniforms is None else uniforms.get(n)
+        pay = ex.codecs[n].encode(comp[n], step=step, worker=worker, uniforms=u)
+        packs.append(ex.layouts[n].pack(pay.leaves()))
+    assert torch.equal(buf, torch.cat(packs))
+    assert sum(c.compressed for c in ex.codecs.values()) == 3
+    assert 0.0 < float(stats.rel_volume()) < 1.0
+
+
 def test_exchange_without_memory_keeps_no_residual():
     # memory='none': no compensation, no residual; the W=1 aggregate is the
     # worker's own decode
@@ -259,6 +290,8 @@ def test_cuda_default_entry_points_raise_without_cuda():
     v = torch.zeros(16)
     with pytest.raises(RuntimeError, match="CUDA"):
         quantize_levels(v, v, 0, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        qsgd_encode_rows([], torch.zeros(4, dtype=torch.uint8), quantum_num=127, bucket_size=512)
 
 
 def test_config_rejects_unported_knobs_by_name():
