@@ -7,11 +7,14 @@ each counterpart is easy to find. Every entry point takes an explicit
 `device` that defaults to "cuda" and raises when CUDA is absent; tests pass
 `device="cpu"`.
 
-The slice ported so far is the DRQSGD-BF-P0 data-parallel step: exact
-top-k, a mod-blocked bloom index under the p0 policy, QSGD values (every
+The slices ported so far run the data-parallel step of every arm of the
+paper's Table 4 on the WordLSTM: the DRQSGD-BF-P0 flagship (exact top-k,
+a mod-blocked bloom index under the p0 policy, QSGD values with every
 compressed leaf of a step encoded by one launch of a hand-written CUDA
-kernel, `ops/csrc/qsgd_encode.cu`), one fused uint8 allgather, residual
-error feedback and SGD.
+kernel, `ops/csrc/qsgd_encode.cu`, one fused uint8 allgather, residual
+error feedback and SGD), the dense allreduce baseline, Top-r, DRQSGD over
+a delta-bitpacked integer index, sampled top-k, the sparsifier-free direct
+bloom encode and bloom index-only.
 """
 
 from deepreduce_tpu_torch.config import ConfigError, DeepReduceConfig, from_params

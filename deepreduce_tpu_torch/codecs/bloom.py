@@ -8,6 +8,13 @@ whole universe and taking the first `budget` positives in ascending order.
 The encoder is FP-aware: it re-reads the dense values at exactly those
 positions, so receivers place true values where they derive them.
 
+The filter is built either from the selected indices (`insert`) or, with
+the threshold insert, straight from the dense tensor as the set
+{j : |g_j| >= t} (`insert_from_dense`); `encode_dense_direct` takes t from
+a strided sample and runs no top-k at all. Where the JAX package branches
+on the device (`lax.cond` on t > 0), the port reads the predicate on the
+host (`sparse.host_branch`).
+
 The hashes are wrapping uint32 arithmetic, done here in int64 with
 masking (`u32`); filter words, `nsel` and positions are bitwise equal to
 the JAX package's. Words travel as int32 tensors holding the uint32 bit
@@ -136,17 +143,29 @@ class BloomMeta:
 
     @staticmethod
     def create(
-        k: int, d: int, fpr: Optional[float] = None, policy: str = "leftmost", blocked="mod"
+        k: int,
+        d: int,
+        fpr: Optional[float] = None,
+        policy: str = "leftmost",
+        blocked="mod",
+        threshold_insert: bool = False,
     ) -> "BloomMeta":
         if blocked is True:
             blocked = "mod"
         if blocked != "mod":
+            what = "threshold_insert requires" if threshold_insert else "only"
             raise ValueError(
-                f"bloom_blocked={blocked!r}: only the 'mod' blocked layout is ported"
+                f"bloom_blocked={blocked!r}: {what} the 'mod' blocked layout (the only one ported)"
             )
         if policy not in ("leftmost", "p0"):
             raise ValueError(f"bloom policy {policy!r}: only 'leftmost' and 'p0' are ported")
         m_bits, num_hash, fpr_eff = blocked_bloom_config(k, d, fpr, mode="mod")
+        budget = policy_budget(policy, k, d, fpr_eff)
+        if threshold_insert:
+            # the threshold superset can exceed k (ties join the filter):
+            # widen the slot budget so that the ascending-prefix cut does
+            # not bias against trailing parameters
+            budget = min(d, budget + int(math.ceil(0.06 * k)) + 64)
         return BloomMeta(
             d=d,
             k=k,
@@ -154,7 +173,7 @@ class BloomMeta:
             num_hash=num_hash,
             fpr=fpr_eff,
             policy=policy,
-            budget=policy_budget(policy, k, d, fpr_eff),
+            budget=budget,
             blocked="mod",
         )
 
@@ -202,6 +221,24 @@ def _mod_grid(meta: BloomMeta, device: torch.device) -> Tuple[int, torch.Tensor,
     return rows, j, lane_mask(j, meta.num_hash)
 
 
+def insert_from_dense(dense: torch.Tensor, thresh: torch.Tensor, meta: BloomMeta) -> torch.Tensor:
+    """Filter words (int32 bit patterns) of the threshold set
+    {j : |dense_j| >= thresh}: an elementwise pass over the same [rows, W]
+    grid that `query_universe` tests (`_mod_grid`), OR-reduced over rows by
+    folding halves (torch has no OR reduction). No scatter."""
+    rows, _, mask = _mod_grid(meta, dense.device)
+    n_words = meta.n_words
+    a = torch.zeros(rows * n_words, dtype=dense.dtype, device=dense.device)
+    a[: meta.d] = dense.reshape(-1).abs()
+    acc = torch.where(a.view(rows, n_words) >= thresh, mask, 0)
+    while acc.shape[0] > 1:
+        half = (acc.shape[0] + 1) // 2
+        top = acc[:half].clone()
+        top[: acc.shape[0] - half] |= acc[half:]
+        acc = top
+    return u32.to_bits(acc[0])
+
+
 def query_universe(words: torch.Tensor, meta: BloomMeta) -> torch.Tensor:
     """bool[d]: membership of every universe index. block(j) = j mod W, so
     laying the universe out as [ceil(d/W), W] makes each row test against
@@ -222,10 +259,47 @@ def _fp_aware_payload(words: torch.Tensor, flat: torch.Tensor, meta: BloomMeta) 
     return BloomPayload(values=values, words=words, nsel=nsel)
 
 
-def encode(sp: SparseGrad, dense: torch.Tensor, meta: BloomMeta) -> BloomPayload:
-    """Insert + FP-aware value re-read from the dense tensor."""
-    words = insert(sp.indices, sp.nnz, meta)
-    return _fp_aware_payload(words, dense.reshape(-1), meta)
+def encode(
+    sp: SparseGrad, dense: torch.Tensor, meta: BloomMeta, *, threshold_insert: bool = False
+) -> BloomPayload:
+    """Insert + FP-aware value re-read from the dense tensor.
+
+    `threshold_insert` builds the filter from the dense tensor with the
+    smallest live |value| as the threshold (`insert_from_dense`). A zero
+    threshold would insert every index, so then the scatter `insert` runs
+    instead; the branch is read on the host (`sparse.host_branch`)."""
+    flat = dense.reshape(-1)
+    if threshold_insert:
+        live = torch.arange(sp.k, device=flat.device) < sp.nnz
+        inf = torch.full((), float("inf"), dtype=torch.float32, device=flat.device)
+        thresh = torch.where(live, sp.values.abs().to(torch.float32), inf).min()
+        if _sparse.host_branch(thresh > 0):
+            words = insert_from_dense(flat, thresh.to(flat.dtype), meta)
+        else:
+            words = insert(sp.indices, sp.nnz, meta)
+    else:
+        words = insert(sp.indices, sp.nnz, meta)
+    return _fp_aware_payload(words, flat, meta)
+
+
+def encode_dense_direct(
+    dense: torch.Tensor, meta: BloomMeta, *, sample_size: int = 1 << 15, undershoot: float = 0.9
+) -> BloomPayload:
+    """Sparsifier-free encode: the k-th magnitude is estimated from a strided
+    sample (`sparse.sampled_kth_magnitude`), the filter is built straight
+    from the dense tensor (`insert_from_dense`), and the FP-aware tail is
+    `encode`'s, bit for bit. Small tensors (d <= max(4k, 2 * sample_size))
+    and a zero estimate (read on the host) take exact top-k + `insert`."""
+    if meta.policy not in ("leftmost", "p0"):
+        raise ValueError(f"encode_dense_direct needs a prefix policy (leftmost/p0), got {meta.policy!r}")
+    flat = dense.reshape(-1)
+    d = flat.shape[0]
+    if d > max(4 * meta.k, 2 * sample_size):
+        t = _sparse.sampled_kth_magnitude(flat, meta.k, sample_size=sample_size, undershoot=undershoot)
+        if _sparse.host_branch(t > 0):
+            return _fp_aware_payload(insert_from_dense(flat, t, meta), flat, meta)
+    sp = _sparse.topk(flat, 1.0, k=meta.k)
+    return _fp_aware_payload(insert(sp.indices, sp.nnz, meta), flat, meta)
 
 
 def decode_dense(

@@ -1,15 +1,22 @@
 """Codec adapters binding static geometry, ported from
-`deepreduce_tpu/codecs/registry.py` for the two codecs of the main path:
-the bloom index codec and the QSGD value codec."""
+`deepreduce_tpu/codecs/registry.py` for the ported codecs: the bloom and
+the delta-bitpacked integer index codecs, and the QSGD value codec.
+
+An index codec's payload carries a value table (`value_slots` long) that
+the wrapper's 'both' mode hands to the value codec, and a selected count
+(`selected`); `payload_specs` / `payload_from_leaves` give its wire leaves
+in the JAX pytree's flatten order."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from deepreduce_tpu_torch.codecs import bloom, qsgd
+from deepreduce_tpu_torch.codecs import bloom, integer, qsgd
 from deepreduce_tpu_torch.sparse import SparseGrad
+
+Specs = List[Tuple[Tuple[int, ...], torch.dtype]]
 
 
 class Codec:
@@ -25,22 +32,89 @@ class Codec:
 class BloomCodec(Codec):
     def __init__(self, k, d, params=None):
         super().__init__(k, d, params)
-        self.meta = bloom.BloomMeta.create(
-            k,
-            d,
-            fpr=self.params.get("fpr"),
-            policy=self.params.get("policy", "leftmost"),
-            blocked=self.params.get("bloom_blocked", "mod"),
-        )
+        self.threshold_insert = bool(self.params.get("bloom_threshold_insert", False))
+        try:
+            self.meta = bloom.BloomMeta.create(
+                k,
+                d,
+                fpr=self.params.get("fpr"),
+                policy=self.params.get("policy", "leftmost"),
+                blocked=self.params.get("bloom_blocked", "mod"),
+                threshold_insert=self.threshold_insert,
+            )
+        except ValueError as e:
+            prefix = "bloom_threshold_insert: " if self.threshold_insert and "policy" not in str(e) else ""
+            raise ValueError(f"{prefix}{e}") from e
+
+    @property
+    def value_slots(self) -> int:
+        return self.meta.budget
 
     def encode(self, sp: SparseGrad, dense: torch.Tensor) -> bloom.BloomPayload:
-        return bloom.encode(sp, dense, self.meta)
+        return bloom.encode(sp, dense, self.meta, threshold_insert=self.threshold_insert)
+
+    def encode_direct(self, dense: torch.Tensor, *, sample_size: int, undershoot: float) -> bloom.BloomPayload:
+        """Sparsifier-free encode (`bloom.encode_dense_direct`): the filter
+        is the selection, so no top-k is materialized."""
+        return bloom.encode_dense_direct(dense, self.meta, sample_size=sample_size, undershoot=undershoot)
 
     def decode_dense(self, payload, shape, *, values=None) -> torch.Tensor:
         return bloom.decode_dense(payload, self.meta, shape, values=values)
 
+    def selected(self, payload) -> torch.Tensor:
+        return payload.nsel
+
+    def saturated(self, payload) -> torch.Tensor:
+        return bloom.saturated(payload, self.meta)
+
+    def payload_specs(self, n_values: int) -> Specs:
+        i32 = torch.int32
+        return [((n_values,), torch.float32), ((self.meta.n_words,), i32), ((), i32)]
+
+    def payload_from_leaves(self, leaves) -> bloom.BloomPayload:
+        return bloom.BloomPayload(*leaves)
+
     def index_wire_bits(self, payload) -> float:
         return 64.0 + self.meta.m_bits
+
+    def value_wire_bits(self, payload) -> torch.Tensor:
+        return payload.nsel.to(torch.float32) * 32
+
+
+class IntegerCodec(Codec):
+    def __init__(self, k, d, params=None):
+        super().__init__(k, d, params)
+        self.meta = integer.IntegerMeta(k=k, d=d)
+
+    @property
+    def value_slots(self) -> int:
+        return self.k
+
+    def encode(self, sp: SparseGrad, dense: torch.Tensor) -> integer.IntegerPayload:
+        return integer.encode(sp, self.meta)
+
+    def decode_dense(self, payload, shape, *, values=None) -> torch.Tensor:
+        return integer.decode_dense(payload, self.meta, shape, values=values)
+
+    def selected(self, payload) -> torch.Tensor:
+        return payload.nnz
+
+    def saturated(self, payload) -> torch.Tensor:
+        # no budget to fill: the selection is the sparsifier's own
+        return torch.zeros((), dtype=torch.bool, device=payload.nnz.device)
+
+    def payload_specs(self, n_values: int) -> Specs:
+        i32 = torch.int32
+        return [((n_values,), torch.float32), ((self.meta.n_words,), i32), ((), i32), ((), i32), ((), i32)]
+
+    def payload_from_leaves(self, leaves) -> integer.IntegerPayload:
+        return integer.IntegerPayload.from_leaves(leaves)
+
+    def index_wire_bits(self, payload) -> torch.Tensor:
+        return integer.wire_bits(payload, self.meta)
+
+    def value_wire_bits(self, payload) -> torch.Tensor:
+        return payload.nnz.to(torch.float32) * 32
 
 
 class QSGDCodec(Codec):
@@ -59,7 +133,7 @@ class QSGDCodec(Codec):
         return qsgd.wire_bits(payload, self.meta)
 
 
-INDEX_CODECS: Dict[str, type] = {"bloom": BloomCodec}
+INDEX_CODECS: Dict[str, type] = {"bloom": BloomCodec, "integer": IntegerCodec}
 VALUE_CODECS: Dict[str, type] = {"qsgd": QSGDCodec}
 
 

@@ -1,6 +1,11 @@
 """Gradient exchange: compress -> one fused uint8 allgather -> decode ->
 mean, ported from `deepreduce_tpu/comm.py` for `communicator='allgather'`,
-`fused=True` and `decode_strategy='loop'`.
+`fused=True` and `decode_strategy='loop'`; and the dense baseline.
+
+The dense baseline (`communicator='allreduce'`, or no codec and the
+`none` sparsifier) is the mean over workers through one `all_reduce` of
+one flat float32 buffer: no codec runs and the residual state passes
+through unchanged, as in the JAX package's `psum` branch.
 
 The exchange is split into three parts so that each can be driven alone:
 
@@ -31,7 +36,7 @@ from deepreduce_tpu_torch.config import DeepReduceConfig
 from deepreduce_tpu_torch.device import DeviceLike, resolve_device
 from deepreduce_tpu_torch.metrics import WireStats, combine
 from deepreduce_tpu_torch.ops import qsgd_encode_rows
-from deepreduce_tpu_torch.wrappers import ROWS_LEAF, TensorCodec
+from deepreduce_tpu_torch.wrappers import TensorCodec
 
 Tree = Dict[str, torch.Tensor]
 
@@ -96,6 +101,7 @@ class GradientExchanger:
         self.rank = dist.get_rank(group) if group is not None else 0
         self.names = sorted(grads_like)
         shapes = {n: tuple(getattr(grads_like[n], "shape", grads_like[n])) for n in self.names}
+        self.dense = cfg.communicator == "allreduce" or (cfg.deepreduce is None and cfg.compressor == "none")
         self.codecs = {
             n: TensorCodec(shapes[n], cfg, name=n, device=self.device) for n in self.names
         }
@@ -114,7 +120,10 @@ class GradientExchanger:
         return None
 
     def payload_bytes(self) -> int:
-        """Static per-worker wire bytes: the fused buffer's size."""
+        """Static per-worker wire bytes: the fused buffer's size, or the
+        float32 gradients on the dense baseline."""
+        if self.dense:
+            return sum(4 * c.d for c in self.codecs.values())
         return self.fused_nbytes
 
     # -- 1. encode + pack ------------------------------------------------ #
@@ -142,13 +151,14 @@ class GradientExchanger:
             codec, layout, lo = self.codecs[n], self.layouts[n], self.offsets[n]
             payload = codec.encode_index(compensated[n])
             skip = ()
-            if codec.compressed:
-                rows_lo = lo + layout.leaf_offsets[ROWS_LEAF]
+            r = codec.rows_leaf
+            if r is not None:
+                rows_lo = lo + layout.leaf_offsets[r]
                 u = None if uniforms is None else uniforms.get(n)
                 segments.append(codec.value_segment(payload, rows_lo, step=step, worker=worker, uniforms=u))
-                rows = buf[rows_lo : rows_lo + layout.leaf_bytes[ROWS_LEAF]].view(torch.int8)
+                rows = buf[rows_lo : rows_lo + layout.leaf_bytes[r]].view(torch.int8)
                 payload = codec.both_payload(payload, rows)
-                skip = (ROWS_LEAF,)
+                skip = (r,)
             layout.write_into(buf[lo : lo + layout.nbytes], payload.leaves(), skip=skip)
             stats[n] = codec.wire_stats(payload)
         # (b) the value stage of every compressed tensor: one grouped launch
@@ -208,6 +218,8 @@ class GradientExchanger:
         uniforms: Optional[Tree] = None,
     ) -> Tuple[Tree, Optional[Tree], WireStats]:
         """(aggregated dense grads, new residuals, this worker's wire stats)."""
+        if self.dense:
+            return self.exchange_dense(grads), residuals, self.dense_wire_stats()
         buf, compensated, stats = self.encode_worker(
             grads, residuals, step=step, worker=self.rank, uniforms=uniforms
         )
@@ -219,3 +231,27 @@ class GradientExchanger:
             own = {n: own[n].to(grads[n].dtype) for n in self.names}
             new_residuals = memory.update(compensated, own)
         return agg, new_residuals, stats
+
+    # -- the dense baseline ---------------------------------------------- #
+
+    def exchange_dense(self, grads: Tree) -> Tree:
+        """The mean over workers of the uncompressed gradients: one
+        `all_reduce` of one flat float32 buffer, the identity at world size
+        1 without a group."""
+        if self.group is None:
+            return dict(grads)
+        flat = torch.cat([grads[n].reshape(-1).to(torch.float32) for n in self.names])
+        dist.all_reduce(flat, group=self.group)
+        flat /= self.num_workers
+        out, lo = {}, 0
+        for n in self.names:
+            g = grads[n]
+            out[n] = flat[lo : lo + g.numel()].view(g.shape).to(g.dtype)
+            lo += g.numel()
+        return out
+
+    def dense_wire_stats(self) -> WireStats:
+        """No index stream; the value stream is the whole float32 tensor."""
+        bits = torch.tensor(float(32 * sum(c.d for c in self.codecs.values())), device=self.device)
+        zero = torch.zeros((), device=self.device)
+        return WireStats(index_bits=zero, value_bits=bits, dense_bits=bits, saturated=zero)

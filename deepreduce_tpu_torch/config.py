@@ -1,7 +1,10 @@
-"""DeepReduce configuration for the port: the main-path knobs only.
+"""DeepReduce configuration for the port: the knobs of the ported arms.
 
-A copy of the knobs of `deepreduce_tpu/config.py` that the DRQSGD-BF-P0
-slice runs, with the same names and defaults. A value the port does not
+A copy of the knobs of `deepreduce_tpu/config.py` that the ported slices
+run (the Table-4 arms of `bench.py`: dense allreduce, Top-r, DRQSGD with a
+delta-bitpacked or a bloom index, sampled top-k, the sparsifier-free direct
+bloom encode, bloom index-only), with the same names and defaults. A value
+the port does not
 implement raises `ConfigError` naming the knob, so that no run quietly
 takes another path than the one it asked for (for instance
 `approx_topk=True`: torch has no `approx_max_k`, and exact top-k in its
@@ -24,17 +27,17 @@ class ConfigError(ValueError):
 
 # knob -> the values the port implements
 _SUPPORTED = {
-    "compressor": ("topk",),
+    "compressor": ("topk", "topk_sampled", "none"),
     "approx_topk": (False,),
     "memory": ("residual", "none"),
-    "communicator": ("allgather",),
-    "deepreduce": (None, "both"),
+    "communicator": ("allgather", "allreduce"),
+    "deepreduce": (None, "index", "both"),
     "fused": (True,),
     "decode_strategy": ("loop",),
 }
 # codec knobs, read only when a codec runs (deepreduce is not None)
 _SUPPORTED_CODEC = {
-    "index": ("bloom",),
+    "index": ("bloom", "integer"),
     "value": ("qsgd",),
     "policy": ("p0", "leftmost"),
     "bloom_blocked": ("mod", True),
@@ -46,6 +49,8 @@ class DeepReduceConfig:
     compressor: str = "topk"
     compress_ratio: float = 0.01
     approx_topk: bool = False
+    topk_sample_size: int = 1 << 15
+    topk_undershoot: float = 0.9
     memory: str = "residual"
     beta: float = 1.0
     gamma: float = 1.0
@@ -56,6 +61,7 @@ class DeepReduceConfig:
     fpr: Optional[float] = None
     policy: str = "leftmost"
     bloom_blocked: Any = False
+    bloom_threshold_insert: bool = False
     quantum_num: int = 127
     bucket_size: int = 512
     seed: int = 0
@@ -82,12 +88,19 @@ class DeepReduceConfig:
             raise ConfigError("quantum_num", "quantum_num must lie in [1, 127] (int8 levels)")
         if self.bucket_size <= 0:
             raise ConfigError("bucket_size", "bucket_size must be positive")
+        if self.topk_sample_size <= 0:
+            raise ConfigError("topk_sample_size", "topk_sample_size must be positive")
+        if not self.topk_undershoot > 0.0:
+            raise ConfigError("topk_undershoot", "topk_undershoot must be positive")
+        if not isinstance(self.bloom_threshold_insert, bool):
+            raise ConfigError("bloom_threshold_insert", "bloom_threshold_insert must be a bool")
 
     def codec_params(self) -> Dict[str, Any]:
         return {
             "fpr": self.fpr,
             "policy": self.policy,
             "bloom_blocked": self.bloom_blocked,
+            "bloom_threshold_insert": self.bloom_threshold_insert,
             "quantum_num": self.quantum_num,
             "bucket_size": self.bucket_size,
             "seed": self.seed,

@@ -1,9 +1,16 @@
-"""Sparse-gradient core: `SparseGrad`, exact top-k and the rank-inversion
-compaction, ported from `deepreduce_tpu/sparse.py`.
+"""Sparse-gradient core: `SparseGrad`, exact and sampled top-k, the
+identity sparsifier and the rank-inversion compaction, ported from
+`deepreduce_tpu/sparse.py`.
 
 Every sparsifier returns exactly `k` slots; `nnz` says how many are live and
 dead slots carry index 0, value 0. Selections and positions are bitwise
 equal to the JAX package's on the same input.
+
+Where the JAX package picks a branch on the device (`lax.cond` on a sampled
+threshold), the port reads the predicate on the host through `host_branch`:
+one device-to-host sync per call, counted in `host_branch.syncs`. Only the
+branch taken runs, so the sampled path never pays for the full sort it
+exists to avoid.
 """
 
 from __future__ import annotations
@@ -92,6 +99,76 @@ def topk(tensor: torch.Tensor, compress_ratio: float, *, k: Optional[int] = None
         nnz=torch.tensor(k, dtype=torch.int32, device=flat.device),
         shape=tuple(tensor.shape),
     )
+
+
+def host_branch(pred: torch.Tensor) -> bool:
+    """The value of a 0-d boolean tensor on the host (one sync on CUDA),
+    counted in `host_branch.syncs`: the port's form of a `lax.cond`."""
+    host_branch.syncs += 1
+    return bool(pred)
+
+
+host_branch.syncs = 0
+
+
+def none_sparsifier(tensor: torch.Tensor) -> SparseGrad:
+    """Identity sparsifier (the dense baseline's 'none'): every element, in
+    order."""
+    flat = tensor.reshape(-1)
+    d = flat.shape[0]
+    return SparseGrad(
+        values=flat,
+        indices=torch.arange(d, dtype=torch.int32, device=flat.device),
+        nnz=torch.tensor(d, dtype=torch.int32, device=flat.device),
+        shape=tuple(tensor.shape),
+    )
+
+
+def sampled_kth_magnitude(
+    flat: torch.Tensor, k: int, *, sample_size: int = 1 << 15, undershoot: float = 0.9
+) -> torch.Tensor:
+    """0-d estimate of the k-th largest |flat| from a strided sample of about
+    `sample_size` elements, aimed at capturing `undershoot * k` elements
+    (the sample rank uses Python's `round`, as the JAX package does). Below
+    2 * sample_size elements the whole tensor is sorted instead."""
+    d = flat.shape[0]
+    mags = flat.abs()
+    if d <= 2 * sample_size:
+        return torch.sort(mags).values[d - k]
+    samp = mags[:: d // sample_size]
+    s = samp.shape[0]
+    r = max(1, int(round(s * k * undershoot / d)))
+    return torch.sort(samp).values[s - r]
+
+
+def topk_sampled(
+    tensor: torch.Tensor,
+    compress_ratio: float,
+    *,
+    sample_size: int = 1 << 15,
+    undershoot: float = 0.9,
+    k: Optional[int] = None,
+) -> SparseGrad:
+    """Sortless approximate top-k: the ascending set {j : |g_j| >= t} for the
+    sampled threshold t, cut to k slots by the rank-inversion compaction;
+    `nnz <= k` is data-dependent. Small tensors (d <= max(4k, 2 *
+    sample_size)) take exact `topk` statically. A zero threshold (a sample
+    of zeros from a tensor with nonzeros elsewhere) takes exact `topk` for
+    this call: a `>= 0` mask would select the first k positions whatever
+    their magnitude. The branch is read on the host (`host_branch`)."""
+    flat = tensor.reshape(-1)
+    d = flat.shape[0]
+    k = num_slots(d, compress_ratio) if k is None else int(k)
+    if d <= max(4 * k, 2 * sample_size):
+        return topk(tensor, compress_ratio, k=k)
+    t = sampled_kth_magnitude(flat, k, sample_size=sample_size, undershoot=undershoot)
+    if not host_branch(t > 0):
+        return topk(tensor, compress_ratio, k=k)
+    pos, nnz = _prefix_positions(flat.abs() >= t, k)
+    live = torch.arange(k, device=flat.device) < nnz
+    idxs = torch.where(live, pos, 0)
+    vals = torch.where(live, flat[idxs.long()], torch.zeros((), dtype=flat.dtype, device=flat.device))
+    return SparseGrad(values=vals, indices=idxs, nnz=nnz, shape=tuple(tensor.shape))
 
 
 def _select_bit(word: torch.Tensor, t: torch.Tensor) -> torch.Tensor:

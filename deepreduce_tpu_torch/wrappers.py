@@ -1,14 +1,25 @@
-"""Composition layer: the DeepReduce wrapper over the top-k sparsifier,
-ported from `deepreduce_tpu/wrappers.py` for `deepreduce in (None, 'both')`.
+"""Composition layer: the DeepReduce wrapper over a sparsifier, ported
+from `deepreduce_tpu/wrappers.py` for `deepreduce in (None, 'index', 'both')`.
 
+- Sparsifiers: exact `topk`, sampled `topk_sampled`, and `none` (every
+  element; such a leaf is never sparsified and ships dense).
 - A tensor with at most `min_compress_size` elements (default 1000) is
   sparsified but not codec-compressed: its wire payload is the sparse
   (values, indices, nnz) triple. On the full-width WordLSTM the five biases
   of width 670 and 96 take this path.
-- `dense_fallback`: an uncompressed tensor whose sparse pair would cost at
-  least the raw tensor (k*64 >= d*32 bits) ships the raw tensor instead.
-- `'both'`: bloom index codec first (FP-aware), then QSGD over the selected
-  values in rank order. QSGD preserves order, so the mapping is elided.
+- `dense_fallback`: an uncompressed tensor that is never sparsified
+  (compressor 'none') or whose sparse pair would cost at least the raw
+  tensor (k*64 >= d*32 bits) ships the raw tensor instead.
+- `'index'`: the index codec's payload alone (bloom: the FP-aware values
+  re-read from the dense tensor; integer: the values in ascending-index
+  order).
+- `'both'`: the index codec first, then QSGD over its value table in slot
+  order. QSGD preserves order, so the mapping is elided. The value codec's
+  slot count is the index codec's `value_slots` (bloom: its budget;
+  integer: k), and the selected count is the index payload's.
+- `direct_bloom`: sampled top-k with the threshold insert under a prefix
+  policy builds the bloom filter straight from the dense tensor
+  (`bloom.encode_dense_direct`); no top-k runs.
 """
 
 from __future__ import annotations
@@ -20,7 +31,7 @@ from typing import Any, List, Optional, Tuple
 import torch
 
 from deepreduce_tpu_torch import sparse
-from deepreduce_tpu_torch.codecs import bloom, qsgd
+from deepreduce_tpu_torch.codecs import qsgd
 from deepreduce_tpu_torch.codecs.registry import get_codec
 from deepreduce_tpu_torch.config import DeepReduceConfig
 from deepreduce_tpu_torch.device import DeviceLike, check_on, resolve_device
@@ -31,8 +42,8 @@ from deepreduce_tpu_torch.sparse import SparseGrad
 
 @dataclasses.dataclass(frozen=True)
 class DensePayload:
-    """Raw-tensor payload of an uncompressed leaf whose sparse pair would
-    cost at least the raw tensor."""
+    """Raw-tensor payload of an uncompressed leaf that is never sparsified
+    or whose sparse pair would cost at least the raw tensor."""
 
     tensor: torch.Tensor
 
@@ -46,17 +57,12 @@ class BothPayload:
     (indices stripped) and the selected count. The mapping is always elided
     (QSGD preserves order), so it contributes no leaf."""
 
-    index_payload: bloom.BloomPayload
+    index_payload: Any
     value_payload: qsgd.QSGDPayload
     nsel: torch.Tensor
 
     def leaves(self) -> Tuple[torch.Tensor, ...]:
         return self.index_payload.leaves() + self.value_payload.leaves() + (self.nsel,)
-
-
-# index of the QSGD wire rows among a compressed payload's leaves
-# (`TensorCodec.payload_specs`)
-ROWS_LEAF = 3
 
 
 class TensorCodec:
@@ -77,16 +83,51 @@ class TensorCodec:
         self.d = int(math.prod(self.shape)) if self.shape else 1
         min_size = 1000 if cfg.min_compress_size is None else cfg.min_compress_size
         self.compressed = cfg.deepreduce is not None and self.d > min_size
-        self.k = sparse.num_slots(self.d, cfg.compress_ratio)
+        self.k = self.d if cfg.compressor == "none" else sparse.num_slots(self.d, cfg.compress_ratio)
+        if (
+            cfg.bloom_threshold_insert
+            and cfg.index == "bloom"
+            and cfg.deepreduce in ("index", "both")
+            and cfg.compressor not in ("topk", "topk_sampled")
+        ):
+            raise ValueError(
+                "bloom_threshold_insert rebuilds the selection as a magnitude "
+                f"threshold — incompatible with compressor={cfg.compressor!r} "
+                "(its selection is not a magnitude set); use topk or topk_sampled"
+            )
         params = cfg.codec_params()
         self.idx_codec = None
         self.val_codec = None
+        # index of the QSGD wire rows among a 'both' payload's leaves
+        self.rows_leaf: Optional[int] = None
         if self.compressed:
             self.idx_codec = get_codec(cfg.index, "index")(self.k, self.d, params)
-            # the value codec sees the index codec's selection: its slot
-            # count is the index codec's budget
-            self.val_codec = get_codec(cfg.value, "value")(self.idx_codec.meta.budget, self.d, params)
-        self.dense_fallback = not self.compressed and self.k * 64 >= self.d * 32
+            if cfg.deepreduce == "both":
+                # the value codec sees the index codec's value table
+                self.val_codec = get_codec(cfg.value, "value")(self.idx_codec.value_slots, self.d, params)
+                self.rows_leaf = len(self.idx_codec.payload_specs(0))
+        self.dense_fallback = not self.compressed and (cfg.compressor == "none" or self.k * 64 >= self.d * 32)
+        # the sparsifier-free route: spelled out in full, as in the JAX
+        # package, rather than relying on a constructor to reject the rest
+        self.direct_bloom = (
+            self.compressed
+            and cfg.index == "bloom"
+            and cfg.compressor == "topk_sampled"
+            and cfg.bloom_threshold_insert
+            and cfg.bloom_blocked == "mod"
+            and cfg.policy in ("leftmost", "p0")
+        )
+
+    def sparsify(self, tensor: torch.Tensor) -> SparseGrad:
+        cfg = self.cfg
+        if cfg.compressor == "topk":
+            return sparse.topk(tensor, cfg.compress_ratio, k=self.k)
+        if cfg.compressor == "topk_sampled":
+            return sparse.topk_sampled(
+                tensor, cfg.compress_ratio, sample_size=cfg.topk_sample_size,
+                undershoot=cfg.topk_undershoot, k=self.k,
+            )
+        return sparse.none_sparsifier(tensor)
 
     # ------------------------------------------------------------------ #
 
@@ -98,11 +139,11 @@ class TensorCodec:
         worker: int = 0,
         uniforms: Optional[torch.Tensor] = None,
     ) -> Any:
-        """tensor -> payload: the index stage, then the value stage as a
-        one-segment fused QSGD encode. `uniforms` (CPU only) replaces the
-        QSGD Philox draws; see `codecs.qsgd.encode`."""
+        """tensor -> payload: the index stage, then in 'both' mode the value
+        stage as a one-segment fused QSGD encode. `uniforms` (CPU only)
+        replaces the QSGD Philox draws; see `codecs.qsgd.encode`."""
         ipay = self.encode_index(tensor)
-        if not self.compressed:
+        if self.val_codec is None:
             return ipay
         data = torch.empty(self.val_codec.meta.payload_len, dtype=torch.int8, device=tensor.device)
         seg = self.value_segment(ipay, 0, step=step, worker=worker, uniforms=uniforms)
@@ -111,21 +152,26 @@ class TensorCodec:
         return self.both_payload(ipay, data)
 
     def encode_index(self, tensor: torch.Tensor) -> Any:
-        """The index stage. A compressed leaf gives its bloom payload (top-k,
-        then `bloom.encode`: f32[budget] values in rank order, words, nsel),
-        whose values the value stage quantizes; any other leaf gives its
-        whole payload."""
+        """The index stage. A compressed leaf gives its index codec's payload
+        (the sparsifier then the codec, or the direct bloom encode), whose
+        value table the value stage quantizes in 'both' mode; any other leaf
+        gives its whole payload."""
         check_on(tensor, self.device, f"tensor {self.name!r}")
         if self.dense_fallback:
             return DensePayload(tensor=tensor)
-        sp = sparse.topk(tensor, self.cfg.compress_ratio, k=self.k)
+        if self.direct_bloom:
+            cfg = self.cfg
+            return self.idx_codec.encode_direct(
+                tensor, sample_size=cfg.topk_sample_size, undershoot=cfg.topk_undershoot
+            )
+        sp = self.sparsify(tensor)
         if not self.compressed:
             return sp
         return self.idx_codec.encode(sp, dense=tensor)
 
     def value_segment(
         self,
-        ipay: bloom.BloomPayload,
+        ipay: Any,
         out_offset: int,
         *,
         step: int,
@@ -138,17 +184,18 @@ class TensorCodec:
         seed, offset = sparse.per_tensor_stream(self.cfg.seed, self.name, step, worker)
         return EncodeSegment(values=ipay.values, out_offset=out_offset, seed=seed, offset=offset, uniforms=uniforms)
 
-    def both_payload(self, ipay: bloom.BloomPayload, data: torch.Tensor) -> BothPayload:
+    def both_payload(self, ipay: Any, data: torch.Tensor) -> BothPayload:
         """The 'both' payload from the index stage and the QSGD wire rows
         (int8[payload_len]); the value payload's indices are stripped, since
         QSGD preserves order and the mapping is elided."""
         empty = torch.zeros(0, dtype=torch.float32, device=data.device)
+        nsel = self.idx_codec.selected(ipay)
         return BothPayload(
             index_payload=dataclasses.replace(ipay, values=empty),
             value_payload=qsgd.QSGDPayload(
-                data=data, indices=torch.zeros(0, dtype=torch.int32, device=data.device), nnz=ipay.nsel
+                data=data, indices=torch.zeros(0, dtype=torch.int32, device=data.device), nnz=nsel
             ),
-            nsel=ipay.nsel,
+            nsel=nsel,
         )
 
     def decode(self, payload: Any) -> torch.Tensor:
@@ -157,7 +204,9 @@ class TensorCodec:
             return payload.tensor.reshape(self.shape)
         if not self.compressed:
             return payload.to_dense()
-        vsp = self.val_codec.decode(payload.value_payload, self.shape)  # rank-order values
+        if self.val_codec is None:
+            return self.idx_codec.decode_dense(payload, self.shape)
+        vsp = self.val_codec.decode(payload.value_payload, self.shape)  # slot-order values
         return self.idx_codec.decode_dense(payload.index_payload, self.shape, values=vsp.values)
 
     # -- the static wire layout ----------------------------------------- #
@@ -170,10 +219,9 @@ class TensorCodec:
             return [(self.shape, torch.float32)]
         if not self.compressed:
             return [((self.k,), torch.float32), ((self.k,), i32), ((), i32)]
-        return [
-            ((0,), torch.float32),
-            ((self.idx_codec.meta.n_words,), i32),
-            ((), i32),
+        if self.val_codec is None:
+            return self.idx_codec.payload_specs(self.idx_codec.value_slots)
+        return self.idx_codec.payload_specs(0) + [
             ((self.val_codec.meta.payload_len,), torch.int8),
             ((0,), i32),
             ((), i32),
@@ -185,10 +233,13 @@ class TensorCodec:
             return DensePayload(tensor=leaves[0])
         if not self.compressed:
             return SparseGrad(values=leaves[0], indices=leaves[1], nnz=leaves[2], shape=self.shape)
+        if self.val_codec is None:
+            return self.idx_codec.payload_from_leaves(leaves)
+        r = self.rows_leaf
         return BothPayload(
-            index_payload=bloom.BloomPayload(values=leaves[0], words=leaves[1], nsel=leaves[2]),
-            value_payload=qsgd.QSGDPayload(data=leaves[3], indices=leaves[4], nnz=leaves[5]),
-            nsel=leaves[6],
+            index_payload=self.idx_codec.payload_from_leaves(leaves[:r]),
+            value_payload=qsgd.QSGDPayload(*leaves[r : r + 3]),
+            nsel=leaves[r + 3],
         )
 
     # ------------------------------------------------------------------ #
@@ -206,9 +257,13 @@ class TensorCodec:
             idx_bits = nnz * 32
             val_bits = nnz * 32
         else:
-            idx_bits = torch.tensor(self.idx_codec.index_wire_bits(payload.index_payload), **f32)
-            val_bits = self.val_codec.value_wire_bits(payload.value_payload)
-            saturated = bloom.saturated(payload.index_payload, self.idx_codec.meta).to(torch.float32)
+            ipay = payload if self.val_codec is None else payload.index_payload
+            idx_bits = torch.as_tensor(self.idx_codec.index_wire_bits(ipay), **f32)
+            if self.val_codec is None:
+                val_bits = self.idx_codec.value_wire_bits(ipay)
+            else:
+                val_bits = self.val_codec.value_wire_bits(payload.value_payload)
+            saturated = self.idx_codec.saturated(ipay).to(torch.float32)
         return WireStats(
             index_bits=idx_bits, value_bits=val_bits, dense_bits=dense_bits, saturated=saturated
         )

@@ -107,7 +107,7 @@ def _assert_same_wire(tex, tbuf, jbuf):
         tl = lay.unpack(tbuf[lo : lo + lay.nbytes])
         jl = lay.unpack(jbuf[lo : lo + lay.nbytes])
         for i, (a, b) in enumerate(zip(tl, jl)):
-            if not (codec.compressed and i == 3):
+            if i != codec.rows_leaf:
                 np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=f"{n} leaf {i}")
                 continue
             meta = codec.val_codec.meta
@@ -299,7 +299,8 @@ def test_config_rejects_unported_knobs_by_name():
         port.DeepReduceConfig(**{**FLAGSHIP, "approx_topk": True})
     assert e.value.knob == "approx_topk"
     for knob, val in [("communicator", "qar"), ("decode_strategy", "vmap"), ("bloom_blocked", "hash"),
-                      ("policy", "random"), ("compressor", "randomk"), ("deepreduce", "index")]:
+                      ("policy", "random"), ("compressor", "randomk"), ("deepreduce", "value"),
+                      ("index", "rle"), ("compressor", "threshold")]:
         with pytest.raises(port.ConfigError) as e:
             port.DeepReduceConfig(**{**FLAGSHIP, knob: val})
         assert e.value.knob == knob
