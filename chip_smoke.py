@@ -37,10 +37,24 @@ Phases, one line each; any failure raises and exits non-zero:
      against the plain version; the Embed_0-sized gradient through the
      arm's TensorCodec on the card and on the CPU with every payload leaf
      bitwise equal; and encode/decode times of one flat d = 4,053,428
-     gradient at ratio 0.1 (bench.py's codec table, CUDA events).
-`--profile` adds one profiled training step after phase 5 and after each
-arm of phase 7: the device's busy and idle share over the step, its device
-launches and its largest kernels.
+     gradient at ratio 0.1 (bench.py's codec table, CUDA events);
+  8. the README quick start: `Trainer.step` on the full-width ResNet-20
+     (272,282 parameters, BatchNorm, batch 64 x 32x32x3 synthetic images)
+     through the same NCCL group, in two arms each with its counts zeroed
+     just before and read just after: `resnet20_quickstart` (top-k 0.01,
+     classic bloom fpr 0.001 leftmost, PolyFit, residual memory; 5 steps)
+     with no qsgd_encode_rows launch and no host sync (torch's sync debug
+     mode counts them), and `resnet20_drqsgd` (the same with QSGD; 3 steps)
+     with one launch per step and its own 19-segment table held bitwise
+     against the plain version; finite losses, the first within 1e-4 of the
+     CPU forward, the payload bytes, running statistics finite and moved;
+     the largest conv gradient through the quick-start TensorCodec on the
+     card and on the CPU (filter, nsel, num_pos and mapping bitwise,
+     coefficients and decode within tolerance); encode/decode times of that
+     leaf and of a whole ResNet-20 gradient (CUDA events).
+`--profile` adds one profiled training step after phase 5, after each arm
+of phase 7 and after each arm of phase 8: the device's busy and idle share
+over the step, its device launches and its largest kernels.
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without
 the package beside it, the script exits non-zero and prints no result.
 """
@@ -87,6 +101,21 @@ PAYLOAD_BYTES = {
 }
 ARM_STEPS = 3
 CODEC_TABLE_D = 4_053_428  # bench.py's LSTM d for the codec table
+
+# phase 8: the README quick start (README.md, benchmarks/train.py's default
+# config) on ResNet-20, and the same with QSGD values, with their wire bytes
+# (GradientExchanger.payload_bytes of the JAX package)
+QUICKSTART = dict(
+    compressor="topk", compress_ratio=0.01, memory="residual", communicator="allgather",
+    deepreduce="both", index="bloom", value="polyfit", fpr=0.001, policy="leftmost",
+)
+RESNET_ARMS = {"resnet20_quickstart": ({}, 5), "resnet20_drqsgd": (dict(value="qsgd"), 3)}
+RESNET_PAYLOAD_BYTES = {"resnet20_quickstart": 18_756, "resnet20_drqsgd": 15_544}
+RESNET_BATCH = 64
+LARGEST_CONV = ("BasicBlockV2_8/Conv_1/kernel", (3, 3, 64, 64))
+# PolyFit's coefficients are solved by another LU on the card than on the
+# CPU; the decode evaluates them (basis rows bounded by 1, six terms)
+COEFF_RTOL, COEFF_ATOL, DECODE_ATOL = 1e-4, 1e-6, 1e-5  # the atols times max |g|
 
 
 def _flagship_cfg(seed: int, **knobs):
@@ -430,24 +459,47 @@ def _tokens(seed: int, steps: int, batch: int, seq: int, vocab: int):
     return torch.randint(0, vocab, (steps, batch, seq + 1), generator=gen)
 
 
-def _run_steps(trainer, state, tokens, steps: int):
-    """(state, losses, device ms, host ms, last wire stats) of `steps`
-    training steps, each timed by CUDA events and the host clock."""
+def _step_counting_syncs(trainer, state, batch):
+    """One training step under torch's sync debug mode: (state, loss, wire,
+    the file:line of each host sync the step made). Every synchronizing call
+    it detects (a copy to or from the host, `.item()`, a stream wait) warns
+    once."""
+    import warnings
+
     import torch
 
-    losses, dev_ms, host_ms = [], [], []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            state, loss, wire = trainer.step(state, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # where each sync was called from: the Python line that made the call
+    syncs = [f"{w.filename}:{w.lineno}" for w in caught if "called a synchronizing" in str(w.message)]
+    return state, loss, wire, syncs
+
+
+def _run_steps(trainer, state, batches, steps: int):
+    """(state, losses, device ms, host ms, last wire stats, the host syncs
+    of each step) of `steps` training steps on `batches(i)`, each timed by
+    CUDA events and the host clock."""
+    import torch
+
+    losses, dev_ms, host_ms, syncs = [], [], [], []
     wire = None
     for i in range(steps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
-        state, loss, wire = trainer.step(state, (tokens[i, :, :-1], tokens[i, :, 1:]))
+        state, loss, wire, step_syncs = _step_counting_syncs(trainer, state, batches(i))
         end.record()
         end.synchronize()
         host_ms.append((time.perf_counter() - t0) * 1e3)
         dev_ms.append(start.elapsed_time(end))
         losses.append(float(loss))
-    return state, losses, dev_ms, host_ms, wire
+        syncs.append(step_syncs)
+    return state, losses, dev_ms, host_ms, wire, syncs
 
 
 def _check_trained(state, losses, ref_loss: float, what: str) -> None:
@@ -482,7 +534,8 @@ def phase_train(seed: int, tokens, group, profile: bool = False) -> dict:
     torch.cuda.synchronize()
     reset_launch_counts()
     host_branch.syncs = 0
-    state, losses, dev_ms, host_ms, wire = _run_steps(trainer, state, tokens, steps)
+    state, losses, dev_ms, host_ms, wire, sync_calls = _run_steps(
+        trainer, state, lambda i: (tokens[i, :, :-1], tokens[i, :, 1:]), steps)
     launches, syncs = launch_counts(), host_branch.syncs
     ex = trainer.exchanger
     sizes = [c.val_codec.meta.padded_len for c in ex.codecs.values() if c.compressed]
@@ -499,7 +552,9 @@ def phase_train(seed: int, tokens, group, profile: bool = False) -> dict:
         "payload_bytes": ex.payload_bytes(), "params": n_params,
         "step_ms_median": statistics.median(dev_ms[1:]) if steps > 1 else dev_ms[0],
         "step_ms_first": dev_ms[0], "step_ms_all": dev_ms, "host_step_ms_all": host_ms,
-        "launches": launches, "host_syncs_per_step": syncs / steps, "qsgd_sizes": sizes,
+        "launches": launches, "host_syncs_per_step": syncs / steps,
+        "sync_calls_per_step": [len(x) for x in sync_calls],
+        "sync_call_sites": sorted({m for x in sync_calls for m in x}), "qsgd_sizes": sizes,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
     }
     res["codec_table"] = _codec_times(_flagship_cfg(seed))
@@ -510,6 +565,22 @@ def phase_train(seed: int, tokens, group, profile: bool = False) -> dict:
         prof = _profile_step(lambda: trainer.step(state, (x, y)))
         print("phase 5 profile: " + json.dumps(prof), flush=True)
     return res
+
+
+def _events_ms(fn, reps: int = 10) -> float:
+    """ms per call from CUDA events around `reps` calls after a warm-up;
+    the events span the host's gaps too."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def _codec_times(cfg, reps: int = 10) -> dict:
@@ -526,21 +597,10 @@ def _codec_times(cfg, reps: int = 10) -> dict:
     g = (torch.randn(CODEC_TABLE_D, generator=gen) * torch.rand(CODEC_TABLE_D, generator=gen) ** 2).cuda()
     codec = TensorCodec((CODEC_TABLE_D,), cfg, name="bench", device="cuda")
     payload = codec.encode(g)
-    codec.decode(payload)
-
-    def timed(fn) -> float:
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
-
     stats = codec.wire_stats(payload)
     return {
-        "encode_ms": timed(lambda: codec.encode(g)), "decode_ms": timed(lambda: codec.decode(payload)),
+        "encode_ms": _events_ms(lambda: codec.encode(g), reps),
+        "decode_ms": _events_ms(lambda: codec.decode(payload), reps),
         "rel_volume": float(stats.rel_volume()), "payload_bits": float(stats.total_bits),
     }
 
@@ -597,7 +657,8 @@ def phase_arms(seed: int, tokens, group, ref_loss: float, profile: bool = False)
         torch.cuda.synchronize()
         reset_launch_counts()
         host_branch.syncs = 0
-        state, losses, dev_ms, host_ms, wire = _run_steps(trainer, state, tokens, ARM_STEPS)
+        state, losses, dev_ms, host_ms, wire, sync_calls = _run_steps(
+            trainer, state, lambda i: (tokens[i, :, :-1], tokens[i, :, 1:]), ARM_STEPS)
         launches, syncs = launch_counts(), host_branch.syncs
         qsgd = any(c.val_codec is not None for c in ex.codecs.values())
         expected = {"qsgd_quantize": 0, "qsgd_encode_rows": ARM_STEPS if qsgd else 0}
@@ -610,6 +671,8 @@ def phase_arms(seed: int, tokens, group, ref_loss: float, profile: bool = False)
             "losses": losses, "step_ms_all": dev_ms, "step_ms_median": statistics.median(dev_ms),
             "host_step_ms_all": host_ms, "rel_volume": rel_volume, "payload_bytes": ex.payload_bytes(),
             "launches": launches, "host_syncs_per_step": syncs / ARM_STEPS,
+            "sync_calls_per_step": [len(x) for x in sync_calls],
+            "sync_call_sites": sorted({m for x in sync_calls for m in x}),
             "compressed_leaves": sum(c.compressed for c in ex.codecs.values()),
         }
         if qsgd:
@@ -626,6 +689,169 @@ def phase_arms(seed: int, tokens, group, ref_loss: float, profile: bool = False)
         res["codec_table"] = _codec_times(cfg)
         res["embed_card_vs_cpu"] = _check_embed_arm(cfg, seed, arm)
         print(f"phase 7 ok: {arm} " + json.dumps(res), flush=True)
+        results[arm] = res
+        del trainer, state
+        torch.cuda.empty_cache()
+    return results
+
+
+def _images(seed: int, steps: int):
+    """Synthetic CIFAR-shaped batches from `seed`: NHWC images and labels."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed + 2)
+    images = torch.randn(steps, RESNET_BATCH, 32, 32, 3, generator=gen)
+    labels = torch.randint(0, 10, (steps, RESNET_BATCH), generator=gen)
+    return images, labels
+
+
+def _resnet_codec_card_vs_cpu(cfg, seed: int) -> dict:
+    """The largest conv gradient through the quick-start TensorCodec on the
+    card and on the CPU with the same input: filter words, nsel, num_pos and
+    the mapping bitwise, the coefficients and the decode within tolerance."""
+    import torch
+
+    from deepreduce_tpu_torch import TensorCodec
+
+    name, shape = LARGEST_CONV
+    gen = torch.Generator().manual_seed(seed + 3)
+    g = torch.randn(shape, generator=gen) * 0.05
+    out = {}
+    for dev in ("cuda", "cpu"):
+        codec = TensorCodec(shape, cfg, name=name, device=dev)
+        pay = codec.encode(g.to(dev))
+        out[dev] = (codec, pay, codec.decode(pay).cpu())
+    (codec, gp, gdec), (_, cp, cdec) = out["cuda"], out["cpu"]
+    _check(gp.value_payload.coeffs.is_cuda, "the PolyFit solve did not run on the card")
+    bitwise = {
+        "bloom words": (gp.index_payload.words, cp.index_payload.words),
+        "nsel": (gp.nsel, cp.nsel),
+        "num_pos": (gp.value_payload.num_pos, cp.value_payload.num_pos),
+        "mapping words": (gp.mapping.words, cp.mapping.words),
+        "mapping count": (gp.mapping.count, cp.mapping.count),
+        "mapping width": (gp.mapping.width, cp.mapping.width),
+    }
+    for what, (a, b) in bitwise.items():
+        _check(torch.equal(a.cpu(), b), f"{name}: {what} differ between the card and the CPU")
+    vmax = float(g.abs().max())
+    coeff_err = float((gp.value_payload.coeffs.cpu() - cp.value_payload.coeffs).abs().max())
+    dec_err = float((gdec - cdec).abs().max())
+    _check(torch.allclose(gp.value_payload.coeffs.cpu(), cp.value_payload.coeffs, rtol=COEFF_RTOL,
+                          atol=COEFF_ATOL * vmax), f"{name}: coefficients differ by {coeff_err}")
+    _check(dec_err <= DECODE_ATOL * vmax, f"{name}: decoded tensors differ by {dec_err}")
+    _check(torch.equal(gdec != 0, cdec != 0), f"{name}: the decode places values elsewhere on the card")
+    return {
+        "leaf": name, "d": codec.d, "k": codec.k, "m_bits": codec.idx_codec.meta.m_bits,
+        "num_hash": codec.idx_codec.meta.num_hash, "nsel": int(cp.nsel), "num_pos": int(cp.value_payload.num_pos),
+        "map_width": codec.map_width, "coeffs_max_abs_err": coeff_err, "decode_max_abs_err": dec_err,
+    }
+
+
+def _resnet_codec_times(cfg, ex, seed: int) -> dict:
+    """Encode and decode times of the largest conv leaf (its TensorCodec)
+    and of one whole ResNet-20 gradient (`encode_worker` of every leaf into
+    the fused buffer, `decode_aggregate` of it) on the card."""
+    import torch
+
+    from deepreduce_tpu_torch import TensorCodec
+
+    gen = torch.Generator().manual_seed(seed + 4)
+    grads = {n: (torch.randn(ex.codecs[n].shape, generator=gen) * 0.05).cuda() for n in ex.names}
+    residuals = {n: torch.zeros_like(g) for n, g in grads.items()}
+    name, shape = LARGEST_CONV
+    codec = TensorCodec(shape, cfg, name=name, device="cuda")
+    payload = codec.encode(grads[name])
+    buf = ex.encode_worker(grads, residuals, step=0, worker=0)[0]
+    return {
+        "leaf_encode_ms": _events_ms(lambda: codec.encode(grads[name])),
+        "leaf_decode_ms": _events_ms(lambda: codec.decode(payload)),
+        "tree_encode_ms": _events_ms(lambda: ex.encode_worker(grads, residuals, step=0, worker=0)),
+        "tree_decode_ms": _events_ms(lambda: ex.decode_aggregate(buf[None], own=0)),
+    }
+
+
+def phase_resnet(seed: int, group, profile: bool = False) -> dict:
+    """Phase 8: the README quick start on ResNet-20, and its QSGD arm."""
+    import torch
+
+    from deepreduce_tpu_torch import DeepReduceConfig, Trainer
+    from deepreduce_tpu_torch.models import ResNet20
+    from deepreduce_tpu_torch.ops import launch_counts, qsgd_encode_rows, reset_launch_counts
+    from deepreduce_tpu_torch.ops.qsgd_encode import num_buckets
+    from deepreduce_tpu_torch.sparse import host_branch
+    from deepreduce_tpu_torch.train import classification_loss
+
+    steps_max = max(steps for _, steps in RESNET_ARMS.values())
+    images, labels = _images(seed, steps_max)
+    # reference loss of the first batch at the initial weights, on the CPU
+    # (BatchNorm in training mode, on a copy so the model's statistics stay)
+    with torch.no_grad():
+        ref_loss = float(classification_loss(ResNet20(seed=seed))((images[0], labels[0])))
+    images, labels = images.cuda(), labels.cuda()
+    results = {}
+    for arm, (knobs, steps) in RESNET_ARMS.items():
+        cfg = DeepReduceConfig(**{**QUICKSTART, **knobs}, seed=seed)
+        model = ResNet20(seed=seed)
+        n_params = sum(p.numel() for p in model.parameters())
+        _check(n_params == 272_282, f"ResNet-20 has {n_params} parameters")
+        trainer = Trainer(model, cfg, lr=0.1, momentum=0.9, device="cuda", group=group)
+        state = trainer.init_state()
+        init_stats = {n: s.clone() for n, s in state.batch_stats.items()}
+        ex = trainer.exchanger
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        host_branch.syncs = 0
+        state, losses, dev_ms, host_ms, wire, syncs = _run_steps(
+            trainer, state, lambda i: (images[i], labels[i]), steps)
+        launches = launch_counts()
+        qsgd = cfg.value == "qsgd"
+        expected = {"qsgd_quantize": 0, "qsgd_encode_rows": steps if qsgd else 0}
+        _check(launches == expected, f"{arm}: kernel launches {launches}, expected {expected}")
+        _check_trained(state, losses, ref_loss, arm)
+        _check(host_branch.syncs == 0, f"{arm}: {host_branch.syncs} host branches")
+        if arm == "resnet20_quickstart":
+            _check(not any(syncs), f"{arm}: host syncs in the step: {syncs}")
+        stats_ok = all(bool(torch.isfinite(s).all()) for s in state.batch_stats.values())
+        moved = sum(not torch.equal(s, init_stats[n]) for n, s in state.batch_stats.items())
+        _check(stats_ok and moved == len(init_stats) == 38,
+               f"{arm}: running statistics finite {stats_ok}, moved {moved} of {len(init_stats)}")
+        rel_volume = float(wire.rel_volume())
+        _check(0.0 < rel_volume < 1.0, f"{arm}: rel_volume {rel_volume}")
+        _check(ex.payload_bytes() == RESNET_PAYLOAD_BYTES[arm], f"{arm}: payload_bytes {ex.payload_bytes()}")
+        res = {
+            "losses": losses, "cpu_ref_loss0": ref_loss, "params": n_params,
+            "step_ms_median": statistics.median(dev_ms[1:]) if steps > 1 else dev_ms[0],
+            "step_ms_first": dev_ms[0], "step_ms_all": dev_ms, "host_step_ms_all": host_ms,
+            "rel_volume": rel_volume, "payload_bytes": ex.payload_bytes(), "launches": launches,
+            "sync_calls_per_step": [len(x) for x in syncs], "sync_call_sites": sorted({m for x in syncs for m in x}),
+            "compressed_leaves": sum(c.compressed for c in ex.codecs.values()), "stats_moved": moved,
+        }
+        if qsgd:
+            # the kernel against its plain version on this arm's own table:
+            # 19 segments of 20..368 values, every bucket partial
+            segs = _main_path_table(ex, seed=19)
+            got, ref = _encode_on_card_and_cpu(segs, ex.fused_nbytes, cfg.quantum_num, cfg.bucket_size)
+            res["qsgd_table_max_abs_err"] = _check_rows(got, ref, segs, cfg.bucket_size, cfg.quantum_num,
+                                                        f"the {arm} table")
+            res["qsgd_segments"] = len(segs)
+            _check(len(segs) == 19, f"{arm}: {len(segs)} QSGD segments")
+            # its device time on this table beside the table's bytes bound
+            out = torch.zeros(ex.fused_nbytes, dtype=torch.uint8, device="cuda")
+            res["qsgd_table_device_ms"], _ = _device_ms(
+                lambda: qsgd_encode_rows(segs, out, quantum_num=cfg.quantum_num, bucket_size=cfg.bucket_size,
+                                         device="cuda"), 200, "qsgd_encode_rows_kernel")
+            live = sum(seg.values.shape[0] for seg in segs)
+            buckets = sum(num_buckets(seg.values.shape[0], cfg.bucket_size) for seg in segs)
+            nbytes = 4 * live + buckets * (cfg.bucket_size + 4)  # read each value, write each row byte
+            res["qsgd_table_bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        else:
+            res["largest_leaf_card_vs_cpu"] = _resnet_codec_card_vs_cpu(cfg, seed)
+        res["codec_times"] = _resnet_codec_times(cfg, ex, seed)
+        if profile:
+            batch = (images[0], labels[0])
+            prof = _profile_step(lambda: trainer.step(state, batch))
+            res["profile"] = prof
+        print(f"phase 8 ok: {arm} " + json.dumps(res), flush=True)
         results[arm] = res
         del trainer, state
         torch.cuda.empty_cache()
@@ -822,9 +1048,11 @@ def main(argv=None) -> int:
         res = phase_train(args.seed, tokens, dist.group.WORLD, args.profile)
         _check(res["qsgd_sizes"] == sizes, "main-path QSGD sizes differ from the codec geometry")
         arms = phase_arms(args.seed, tokens, dist.group.WORLD, res["cpu_ref_loss0"], args.profile)
+        resnet = phase_resnet(args.seed, dist.group.WORLD, args.profile)
     finally:
         dist.destroy_process_group()
-    by_arm = {"drqsgd_bloom": res["launches"], **{a: r["launches"] for a, r in arms.items()}}
+    by_arm = {"drqsgd_bloom": res["launches"], **{a: r["launches"] for a, r in arms.items()},
+              **{a: r["launches"] for a, r in resnet.items()}}
     phase_timing(sizes, ex, res["launches"], errs, by_arm)
     print(f"chip_smoke total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({

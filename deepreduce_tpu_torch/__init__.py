@@ -14,10 +14,15 @@ compressed leaf of a step encoded by one launch of a hand-written CUDA
 kernel, `ops/csrc/qsgd_encode.cu`, one fused uint8 allgather, residual
 error feedback and SGD), the dense allreduce baseline, Top-r, DRQSGD over
 a delta-bitpacked integer index, sampled top-k, the sparsifier-free direct
-bloom encode and bloom index-only.
+bloom encode and bloom index-only; and the README quick start: top-k 1%
+with the classic bloom index (fpr 0.001, leftmost) and the PolyFit value
+codec on ResNet-20 with BatchNorm (`models.ResNet20`,
+`codecs.registry.PolyFitCodec`), whose running statistics the trainer
+averages over the workers.
 """
 
 from deepreduce_tpu_torch.config import ConfigError, DeepReduceConfig, from_params
+from deepreduce_tpu_torch.codecs.registry import PolyFitCodec
 from deepreduce_tpu_torch.comm import GradientExchanger
 from deepreduce_tpu_torch.train import Trainer, TrainState
 from deepreduce_tpu_torch.wrappers import TensorCodec
@@ -26,6 +31,7 @@ __all__ = [
     "ConfigError",
     "DeepReduceConfig",
     "GradientExchanger",
+    "PolyFitCodec",
     "TensorCodec",
     "Trainer",
     "TrainState",

@@ -1,15 +1,23 @@
-"""Bloom-filter index codec, mod-blocked layout with the prefix policies
-(leftmost, p0), ported from `deepreduce_tpu/codecs/bloom.py`.
+"""Bloom-filter index codec with the prefix policies (leftmost, p0), ported
+from `deepreduce_tpu/codecs/bloom.py` in two layouts:
 
-Indices go into a register-blocked filter: index j sets `lane_mask(j)` (h
-bit lanes from murmur-mixed words) in word `j mod W`, W odd. Only the
-words cross the wire; both sides re-derive the index set by querying the
-whole universe and taking the first `budget` positives in ascending order.
-The encoder is FP-aware: it re-reads the dense values at exactly those
-positions, so receivers place true values where they derive them.
+- classic (`bloom_blocked=False`, the JAX default and the README quick
+  start's): each index sets h bits of an m-bit array, at
+  `fmix32(j ^ seed_i) mod m` for the derived seeds `hash_seeds(h)`;
+- mod-blocked (`bloom_blocked='mod'` or True): index j sets `lane_mask(j)`
+  (h bit lanes from murmur-mixed words) in word `j mod W`, W odd.
 
-The filter is built either from the selected indices (`insert`) or, with
-the threshold insert, straight from the dense tensor as the set
+Only the words cross the wire; both sides re-derive the index set by
+querying the whole universe and taking the first `budget` positives in
+ascending order. The encoder is FP-aware: it re-reads the dense values at
+exactly those positions, so receivers place true values where they derive
+them.
+
+The filter is a set, so the port builds its words any way that gives them
+bitwise: the classic insert sets a bit array at the hash positions and
+packs it, where the JAX package sorts and scans (`_scatter_or`). In the mod
+layout the filter is built either from the selected indices (`insert`) or,
+with the threshold insert, straight from the dense tensor as the set
 {j : |g_j| >= t} (`insert_from_dense`); `encode_dense_direct` takes t from
 a strided sample and runs no top-k at all. Where the JAX package branches
 on the device (`lax.cond` on t > 0), the port reads the predicate on the
@@ -18,8 +26,8 @@ host (`sparse.host_branch`).
 The hashes are wrapping uint32 arithmetic, done here in int64 with
 masking (`u32`); filter words, `nsel` and positions are bitwise equal to
 the JAX package's. Words travel as int32 tensors holding the uint32 bit
-pattern. The hash and classic layouts and the random/conflict-set policies
-are not ported yet; `BloomMeta.create` raises for them.
+pattern. The hash-blocked layout and the random/conflict-set policies are
+not ported yet; `BloomMeta.create` raises for them.
 """
 
 from __future__ import annotations
@@ -35,6 +43,8 @@ from deepreduce_tpu_torch import u32
 from deepreduce_tpu_torch.sparse import SparseGrad, _prefix_positions
 
 _LN2 = 0.6931471805599453
+_GOLDEN = 0x9E3779B9
+_QUERY_CHUNK = 1 << 16
 _SEED_LANE1 = 0x6A09E667
 _SEED_LANE2 = 0xBB67AE85
 
@@ -47,6 +57,19 @@ def fmix32(x: torch.Tensor) -> torch.Tensor:
     x = x ^ (x >> 13)
     x = u32.mul_lo(x, 0xC2B2AE35)
     return x ^ (x >> 16)
+
+
+def hash_seeds(num_hash: int, device=None) -> torch.Tensor:
+    """The classic filter's per-hash seeds (int64 words), derived, not
+    stored: fmix32(j * golden) for j = 1..h."""
+    j = torch.arange(1, num_hash + 1, dtype=torch.int64, device=device)
+    return fmix32(j * _GOLDEN)
+
+
+def hash_positions(indices: torch.Tensor, seeds: torch.Tensor, m_bits: int) -> torch.Tensor:
+    """i32[..., h]: the classic filter's bit positions of each index."""
+    idx = indices.to(torch.int64) & u32.MASK32
+    return (fmix32(idx[..., None] ^ seeds) % m_bits).to(torch.int32)
 
 
 def _lanes(indices: torch.Tensor, num_hash: int):
@@ -135,7 +158,7 @@ class BloomMeta:
     fpr: float
     policy: str
     budget: int
-    blocked: str = "mod"
+    blocked: str = ""  # "" = classic, "mod" = mod-blocked
 
     @property
     def n_words(self) -> int:
@@ -147,19 +170,25 @@ class BloomMeta:
         d: int,
         fpr: Optional[float] = None,
         policy: str = "leftmost",
-        blocked="mod",
+        blocked=False,
         threshold_insert: bool = False,
     ) -> "BloomMeta":
+        """`blocked`: False (classic), or True / 'mod' (mod-blocked), as the
+        JAX package's `bloom_blocked` knob spells them."""
         if blocked is True:
             blocked = "mod"
-        if blocked != "mod":
-            what = "threshold_insert requires" if threshold_insert else "only"
-            raise ValueError(
-                f"bloom_blocked={blocked!r}: {what} the 'mod' blocked layout (the only one ported)"
-            )
+        elif blocked is False:
+            blocked = ""
+        if threshold_insert and blocked != "mod":
+            raise ValueError(f"bloom_blocked={blocked!r}: threshold_insert requires the 'mod' blocked layout")
+        if blocked not in ("", "mod"):
+            raise ValueError(f"bloom_blocked={blocked!r}: only the classic and the 'mod' layouts are ported")
         if policy not in ("leftmost", "p0"):
             raise ValueError(f"bloom policy {policy!r}: only 'leftmost' and 'p0' are ported")
-        m_bits, num_hash, fpr_eff = blocked_bloom_config(k, d, fpr, mode="mod")
+        if blocked:
+            m_bits, num_hash, fpr_eff = blocked_bloom_config(k, d, fpr, mode="mod")
+        else:
+            m_bits, num_hash, fpr_eff = bloom_config(k, d, fpr)
         budget = policy_budget(policy, k, d, fpr_eff)
         if threshold_insert:
             # the threshold superset can exceed k (ties join the filter):
@@ -174,7 +203,7 @@ class BloomMeta:
             fpr=fpr_eff,
             policy=policy,
             budget=budget,
-            blocked="mod",
+            blocked=blocked,
         )
 
 
@@ -194,22 +223,39 @@ def saturated(payload: BloomPayload, meta: BloomMeta) -> torch.Tensor:
     return payload.nsel.to(torch.int32) >= meta.budget
 
 
+def _pack_bits(bits: torch.Tensor, n_words: int) -> torch.Tensor:
+    """int32 words (bit patterns) from an int64 0/1 bitmap of n_words * 32
+    bits: each row of 32 summed as distinct powers of two."""
+    shifts = torch.arange(32, device=bits.device)
+    return u32.to_bits((bits[: n_words * 32].view(n_words, 32) << shifts).sum(dim=1))
+
+
 def insert(indices: torch.Tensor, nnz: torch.Tensor, meta: BloomMeta) -> torch.Tensor:
-    """Filter words (int32 bit patterns) from the live indices. Word w is
-    the OR of the lane masks of the indices j = w mod W: every (index, lane)
-    pair sets one bit of a [W, 32] bitmap (dead slots set a parked bit past
-    the end), and the bitmap rows are summed as distinct powers of two."""
+    """Filter words (int32 bit patterns) from the live indices.
+
+    Mod layout: word w is the OR of the lane masks of the indices
+    j = w mod W; every (index, lane) pair sets one bit of a [W, 32] bitmap,
+    and dead slots set a parked bit past the end.
+    Classic layout: every (index, hash) pair sets bit
+    `hash_positions(j)` of an m-bit bitmap; dead slots re-point at the first
+    index, as in the JAX package (a duplicate insert is a no-op)."""
     dev = indices.device
     n_words = meta.n_words
     live = torch.arange(indices.shape[0], device=dev) < nnz
+    if not meta.blocked:
+        idx = torch.where(live, indices, indices[0])
+        pos = hash_positions(idx, hash_seeds(meta.num_hash, dev), meta.m_bits)
+        bits = torch.zeros(meta.m_bits, dtype=torch.int64, device=dev)
+        # index_fill_ takes the 1 as a kernel argument; `bits[pos] = 1` would
+        # copy it from the host and wait for the device
+        bits.index_fill_(0, pos.reshape(-1).long(), 1)
+        return _pack_bits(bits, n_words)
     word = indices.to(torch.int64) % n_words
     parked = torch.full_like(word, n_words * 32)
     bits = torch.zeros(n_words * 32 + 1, dtype=torch.int64, device=dev)
     for lane in _lanes(indices, meta.num_hash):
-        bits[torch.where(live, word * 32 + lane, parked)] = 1
-    shifts = torch.arange(32, device=dev)
-    words = (bits[: n_words * 32].view(n_words, 32) << shifts).sum(dim=1)
-    return u32.to_bits(words)
+        bits.index_fill_(0, torch.where(live, word * 32 + lane, parked), 1)
+    return _pack_bits(bits, n_words)
 
 
 def _mod_grid(meta: BloomMeta, device: torch.device) -> Tuple[int, torch.Tensor, torch.Tensor]:
@@ -225,7 +271,10 @@ def insert_from_dense(dense: torch.Tensor, thresh: torch.Tensor, meta: BloomMeta
     """Filter words (int32 bit patterns) of the threshold set
     {j : |dense_j| >= thresh}: an elementwise pass over the same [rows, W]
     grid that `query_universe` tests (`_mod_grid`), OR-reduced over rows by
-    folding halves (torch has no OR reduction). No scatter."""
+    folding halves (torch has no OR reduction). No scatter. Mod layout
+    only."""
+    if meta.blocked != "mod":
+        raise ValueError("insert_from_dense requires the 'mod' blocked layout")
     rows, _, mask = _mod_grid(meta, dense.device)
     n_words = meta.n_words
     a = torch.zeros(rows * n_words, dtype=dense.dtype, device=dense.device)
@@ -240,9 +289,24 @@ def insert_from_dense(dense: torch.Tensor, thresh: torch.Tensor, meta: BloomMeta
 
 
 def query_universe(words: torch.Tensor, meta: BloomMeta) -> torch.Tensor:
-    """bool[d]: membership of every universe index. block(j) = j mod W, so
-    laying the universe out as [ceil(d/W), W] makes each row test against
-    the whole word array by broadcast — no gather."""
+    """bool[d]: membership of every universe index.
+
+    Mod layout: block(j) = j mod W, so laying the universe out as
+    [ceil(d/W), W] makes each row test against the whole word array by
+    broadcast — no gather. Classic layout: the words are unpacked into a
+    bit array once, and the universe is tested in chunks of `_QUERY_CHUNK`
+    indices (all h bits set), so the [chunk, h] positions stay small at any
+    d."""
+    if not meta.blocked:
+        dev = words.device
+        seeds = hash_seeds(meta.num_hash, dev)
+        bits = ((u32.from_bits(words)[:, None] >> torch.arange(32, device=dev)) & 1).reshape(-1).bool()
+        chunk = min(_QUERY_CHUNK, max(1, meta.d))
+        hits = []
+        for lo in range(0, meta.d, chunk):
+            idx = torch.arange(lo, min(lo + chunk, meta.d), dtype=torch.int64, device=dev)
+            hits.append(bits[hash_positions(idx, seeds, meta.m_bits).long()].all(dim=-1))
+        return torch.cat(hits)
     _, j, mask = _mod_grid(meta, words.device)
     w = u32.from_bits(words)
     hit = ((w[None, :] & mask) == mask) & (j < meta.d)
@@ -290,6 +354,8 @@ def encode_dense_direct(
     from the dense tensor (`insert_from_dense`), and the FP-aware tail is
     `encode`'s, bit for bit. Small tensors (d <= max(4k, 2 * sample_size))
     and a zero estimate (read on the host) take exact top-k + `insert`."""
+    if meta.blocked != "mod":
+        raise ValueError("encode_dense_direct requires the 'mod' blocked layout")
     if meta.policy not in ("leftmost", "p0"):
         raise ValueError(f"encode_dense_direct needs a prefix policy (leftmost/p0), got {meta.policy!r}")
     flat = dense.reshape(-1)

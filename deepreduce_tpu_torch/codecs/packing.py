@@ -77,7 +77,7 @@ def pack(values: torch.Tensor, width: torch.Tensor, *, max_width: int = 32) -> P
     words.index_add_(0, torch.clamp(w0 + 1, max=nw), hi)
     return PackedInts(
         words=u32.to_bits(words[:nw]),
-        count=torch.tensor(n, dtype=torch.int32, device=dev),
+        count=torch.full((), n, dtype=torch.int32, device=dev),
         width=width,
     )
 

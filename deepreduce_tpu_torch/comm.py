@@ -14,7 +14,8 @@ The exchange is split into three parts so that each can be driven alone:
    offsets (tensors in sorted name order, each payload's leaves in the JAX
    pytree's order, so the bytes are comparable with the JAX package's fused
    buffer), and write the QSGD wire rows of every compressed tensor straight
-   into the buffer with one grouped kernel launch;
+   into the buffer with one grouped kernel launch; a value codec that
+   reorders its values (PolyFit) is encoded leaf by leaf instead;
 2. `gather`: `dist.all_gather_into_tensor` over the process group into
    [W, B], or the identity at world size 1 without a group;
 3. `decode_aggregate`: decode every row in worker order into one running
@@ -146,13 +147,16 @@ class GradientExchanger:
             compensated = memory.compensate(grads, residuals, beta=cfg.beta, gamma=cfg.gamma)
         buf = torch.empty(self.fused_nbytes, dtype=torch.uint8, device=self.device)
         segments, stats = [], {}
-        # (a) every tensor's index stage; its leaves go straight into the buffer
+        # (a) every tensor's index stage (and a reordering value codec's
+        # value stage); its leaves go straight into the buffer
         for n in self.names:
             codec, layout, lo = self.codecs[n], self.layouts[n], self.offsets[n]
             payload = codec.encode_index(compensated[n])
             skip = ()
             r = codec.rows_leaf
-            if r is not None:
+            if codec.val_codec is not None and r is None:
+                payload = codec.encode_values(payload)
+            elif r is not None:
                 rows_lo = lo + layout.leaf_offsets[r]
                 u = None if uniforms is None else uniforms.get(n)
                 segments.append(codec.value_segment(payload, rows_lo, step=step, worker=worker, uniforms=u))
@@ -161,7 +165,7 @@ class GradientExchanger:
                 skip = (r,)
             layout.write_into(buf[lo : lo + layout.nbytes], payload.leaves(), skip=skip)
             stats[n] = codec.wire_stats(payload)
-        # (b) the value stage of every compressed tensor: one grouped launch
+        # (b) the QSGD value stage of every compressed tensor: one grouped launch
         if segments:
             qsgd_encode_rows(
                 segments, buf, quantum_num=cfg.quantum_num, bucket_size=cfg.bucket_size, device=self.device
@@ -252,6 +256,6 @@ class GradientExchanger:
 
     def dense_wire_stats(self) -> WireStats:
         """No index stream; the value stream is the whole float32 tensor."""
-        bits = torch.tensor(float(32 * sum(c.d for c in self.codecs.values())), device=self.device)
+        bits = torch.full((), float(32 * sum(c.d for c in self.codecs.values())), device=self.device)
         zero = torch.zeros((), device=self.device)
         return WireStats(index_bits=zero, value_bits=bits, dense_bits=bits, saturated=zero)

@@ -3,12 +3,12 @@
 A copy of the knobs of `deepreduce_tpu/config.py` that the ported slices
 run (the Table-4 arms of `bench.py`: dense allreduce, Top-r, DRQSGD with a
 delta-bitpacked or a bloom index, sampled top-k, the sparsifier-free direct
-bloom encode, bloom index-only), with the same names and defaults. A value
-the port does not
-implement raises `ConfigError` naming the knob, so that no run quietly
-takes another path than the one it asked for (for instance
-`approx_topk=True`: torch has no `approx_max_k`, and exact top-k in its
-place would be a silent substitute).
+bloom encode, bloom index-only; and the README quick start: the classic
+bloom index with the PolyFit value codec), with the same names and
+defaults. A value the port does not implement raises `ConfigError` naming
+the knob, so that no run quietly takes another path than the one it asked
+for (for instance `approx_topk=True`: torch has no `approx_max_k`, and
+exact top-k in its place would be a silent substitute).
 """
 
 from __future__ import annotations
@@ -38,9 +38,9 @@ _SUPPORTED = {
 # codec knobs, read only when a codec runs (deepreduce is not None)
 _SUPPORTED_CODEC = {
     "index": ("bloom", "integer"),
-    "value": ("qsgd",),
+    "value": ("qsgd", "polyfit"),
     "policy": ("p0", "leftmost"),
-    "bloom_blocked": ("mod", True),
+    "bloom_blocked": ("mod", True, False),
 }
 
 
@@ -62,8 +62,10 @@ class DeepReduceConfig:
     policy: str = "leftmost"
     bloom_blocked: Any = False
     bloom_threshold_insert: bool = False
+    poly_degree: int = 5
     quantum_num: int = 127
     bucket_size: int = 512
+    sort: bool = False
     seed: int = 0
     fused: bool = True
     decode_strategy: str = "loop"
@@ -94,6 +96,10 @@ class DeepReduceConfig:
             raise ConfigError("topk_undershoot", "topk_undershoot must be positive")
         if not isinstance(self.bloom_threshold_insert, bool):
             raise ConfigError("bloom_threshold_insert", "bloom_threshold_insert must be a bool")
+        if not isinstance(self.sort, bool):
+            raise ConfigError("sort", "sort must be a bool")
+        if self.poly_degree < 0:
+            raise ConfigError("poly_degree", "poly_degree must be non-negative")
 
     def codec_params(self) -> Dict[str, Any]:
         return {
@@ -101,8 +107,10 @@ class DeepReduceConfig:
             "policy": self.policy,
             "bloom_blocked": self.bloom_blocked,
             "bloom_threshold_insert": self.bloom_threshold_insert,
+            "poly_degree": self.poly_degree,
             "quantum_num": self.quantum_num,
             "bucket_size": self.bucket_size,
+            "sort": self.sort,
             "seed": self.seed,
         }
 

@@ -18,30 +18,11 @@ The gate equations are flax's `OptimizedLSTMCell`:
 from __future__ import annotations
 
 import math
-from typing import Dict
 
 import torch
 from torch import nn
 
-
-def _normal(shape, std: float, gen: torch.Generator) -> nn.Parameter:
-    return nn.Parameter(torch.randn(*shape, generator=gen) * std)
-
-
-class Dense(nn.Module):
-    """flax Dense: y = x @ kernel [in, out] + bias."""
-
-    def __init__(self, d_in: int, d_out: int, gen: torch.Generator, *, use_bias: bool = True):
-        super().__init__()
-        self.kernel = _normal((d_in, d_out), 1.0 / math.sqrt(d_in), gen)
-        if use_bias:
-            self.bias = nn.Parameter(torch.zeros(d_out))
-        else:
-            self.bias = None
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.kernel
-        return y if self.bias is None else y + self.bias
+from deepreduce_tpu_torch.models.common import Dense, FlaxNamed, _normal
 
 
 class Embed(nn.Module):
@@ -88,7 +69,7 @@ class OptimizedLSTMCell(nn.Module):
         return torch.stack(outs, dim=1)
 
 
-class WordLSTM(nn.Module):
+class WordLSTM(FlaxNamed, nn.Module):
     def __init__(
         self,
         vocab_size: int = 10_004,
@@ -109,21 +90,3 @@ class WordLSTM(nn.Module):
         """tokens int [batch, seq] -> logits f32 [batch, seq, vocab]."""
         h = self.OptimizedLSTMCell_0(self.Embed_0(tokens))
         return self.Dense_1(self.Dense_0(h))
-
-    def flax_params(self) -> Dict[str, nn.Parameter]:
-        """Parameters under their flax names ("Dense_0/kernel", ...)."""
-        return {name.replace(".", "/"): p for name, p in self.named_parameters()}
-
-    @torch.no_grad()
-    def load_flax_params(self, params: Dict[str, torch.Tensor]) -> None:
-        """Copy parameters given under flax names; the name sets must match."""
-        own = self.flax_params()
-        if set(own) != set(params):
-            raise KeyError(
-                f"parameter names differ: missing {sorted(set(own) - set(params))}, "
-                f"unexpected {sorted(set(params) - set(own))}"
-            )
-        for name, p in own.items():
-            if tuple(params[name].shape) != tuple(p.shape):
-                raise ValueError(f"{name}: shape {tuple(params[name].shape)} != {tuple(p.shape)}")
-            p.copy_(params[name])

@@ -96,7 +96,7 @@ def topk(tensor: torch.Tensor, compress_ratio: float, *, k: Optional[int] = None
     return SparseGrad(
         values=flat[idxs],
         indices=idxs.to(torch.int32),
-        nnz=torch.tensor(k, dtype=torch.int32, device=flat.device),
+        nnz=torch.full((), k, dtype=torch.int32, device=flat.device),
         shape=tuple(tensor.shape),
     )
 
@@ -119,7 +119,7 @@ def none_sparsifier(tensor: torch.Tensor) -> SparseGrad:
     return SparseGrad(
         values=flat,
         indices=torch.arange(d, dtype=torch.int32, device=flat.device),
-        nnz=torch.tensor(d, dtype=torch.int32, device=flat.device),
+        nnz=torch.full((), d, dtype=torch.int32, device=flat.device),
         shape=tuple(tensor.shape),
     )
 

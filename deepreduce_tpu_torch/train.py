@@ -4,7 +4,9 @@ One process per worker (rank of the process group; one worker without a
 group). The step is forward/backward -> `compensate` -> fused exchange ->
 `update` -> optimizer, with `torch.optim.SGD(lr, momentum)`, whose update
 matches `optax.sgd(lr, momentum)`. Parameters and optimizer state are
-updated in place.
+updated in place. A model with BatchNorm (ResNet-20) moves its running
+statistics in the forward; the step then averages them over the workers
+with one `all_reduce` (the JAX package's `pmean(new_stats)`).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from deepreduce_tpu_torch.metrics import WireStats
 @dataclasses.dataclass(frozen=True)
 class TrainState:
     params: Dict[str, nn.Parameter]  # by flax name; the model's own tensors
+    batch_stats: Dict[str, torch.Tensor]  # BatchNorm running stats by flax name, the model's buffers ({} if none)
     optimizer: torch.optim.Optimizer
     residuals: Optional[Dict[str, torch.Tensor]]  # worker-local error feedback
     step: int
@@ -33,7 +36,10 @@ class TrainState:
 
 def classification_loss(model: nn.Module) -> Callable:
     """batch = (inputs, int labels) -> mean softmax cross-entropy over every
-    position (the JAX package's `classification_loss` without BatchNorm)."""
+    position (the JAX package's `classification_loss`). The model runs in
+    training mode, so a BatchNorm layer normalizes with the batch's
+    statistics and moves its running statistics in place, as flax's
+    `apply(..., mutable=['batch_stats'])` returns them."""
 
     def loss_fn(batch) -> torch.Tensor:
         inputs, labels = batch
@@ -58,7 +64,7 @@ class Trainer:
         loss_fn: Optional[Callable] = None,
     ):
         self.device = resolve_device(device)
-        self.model = model.to(self.device)
+        self.model = model.to(self.device).train()
         self.cfg = cfg
         self.lr = lr
         self.momentum = momentum
@@ -71,7 +77,9 @@ class Trainer:
         self.exchanger = GradientExchanger(params, self.cfg, device=self.device, group=self.group)
         residuals = self.exchanger.init_state({n: p.detach() for n, p in params.items()})
         opt = torch.optim.SGD(list(params.values()), lr=self.lr, momentum=self.momentum)
-        return TrainState(params=params, optimizer=opt, residuals=residuals, step=0)
+        return TrainState(
+            params=params, batch_stats=self.model.flax_batch_stats(), optimizer=opt, residuals=residuals, step=0
+        )
 
     def _mean_over_workers(self, x: torch.Tensor) -> torch.Tensor:
         if self.group is None:
@@ -79,6 +87,17 @@ class Trainer:
         x = x.clone()
         dist.all_reduce(x, group=self.group)
         return x / dist.get_world_size(self.group)
+
+    def _average_stats(self, stats: Dict[str, torch.Tensor]) -> None:
+        """Replace each running statistic by its mean over the workers, in
+        place, with one `all_reduce` of one flat buffer."""
+        if self.group is None or not stats:
+            return
+        flat = self._mean_over_workers(torch.cat([s.reshape(-1) for s in stats.values()]))
+        lo = 0
+        for s in stats.values():
+            s.copy_(flat[lo : lo + s.numel()].view(s.shape))
+            lo += s.numel()
 
     def step(
         self, state: TrainState, batch, *, uniforms: Optional[Dict[str, torch.Tensor]] = None
@@ -99,6 +118,7 @@ class Trainer:
         for n, p in params.items():
             p.grad = agg[n]
         state.optimizer.step()
+        self._average_stats(state.batch_stats)
         loss = self._mean_over_workers(loss.detach())
         if self.group is not None:
             w = dist.get_world_size(self.group)

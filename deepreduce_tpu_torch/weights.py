@@ -1,8 +1,9 @@
-"""Carry parameters over from the JAX package.
+"""Carry parameters and BatchNorm statistics over from the JAX package.
 
-The JAX package's parameters, flattened with its `_leaf_name` naming
-("Dense_0/kernel", "OptimizedLSTMCell_0/hf/bias", ...), map one to one onto
-the port's flax-named parameters, in the same layout. Tests use this so
+The JAX package's parameters and `batch_stats`, flattened with its
+`_leaf_name` naming ("Dense_0/kernel", "OptimizedLSTMCell_0/hf/bias",
+"BasicBlockV2_0/BatchNorm_0/mean", ...), map one to one onto the port's
+flax-named parameters and buffers, in the same layout. Tests use this so
 that both packages compute the same function.
 """
 
@@ -14,13 +15,24 @@ import numpy as np
 import torch
 
 
-def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """name -> numpy array (from the JAX params pytree) -> name -> float32
-    CPU tensor for `WordLSTM.load_flax_params`."""
+def _float32_tensors(flat: Dict[str, np.ndarray], what: str) -> Dict[str, torch.Tensor]:
     out = {}
     for name, arr in flat.items():
         a = np.asarray(arr)
         if a.dtype != np.float32:
-            raise TypeError(f"{name}: expected float32 parameters, got {a.dtype}")
+            raise TypeError(f"{name}: expected float32 {what}, got {a.dtype}")
         out[name] = torch.from_numpy(a.copy())
     return out
+
+
+def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """name -> numpy array (from the JAX params pytree) -> name -> float32
+    CPU tensor for a model's `load_flax_params`."""
+    return _float32_tensors(flat, "parameters")
+
+
+def batch_stats_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """name -> numpy array (from the JAX `batch_stats` pytree: the running
+    `mean` and `var` of each BatchNorm) -> name -> float32 CPU tensor for a
+    model's `load_flax_batch_stats`."""
+    return _float32_tensors(flat, "batch statistics")

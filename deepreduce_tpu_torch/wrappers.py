@@ -13,10 +13,16 @@ from `deepreduce_tpu/wrappers.py` for `deepreduce in (None, 'index', 'both')`.
 - `'index'`: the index codec's payload alone (bloom: the FP-aware values
   re-read from the dense tensor; integer: the values in ascending-index
   order).
-- `'both'`: the index codec first, then QSGD over its value table in slot
-  order. QSGD preserves order, so the mapping is elided. The value codec's
-  slot count is the index codec's `value_slots` (bloom: its budget;
-  integer: k), and the selected count is the index payload's.
+- `'both'`: the index codec first, then the value codec over its value
+  table with arange indices. The value codec's slot count is the index
+  codec's `value_slots` (bloom: its budget; integer: k), and the selected
+  count is the index payload's. QSGD preserves order, so its mapping is
+  elided, and its wire rows are written by the fused kernel
+  (`ops.qsgd_encode_rows`; the exchange groups every leaf of a step into
+  one launch). PolyFit reorders the values: the order it put them in (the
+  `mapping`) is bit-packed at ceil(log2 k) bits (`codecs.packing`), and
+  decode puts the evaluated values back in slot order before the index
+  codec places them.
 - `direct_bloom`: sampled top-k with the threshold insert under a prefix
   policy builds the bloom filter straight from the dense tensor
   (`bloom.encode_dense_direct`); no top-k runs.
@@ -31,7 +37,7 @@ from typing import Any, List, Optional, Tuple
 import torch
 
 from deepreduce_tpu_torch import sparse
-from deepreduce_tpu_torch.codecs import qsgd
+from deepreduce_tpu_torch.codecs import packing, polyfit, qsgd
 from deepreduce_tpu_torch.codecs.registry import get_codec
 from deepreduce_tpu_torch.config import DeepReduceConfig
 from deepreduce_tpu_torch.device import DeviceLike, check_on, resolve_device
@@ -54,15 +60,17 @@ class DensePayload:
 @dataclasses.dataclass(frozen=True)
 class BothPayload:
     """'both' wire format: index payload (values stripped), value payload
-    (indices stripped) and the selected count. The mapping is always elided
-    (QSGD preserves order), so it contributes no leaf."""
+    (indices stripped), the packed mapping (None, and no leaf, when the
+    value codec preserves order) and the selected count."""
 
     index_payload: Any
-    value_payload: qsgd.QSGDPayload
+    value_payload: Any
+    mapping: Optional[packing.PackedInts]
     nsel: torch.Tensor
 
     def leaves(self) -> Tuple[torch.Tensor, ...]:
-        return self.index_payload.leaves() + self.value_payload.leaves() + (self.nsel,)
+        mapping = () if self.mapping is None else self.mapping.leaves()
+        return self.index_payload.leaves() + self.value_payload.leaves() + mapping + (self.nsel,)
 
 
 class TensorCodec:
@@ -100,12 +108,19 @@ class TensorCodec:
         self.val_codec = None
         # index of the QSGD wire rows among a 'both' payload's leaves
         self.rows_leaf: Optional[int] = None
+        # bits per mapping entry of a reordering value codec
+        self.map_width: Optional[int] = None
         if self.compressed:
             self.idx_codec = get_codec(cfg.index, "index")(self.k, self.d, params)
             if cfg.deepreduce == "both":
                 # the value codec sees the index codec's value table
                 self.val_codec = get_codec(cfg.value, "value")(self.idx_codec.value_slots, self.d, params)
-                self.rows_leaf = len(self.idx_codec.payload_specs(0))
+                if cfg.value == "qsgd":
+                    self.rows_leaf = len(self.idx_codec.payload_specs(0))
+                if not self.val_codec.order_preserving:
+                    self.map_width = max(1, math.ceil(math.log2(max(2, self.val_codec.both_mapping_max() + 1))))
+                if cfg.value == "polyfit":
+                    polyfit.ratios_on(self.device)  # its one host copy, outside every step
         self.dense_fallback = not self.compressed and (cfg.compressor == "none" or self.k * 64 >= self.d * 32)
         # the sparsifier-free route: spelled out in full, as in the JAX
         # package, rather than relying on a constructor to reject the rest
@@ -140,11 +155,14 @@ class TensorCodec:
         uniforms: Optional[torch.Tensor] = None,
     ) -> Any:
         """tensor -> payload: the index stage, then in 'both' mode the value
-        stage as a one-segment fused QSGD encode. `uniforms` (CPU only)
-        replaces the QSGD Philox draws; see `codecs.qsgd.encode`."""
+        stage: a one-segment fused QSGD encode, or `encode_values`.
+        `uniforms` (CPU only) replaces the QSGD Philox draws; see
+        `codecs.qsgd.encode`."""
         ipay = self.encode_index(tensor)
         if self.val_codec is None:
             return ipay
+        if self.rows_leaf is None:
+            return self.encode_values(ipay)
         data = torch.empty(self.val_codec.meta.payload_len, dtype=torch.int8, device=tensor.device)
         seg = self.value_segment(ipay, 0, step=step, worker=worker, uniforms=uniforms)
         meta = self.val_codec.meta
@@ -168,6 +186,24 @@ class TensorCodec:
         if not self.compressed:
             return sp
         return self.idx_codec.encode(sp, dense=tensor)
+
+    def encode_values(self, ipay: Any) -> BothPayload:
+        """The value stage of a reordering value codec (PolyFit): encode the
+        index payload's value table with arange indices, strip the order it
+        chose and bit-pack it as the mapping."""
+        vals = ipay.values
+        dev = vals.device
+        vk = vals.shape[0]
+        nsel = self.idx_codec.selected(ipay)
+        inner = SparseGrad(values=vals, indices=torch.arange(vk, dtype=torch.int32, device=dev), nnz=nsel, shape=(vk,))
+        vpay, mapping, _ = self.val_codec.strip_for_both(self.val_codec.encode(inner))
+        width = torch.full((), self.map_width, dtype=torch.int32, device=dev)
+        return BothPayload(
+            index_payload=dataclasses.replace(ipay, values=torch.zeros(0, dtype=torch.float32, device=dev)),
+            value_payload=vpay,
+            mapping=packing.pack(mapping, width, max_width=self.map_width),
+            nsel=nsel,
+        )
 
     def value_segment(
         self,
@@ -195,6 +231,7 @@ class TensorCodec:
             value_payload=qsgd.QSGDPayload(
                 data=data, indices=torch.zeros(0, dtype=torch.int32, device=data.device), nnz=nsel
             ),
+            mapping=None,
             nsel=nsel,
         )
 
@@ -206,8 +243,21 @@ class TensorCodec:
             return payload.to_dense()
         if self.val_codec is None:
             return self.idx_codec.decode_dense(payload, self.shape)
-        vsp = self.val_codec.decode(payload.value_payload, self.shape)  # slot-order values
-        return self.idx_codec.decode_dense(payload.index_payload, self.shape, values=vsp.values)
+        vk = self.val_codec.k
+        mapping = None if payload.mapping is None else packing.unpack(payload.mapping, vk)
+        vpay = self.val_codec.restore_for_both(payload.value_payload, mapping)
+        vsp = self.val_codec.decode(vpay, self.shape)  # values in the codec's order
+        table = vsp.values
+        if mapping is not None:
+            # the slot-ordered table: value i goes to slot indices[i]; a
+            # target out of range is dropped, not clipped onto a live slot
+            slots = torch.arange(vk, device=table.device)
+            idx = vsp.indices.long()
+            tgt = torch.where((idx >= 0) & (idx < vk), idx, vk + slots)
+            out = torch.zeros(2 * vk, dtype=table.dtype, device=table.device)
+            out[tgt] = table
+            table = out[:vk]
+        return self.idx_codec.decode_dense(payload.index_payload, self.shape, values=table)
 
     # -- the static wire layout ----------------------------------------- #
 
@@ -221,12 +271,11 @@ class TensorCodec:
             return [((self.k,), torch.float32), ((self.k,), i32), ((), i32)]
         if self.val_codec is None:
             return self.idx_codec.payload_specs(self.idx_codec.value_slots)
-        return self.idx_codec.payload_specs(0) + [
-            ((self.val_codec.meta.payload_len,), torch.int8),
-            ((0,), i32),
-            ((), i32),
-            ((), i32),
-        ]
+        specs = self.idx_codec.payload_specs(0) + self.val_codec.payload_specs(0)
+        if self.map_width is not None:
+            words = packing.budget_words(self.val_codec.k, self.map_width)
+            specs += [((words,), i32), ((), i32), ((), i32)]
+        return specs + [((), i32)]
 
     def payload_from_leaves(self, leaves: List[torch.Tensor]) -> Any:
         if self.dense_fallback:
@@ -235,11 +284,12 @@ class TensorCodec:
             return SparseGrad(values=leaves[0], indices=leaves[1], nnz=leaves[2], shape=self.shape)
         if self.val_codec is None:
             return self.idx_codec.payload_from_leaves(leaves)
-        r = self.rows_leaf
+        r = len(self.idx_codec.payload_specs(0))
         return BothPayload(
             index_payload=self.idx_codec.payload_from_leaves(leaves[:r]),
-            value_payload=qsgd.QSGDPayload(*leaves[r : r + 3]),
-            nsel=leaves[r + 3],
+            value_payload=self.val_codec.payload_from_leaves(leaves[r : r + 3]),
+            mapping=None if self.map_width is None else packing.PackedInts(*leaves[r + 3 : r + 6]),
+            nsel=leaves[-1],
         )
 
     # ------------------------------------------------------------------ #
@@ -247,7 +297,9 @@ class TensorCodec:
     def wire_stats(self, payload: Any) -> WireStats:
         dev = self.device
         f32 = dict(dtype=torch.float32, device=dev)
-        dense_bits = torch.tensor(float(self.d * 32), **f32)
+        # static counts are filled on the device: a tensor copied from the
+        # host would wait for the device's queue to drain
+        dense_bits = torch.full((), float(self.d * 32), **f32)
         saturated = torch.zeros((), **f32)
         if self.dense_fallback:
             idx_bits = torch.zeros((), **f32)
@@ -258,10 +310,12 @@ class TensorCodec:
             val_bits = nnz * 32
         else:
             ipay = payload if self.val_codec is None else payload.index_payload
-            idx_bits = torch.as_tensor(self.idx_codec.index_wire_bits(ipay), **f32)
+            idx_bits = self.idx_codec.index_wire_bits(ipay).to(torch.float32)
             if self.val_codec is None:
                 val_bits = self.idx_codec.value_wire_bits(ipay)
             else:
+                if payload.mapping is not None:
+                    idx_bits = idx_bits + packing.wire_bits(payload.mapping).to(torch.float32)
                 val_bits = self.val_codec.value_wire_bits(payload.value_payload)
             saturated = self.idx_codec.saturated(ipay).to(torch.float32)
         return WireStats(

@@ -106,3 +106,56 @@ def test_qsgd_encode_rows_refuses_uniforms_and_cpu_tensors(cuda):
                          quantum_num=127, bucket_size=512, device=cuda)
     with pytest.raises(ValueError):
         qsgd_encode_rows([EncodeSegment(v.cpu(), 0, 0, 0)], out, quantum_num=127, bucket_size=512, device=cuda)
+
+
+def test_qsgd_encode_rows_resnet20_table(cuda):
+    """The ResNet-20 DRQSGD arm's table: 19 segments of 20..368 values at
+    their leaves' offsets in the fused buffer, every bucket partial."""
+    from deepreduce_tpu_torch import DeepReduceConfig, GradientExchanger
+    from deepreduce_tpu_torch.models import ResNet20
+
+    shapes = {n: tuple(p.shape) for n, p in ResNet20().flax_params().items()}
+    cfg = DeepReduceConfig(compressor="topk", compress_ratio=0.01, deepreduce="both", index="bloom",
+                           value="qsgd", fpr=0.001, policy="leftmost")
+    ex = GradientExchanger(shapes, cfg, device=cuda)
+    segs_cpu, segs_dev = [], []
+    for i, n in enumerate(ex.names):
+        c = ex.codecs[n]
+        if c.rows_leaf is None:
+            continue
+        v = _values(c.val_codec.meta.k, 2000 + i)
+        off = ex.offsets[n] + ex.layouts[n].leaf_offsets[c.rows_leaf]
+        segs_cpu.append(EncodeSegment(v, off, 91 + i, (3 << 32) | i))
+        segs_dev.append(EncodeSegment(v.to(cuda), off, 91 + i, (3 << 32) | i))
+    assert len(segs_cpu) == 19 and {s.values.shape[0] for s in segs_cpu} == {20, 23, 46, 92, 184, 368}
+    ref = torch.zeros(ex.fused_nbytes, dtype=torch.uint8)
+    qsgd_encode_rows_plain(segs_cpu, 127, 512, ref)
+    out = torch.zeros(ex.fused_nbytes, dtype=torch.uint8, device=cuda)
+    before = qsgd_encode_rows.launches
+    qsgd_encode_rows(segs_dev, out, quantum_num=127, bucket_size=512, device=cuda)
+    torch.cuda.synchronize()
+    assert qsgd_encode_rows.launches == before + 1
+    assert torch.equal(out.cpu(), ref)
+
+
+def test_quickstart_codec_card_equals_cpu(cuda):
+    """The README quick start's TensorCodec (classic bloom, PolyFit) on the
+    largest ResNet-20 conv gradient: every integer leaf bitwise equal on the
+    card and the CPU, the coefficients and the decode within tolerance."""
+    from deepreduce_tpu_torch import DeepReduceConfig, TensorCodec
+
+    cfg = DeepReduceConfig(compressor="topk", compress_ratio=0.01, deepreduce="both", index="bloom",
+                           value="polyfit", fpr=0.001, policy="leftmost")
+    g = torch.randn(3, 3, 64, 64, generator=torch.Generator().manual_seed(4)) * 0.05
+    pays = {}
+    for dev in (cuda, torch.device("cpu")):
+        codec = TensorCodec(g.shape, cfg, name="BasicBlockV2_8/Conv_1/kernel", device=dev)
+        pay = codec.encode(g.to(dev))
+        pays[dev.type] = (pay, codec.decode(pay).cpu())
+    (gp, gdec), (cp, cdec) = pays["cuda"], pays["cpu"]
+    for i, (a, b) in enumerate(zip(gp.leaves(), cp.leaves())):
+        if b is cp.value_payload.coeffs:
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-6 * float(g.abs().max()))
+        else:
+            assert torch.equal(a.cpu(), b), i
+    torch.testing.assert_close(gdec, cdec, rtol=0, atol=1e-5 * float(g.abs().max()))

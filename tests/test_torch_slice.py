@@ -309,9 +309,9 @@ def test_config_rejects_unported_knobs_by_name():
     assert e.value.knob == "use_pallas"
     assert port.from_params(FLAGSHIP) == port.DeepReduceConfig(**FLAGSHIP)
     # the codec knobs are read only when a codec runs, as in the JAX package:
-    # the JAX defaults (value='polyfit', bloom_blocked=False) stand without one
-    assert port.DeepReduceConfig().deepreduce is None
+    # an unported value codec stands without one and is rejected with one
+    assert port.DeepReduceConfig(value="doubleexp").deepreduce is None
     with pytest.raises(port.ConfigError) as e:
-        port.DeepReduceConfig(deepreduce="both")
+        port.DeepReduceConfig(deepreduce="both", value="doubleexp")
     assert e.value.knob == "value"
     assert dataclasses.asdict(port.from_params(FLAGSHIP))["policy"] == "p0"
