@@ -24,8 +24,10 @@ Phases, one line each; any failure raises and exits non-zero:
      qsgd_quantize never (it is no longer on the main path); then the
      flagship's codec-table times (as in phase 7);
   6. device times (torch.profiler) and host times of each kernel and its
-     plain version at the main path's shapes, beside the per-leaf QSGD
-     composition the fused kernel replaced, then the `kernels` JSON line;
+     plain version at its path's shapes (qsgd_encode_rows on phase 5's table,
+     beside the per-leaf QSGD composition it replaced; qsgd_quantize at the
+     qar path's 4,050,944 elements from phase 9), then the `kernels` JSON
+     line, whose launches sum every path's counted run;
   7. the other Table-4 arms of `bench.py` (dense allreduce, Top-r,
      DRQSGD with the delta-bitpacked integer index, with sampled top-k,
      with the sparsifier-free direct bloom encode, and bloom index-only),
@@ -51,10 +53,24 @@ Phases, one line each; any failure raises and exits non-zero:
      the largest conv gradient through the quick-start TensorCodec on the
      card and on the CPU (filter, nsel, num_pos and mapping bitwise,
      coefficients and decode within tolerance); encode/decode times of that
-     leaf and of a whole ResNet-20 gradient (CUDA events).
+     leaf and of a whole ResNet-20 gradient (CUDA events);
+  9. the in-collective communicators on the full-width WordLSTM through the
+     same NCCL group, 3 steps each on phase 7's weights and batches with the
+     counts zeroed just before and read just after: `qar` (the int8 quantized
+     allreduce, two qsgd_quantize launches per step) and the sparse_rs
+     routes sparse, adaptive (rs_density_threshold 0.05, so the dense int8
+     phase-2 row carries the wire; one launch), quantized (one launch against
+     the shared norms) and oktopk; no qsgd_encode_rows launch and no host
+     sync in any step; finite losses, the first within 1e-4 of phase 5's CPU
+     forward; payload bytes, rel_volume and the adaptive and oktopk
+     observables; one step's compensated gradient through the route on the
+     card and on the CPU under the same stream, the mean, the own-transmitted
+     tensor and the quantized levels bitwise equal; and qsgd_quantize on the
+     qar path's own 4,050,944-element input bitwise equal to its plain
+     version on the card.
 `--profile` adds one profiled training step after phase 5, after each arm
-of phase 7 and after each arm of phase 8: the device's busy and idle share
-over the step, its device launches and its largest kernels.
+of phases 7, 8 and 9: the device's busy and idle share over the step, its
+device launches and its largest kernels.
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without
 the package beside it, the script exits non-zero and prints no result.
 """
@@ -112,6 +128,21 @@ QUICKSTART = dict(
 RESNET_ARMS = {"resnet20_quickstart": ({}, 5), "resnet20_drqsgd": (dict(value="qsgd"), 3)}
 RESNET_PAYLOAD_BYTES = {"resnet20_quickstart": 18_756, "resnet20_drqsgd": 15_544}
 RESNET_BATCH = 64
+
+# phase 9: the in-collective communicators with the JAX package's defaults
+# (ratio 0.1 as in bench.py's rs-sweep): knobs, wire bytes on the full-width
+# WordLSTM at W = 1 (the JAX package's qar.wire_bits_per_worker and
+# costmodel.rs_payload_bytes) and qsgd_quantize launches per step
+RS = dict(communicator="sparse_rs", compressor="topk", memory="residual", deepreduce=None)
+IN_COLLECTIVE = {
+    "qar": (dict(communicator="qar", compressor="none", memory="none", deepreduce=None), 0, 2),
+    "rs_sparse": (dict(RS, rs_mode="sparse"), 9_721_776, 0),
+    # below the W = 1 density of 0.1, so the dense int8 row is the one sent
+    "rs_adaptive": (dict(RS, rs_mode="adaptive", rs_density_threshold=0.05), 10_595_428, 1),
+    "rs_quantized": (dict(RS, rs_mode="quantized"), 7_354_832, 1),
+    "rs_oktopk": (dict(RS, rs_mode="oktopk"), 9_738_160, 0),
+}
+QAR_N = 4_050_944  # qar.pad_len(4,050,748, 1, 512): qsgd_quantize's size on the qar path
 LARGEST_CONV = ("BasicBlockV2_8/Conv_1/kernel", (3, 3, 64, 64))
 # PolyFit's coefficients are solved by another LU on the card than on the
 # CPU; the decode evaluates them (basis rows bounded by 1, six terms)
@@ -459,7 +490,7 @@ def _tokens(seed: int, steps: int, batch: int, seq: int, vocab: int):
     return torch.randint(0, vocab, (steps, batch, seq + 1), generator=gen)
 
 
-def _step_counting_syncs(trainer, state, batch):
+def _step_counting_syncs(trainer, state, batch, **step_kw):
     """One training step under torch's sync debug mode: (state, loss, wire,
     the file:line of each host sync the step made). Every synchronizing call
     it detects (a copy to or from the host, `.item()`, a stream wait) warns
@@ -472,7 +503,7 @@ def _step_counting_syncs(trainer, state, batch):
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            state, loss, wire = trainer.step(state, batch)
+            state, loss, wire = trainer.step(state, batch, **step_kw)
         finally:
             torch.cuda.set_sync_debug_mode("default")
     # where each sync was called from: the Python line that made the call
@@ -480,10 +511,11 @@ def _step_counting_syncs(trainer, state, batch):
     return state, loss, wire, syncs
 
 
-def _run_steps(trainer, state, batches, steps: int):
+def _run_steps(trainer, state, batches, steps: int, collects=None):
     """(state, losses, device ms, host ms, last wire stats, the host syncs
     of each step) of `steps` training steps on `batches(i)`, each timed by
-    CUDA events and the host clock."""
+    CUDA events and the host clock. With a list `collects`, each step's
+    exchange observables are appended to it."""
     import torch
 
     losses, dev_ms, host_ms, syncs = [], [], [], []
@@ -492,7 +524,11 @@ def _run_steps(trainer, state, batches, steps: int):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
-        state, loss, wire, step_syncs = _step_counting_syncs(trainer, state, batches(i))
+        kw = {}
+        if collects is not None:
+            kw["collect"] = {}
+            collects.append(kw["collect"])
+        state, loss, wire, step_syncs = _step_counting_syncs(trainer, state, batches(i), **kw)
         end.record()
         end.synchronize()
         host_ms.append((time.perf_counter() - t0) * 1e3)
@@ -858,6 +894,157 @@ def phase_resnet(seed: int, group, profile: bool = False) -> dict:
     return results
 
 
+def _route_card_vs_cpu(trainer, state, batch) -> dict:
+    """One step's compensated full-width gradient (a probe copy of the model
+    at the trainer's state) through the arm's route on the card (the
+    trainer's exchanger, over the NCCL group) and on the CPU (an exchanger
+    without a group) under the same Philox streams: the mean, the
+    own-transmitted tensor, the observables and the quantized levels bitwise
+    equal. Returns the comparison's summary and the qar path's padded input."""
+    import copy
+
+    import torch
+
+    from deepreduce_tpu_torch import GradientExchanger, memory, qar, sparse_rs
+    from deepreduce_tpu_torch.train import classification_loss
+
+    ex, cfg = trainer.exchanger, trainer.cfg
+    probe = copy.deepcopy(trainer.model)
+    classification_loss(probe)(batch).backward()
+    grads = {n: p.grad for n, p in probe.flax_params().items()}
+    comp = grads
+    if state.residuals is not None:
+        comp = memory.compensate(grads, state.residuals, beta=cfg.beta, gamma=cfg.gamma)
+    flat = ex._flatten(comp)
+    cpu_ex = GradientExchanger(ex.shapes, cfg, device="cpu")
+    outs = {}
+    for dev, e in (("cuda", ex), ("cpu", cpu_ex)):
+        x = flat.to(dev)
+        collect = {}
+        mean, own, _ = e.route_flat(x, step=state.step, collect=collect)
+        out = {"mean": mean, **collect}
+        if own is not None:
+            out["own"] = own
+        # the route's quantized levels, from its own stream
+        if cfg.communicator == "qar":
+            padded = torch.zeros(qar.pad_len(e.d, 1, cfg.bucket_size), device=dev)
+            padded[: e.d] = x
+            out["levels"], out["norms"] = qar.bucket_quantize(
+                padded, cfg.quantum_num, cfg.bucket_size, e.stream(qar.STREAM_PHASE1, state.step))
+            out["padded"] = padded
+        elif cfg.rs_mode == "quantized":
+            padded = torch.zeros(sparse_rs.padded_shard(e.d, 1, cfg.rs_block_size), device=dev)
+            padded[: e.d] = x
+            out["levels"], out["norms"] = qar.bucket_quantize(
+                padded, sparse_rs.quantized_levels_budget(1), cfg.rs_block_size,
+                e.stream(sparse_rs.STREAM_QUANTIZED, state.step))
+        outs[dev] = out
+    torch.cuda.synchronize()
+    for key, ref in outs["cpu"].items():
+        got = outs["cuda"][key].cpu()
+        diff = float((got.double() - ref.double()).abs().max()) if got.numel() else 0.0
+        _check(torch.equal(got, ref), f"{cfg.communicator}/{cfg.rs_mode}: {key} differs between the card and the "
+                                      f"CPU (max |diff| {diff})")
+    mean = outs["cpu"]["mean"]
+    res = {
+        "bitwise_equal": sorted(k for k in outs["cpu"] if k != "padded"), "d": int(mean.numel()),
+        "mean_nonzero": int((mean != 0).sum()),
+    }
+    if "levels" in outs["cpu"]:
+        lv = outs["cpu"]["levels"]
+        res.update(levels=int(lv.numel()), levels_nonzero=int((lv != 0).sum()), max_abs_level=int(lv.abs().max()))
+    return res, outs["cuda"].get("padded")
+
+
+def _quantize_on_path(padded, cfg, stream) -> dict:
+    """qsgd_quantize on the qar path's own input (the padded gradient and its
+    bucket scale): bitwise equal to its plain version on the card, and its
+    device and host times beside the bytes bound. Its 36 MB of traffic fit
+    the 50 MB L2, so back-to-back launches read from the cache; `ms` is
+    timed with a 64 MiB write between launches, which evicts them, and
+    `warm_ms` without."""
+    import torch
+
+    from deepreduce_tpu_torch.ops import (
+        bucket_norms_ordered, philox_uniforms_plain, quantize_levels, quantize_levels_plain, scale_from_norms)
+
+    n, bs = padded.numel(), cfg.bucket_size
+    _check(n == QAR_N, f"the qar path quantizes {n} elements, expected {QAR_N}")
+    scale = scale_from_norms(bucket_norms_ordered(padded, bs), cfg.quantum_num)[:, None].expand(-1, bs).reshape(-1)
+    kernel = lambda: quantize_levels(padded, scale, *stream, device=padded.device)
+    plain = lambda: quantize_levels_plain(padded, scale, philox_uniforms_plain(n, *stream, device=padded.device))
+    got, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    err = float((got.int() - ref.int()).abs().max())
+    _check(torch.equal(got, ref), f"qsgd_quantize != plain on the qar path's input (max |diff| {err})")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=padded.device)
+    ms, per_call = _device_ms(lambda: (flush.zero_(), kernel()), 100, "qsgd_quantize_kernel")
+    warm_ms, _ = _device_ms(kernel, 200, "qsgd_quantize_kernel")
+    plain_ms, plain_launches = _device_ms(plain, 10)
+    _check(ms > 0 and plain_ms > 0, "the profiler saw no device time")
+    bytes_bound = QSGD_BYTES_PER_ELEM * n / HBM_BYTES_PER_S
+    ops_bound = QSGD_F32_OPS_PER_ELEM * n / F32_OPS_PER_S
+    return {
+        "n": n, "max_abs_err": err, "levels_nonzero": int((got != 0).sum()), "ms": ms, "warm_ms": warm_ms,
+        "profiled_kernels_per_call": per_call, "plain_ms": plain_ms, "plain_launches": plain_launches,
+        "host_ms": _host_ms(kernel, 200), "plain_host_ms": _host_ms(plain, 10),
+        "bound_ms": max(bytes_bound, ops_bound) * 1e3,
+        "bound_by": "bytes" if bytes_bound >= ops_bound else "operations",
+    }
+
+
+def phase_in_collective(seed: int, tokens, group, ref_loss: float, profile: bool = False):
+    """Phase 9: the in-collective communicators through `Trainer.step`.
+    Returns ({arm: result}, qsgd_quantize's measurement on the qar path)."""
+    import torch
+
+    from deepreduce_tpu_torch import Trainer, qar
+    from deepreduce_tpu_torch.models import WordLSTM
+    from deepreduce_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    tokens = tokens[:ARM_STEPS].cuda()
+    batches = lambda i: (tokens[i, :, :-1], tokens[i, :, 1:])
+    results, quantize = {}, None
+    for arm, (knobs, payload, per_step) in IN_COLLECTIVE.items():
+        cfg = _flagship_cfg(seed, **knobs)
+        trainer = Trainer(WordLSTM(seed=seed), cfg, lr=0.1, momentum=0.9, device="cuda", group=group)
+        state = trainer.init_state()
+        ex = trainer.exchanger
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        collects = []
+        state, losses, dev_ms, host_ms, wire, sync_calls = _run_steps(trainer, state, batches, ARM_STEPS, collects)
+        launches = launch_counts()
+        expected = {"qsgd_quantize": per_step * ARM_STEPS, "qsgd_encode_rows": 0}
+        _check(launches == expected, f"{arm}: kernel launches {launches}, expected {expected}")
+        _check_trained(state, losses, ref_loss, arm)
+        _check(not any(sync_calls), f"{arm}: host syncs in the step: {sync_calls}")
+        rel_volume = float(wire.rel_volume())
+        _check(0.0 < rel_volume < 1.0, f"{arm}: rel_volume {rel_volume}")
+        _check(ex.payload_bytes() == payload, f"{arm}: payload_bytes {ex.payload_bytes()}, expected {payload}")
+        observables = [{k: float(v) for k, v in c.items()} for c in collects]
+        if arm == "rs_adaptive":
+            _check(all(o["rs_dense_switches"] == 1.0 for o in observables), f"{arm}: {observables}")
+        res = {
+            "losses": losses, "step_ms_all": dev_ms, "step_ms_median": statistics.median(dev_ms),
+            "host_step_ms_all": host_ms, "rel_volume": rel_volume, "payload_bytes": ex.payload_bytes(),
+            "launches": launches, "sync_calls_per_step": [len(x) for x in sync_calls],
+            "observables": observables, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        }
+        res["card_vs_cpu"], padded = _route_card_vs_cpu(trainer, state, batches(0))
+        if arm == "qar":
+            quantize = _quantize_on_path(padded, cfg, ex.stream(qar.STREAM_PHASE1, state.step))
+            res["qsgd_quantize_on_path"] = quantize
+        if profile:
+            prof = _profile_step(lambda: trainer.step(state, batches(0)))
+            res["profile"] = prof
+        print(f"phase 9 ok: {arm} " + json.dumps(res), flush=True)
+        results[arm] = res
+        del trainer, state
+        torch.cuda.empty_cache()
+    return results, quantize
+
+
 def _per_leaf_composition(segs, q: int, bs: int):
     """The QSGD encode of a worker-step as the port's first slice composed
     it, leaf by leaf: zero padding, the bucket norm (a float64 `sum`) and
@@ -884,52 +1071,26 @@ def _per_leaf_composition(segs, q: int, bs: int):
     return torch.cat(leaves)
 
 
-def _time_quantize(sizes, launches: dict, max_err: float) -> dict:
-    """qsgd_quantize per launch at each of the sizes the per-leaf encode
-    gave it; its `kernels` entry sums one worker-step's 12 launches."""
-    import torch
-
-    from deepreduce_tpu_torch.ops import philox_uniforms_plain, quantize_levels, quantize_levels_plain
-
-    dev = torch.device("cuda")
-    per_n = []
-    for i, n in enumerate(sorted(set(sizes))):
-        v, s = _qsgd_inputs(n, 200 + i, dev)
-        seed, offset = 1234, i
-        kernel = lambda: quantize_levels(v, s, seed, offset, device=dev)
-        plain = lambda: quantize_levels_plain(v, s, philox_uniforms_plain(n, seed, offset, device=dev))
-        # device time from the profiler: back-to-back launches leave the
-        # card idle between them, so events would time the host instead
-        ms, _ = _device_ms(kernel, 200, "qsgd_quantize_kernel")
-        plain_ms, _ = _device_ms(plain, 20)
-        _check(ms > 0 and plain_ms > 0, "the profiler saw no device time")
-        bound_ms = max(QSGD_BYTES_PER_ELEM * n / HBM_BYTES_PER_S, QSGD_F32_OPS_PER_ELEM * n / F32_OPS_PER_S) * 1e3
-        per_n.append({
-            "n": n, "count_per_step": sizes.count(n), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "host_ms": _host_ms(kernel, 200), "plain_host_ms": _host_ms(plain, 20),
-        })
-    print("phase 6 ok: qsgd_quantize per launch " + json.dumps(per_n), flush=True)
-    step_sum = lambda key: sum(r[key] * r["count_per_step"] for r in per_n)
-    bytes_bound = QSGD_BYTES_PER_ELEM * sum(sizes) / HBM_BYTES_PER_S
-    ops_bound = QSGD_F32_OPS_PER_ELEM * sum(sizes) / F32_OPS_PER_S
+def _quantize_entry(quantize: dict, launches: int, max_err: float) -> dict:
+    """qsgd_quantize's `kernels` entry: one launch at the qar path's size
+    (phase 9), the kernel's only path (the DRQSGD arms' QSGD encode is the
+    fused `qsgd_encode_rows`)."""
     return {
         "name": "qsgd_quantize",
         "route": "cuda",
         "source": "deepreduce_tpu_torch/ops/csrc/qsgd_quantize.cu",
         "replaces": "deepreduce_tpu/ops/qsgd_kernel.py:42",
-        "launches": launches["qsgd_quantize"],
-        "max_abs_err": max_err,
-        # one worker-step's launches as the per-leaf encode made them: the
-        # sum over the 12 sizes
-        "ms": step_sum("ms"),
-        "plain_ms": step_sum("plain_ms"),
-        "bound_ms": max(bytes_bound, ops_bound) * 1e3,
-        "bound_by": "bytes" if bytes_bound >= ops_bound else "operations",
+        "launches": launches,
+        "max_abs_err": max(max_err, quantize["max_abs_err"]),
+        "ms": quantize["ms"],
+        "plain_ms": quantize["plain_ms"],
+        "bound_ms": quantize["bound_ms"],
+        "bound_by": quantize["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this function
     }
 
 
-def _time_encode(ex, launches: dict, max_err: float) -> dict:
+def _time_encode(ex, launches: int, max_err: float) -> dict:
     """qsgd_encode_rows on the main path's 12-segment table (one launch per
     worker-step) beside its plain version and the per-leaf composition it
     replaced."""
@@ -985,7 +1146,7 @@ def _time_encode(ex, launches: dict, max_err: float) -> dict:
         "route": "cuda",
         "source": "deepreduce_tpu_torch/ops/csrc/qsgd_encode.cu",
         "replaces": "deepreduce_tpu/ops/qsgd_kernel.py:42",
-        "launches": launches["qsgd_encode_rows"],
+        "launches": launches,
         "max_abs_err": max_err,
         "ms": ms,  # one launch per worker-step
         "plain_ms": plain_ms,
@@ -995,13 +1156,14 @@ def _time_encode(ex, launches: dict, max_err: float) -> dict:
     }
 
 
-def phase_timing(sizes, ex, launches: dict, errs: dict, by_arm: dict) -> None:
+def phase_timing(ex, errs: dict, by_arm: dict, quantize: dict) -> None:
+    # each path's run, counted from 0 just before it (phases 5, 7, 8 and 9)
+    total = lambda name: sum(counts[name] for counts in by_arm.values())
     kernels = [
-        _time_quantize(sizes, launches, errs["qsgd_quantize"]),
-        _time_encode(ex, launches, errs["qsgd_encode_rows"]),
+        _quantize_entry(quantize, total("qsgd_quantize"), errs["qsgd_quantize"]),
+        _time_encode(ex, total("qsgd_encode_rows"), errs["qsgd_encode_rows"]),
     ]
     for k in kernels:
-        # each arm's run, counted from 0 just before it (phases 5 and 7)
         k["launches_by_arm"] = {arm: counts[k["name"]] for arm, counts in by_arm.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
 
@@ -1049,11 +1211,13 @@ def main(argv=None) -> int:
         _check(res["qsgd_sizes"] == sizes, "main-path QSGD sizes differ from the codec geometry")
         arms = phase_arms(args.seed, tokens, dist.group.WORLD, res["cpu_ref_loss0"], args.profile)
         resnet = phase_resnet(args.seed, dist.group.WORLD, args.profile)
+        in_coll, quantize = phase_in_collective(args.seed, tokens, dist.group.WORLD, res["cpu_ref_loss0"],
+                                                args.profile)
     finally:
         dist.destroy_process_group()
     by_arm = {"drqsgd_bloom": res["launches"], **{a: r["launches"] for a, r in arms.items()},
-              **{a: r["launches"] for a, r in resnet.items()}}
-    phase_timing(sizes, ex, res["launches"], errs, by_arm)
+              **{a: r["launches"] for a, r in resnet.items()}, **{a: r["launches"] for a, r in in_coll.items()}}
+    phase_timing(ex, errs, by_arm, quantize)
     print(f"chip_smoke total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({
         "ok": True,

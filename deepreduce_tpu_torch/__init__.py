@@ -18,9 +18,16 @@ bloom encode and bloom index-only; and the README quick start: top-k 1%
 with the classic bloom index (fpr 0.001, leftmost) and the PolyFit value
 codec on ResNet-20 with BatchNorm (`models.ResNet20`,
 `codecs.registry.PolyFitCodec`), whose running statistics the trainer
-averages over the workers.
+averages over the workers; and the in-collective communicators, where the
+reduction happens inside a reduce-scatter: the int8 quantized allreduce
+(`communicator='qar'`, `qar.py`, whose levels come from the per-leaf
+quantizer kernel `ops/csrc/qsgd_quantize.cu`) and the `sparse_rs` routes
+sparse, adaptive, quantized and oktopk (`sparse_rs.py`). Collectives run
+through `collectives.Collectives`: a `torch.distributed` group, or an
+`InProcessGroup` of W lockstep workers in one process.
 """
 
+from deepreduce_tpu_torch.collectives import Collectives, InProcessGroup
 from deepreduce_tpu_torch.config import ConfigError, DeepReduceConfig, from_params
 from deepreduce_tpu_torch.codecs.registry import PolyFitCodec
 from deepreduce_tpu_torch.comm import GradientExchanger
@@ -28,9 +35,11 @@ from deepreduce_tpu_torch.train import Trainer, TrainState
 from deepreduce_tpu_torch.wrappers import TensorCodec
 
 __all__ = [
+    "Collectives",
     "ConfigError",
     "DeepReduceConfig",
     "GradientExchanger",
+    "InProcessGroup",
     "PolyFitCodec",
     "TensorCodec",
     "Trainer",

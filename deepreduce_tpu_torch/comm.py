@@ -1,6 +1,7 @@
 """Gradient exchange: compress -> one fused uint8 allgather -> decode ->
 mean, ported from `deepreduce_tpu/comm.py` for `communicator='allgather'`,
-`fused=True` and `decode_strategy='loop'`; and the dense baseline.
+`fused=True` and `decode_strategy='loop'`; the dense baseline; and the
+in-collective communicators `qar` and `sparse_rs`.
 
 The dense baseline (`communicator='allreduce'`, or no codec and the
 `none` sparsifier) is the mean over workers through one `all_reduce` of
@@ -16,27 +17,43 @@ The exchange is split into three parts so that each can be driven alone:
    buffer), and write the QSGD wire rows of every compressed tensor straight
    into the buffer with one grouped kernel launch; a value codec that
    reorders its values (PolyFit) is encoded leaf by leaf instead;
-2. `gather`: `dist.all_gather_into_tensor` over the process group into
-   [W, B], or the identity at world size 1 without a group;
+2. `gather`: `all_gather` over the group's `Collectives` into [W, B]
+   (`dist.all_gather_into_tensor` for a process group), or the identity at
+   world size 1 without a group;
 3. `decode_aggregate`: decode every row in worker order into one running
    sum per tensor, keep this worker's own row for the residual, divide by W.
 
 Tests drive 1 and 3 for W virtual workers in one process.
+
+The in-collective communicators reduce inside the collective instead
+(`qar.py`: the int8 quantized allreduce; `sparse_rs.py`: the reduce-scatter
+routes). Their branches compensate, flatten every tensor into one float32
+vector in sorted name order (the JAX package's `ravel_pytree` order), run
+the route over the group's `Collectives`, unflatten the mean and update the
+residual with what this worker transmitted. They run in full at world size
+1: the quantizers and selections are the function, not a transport detail.
+Their Philox streams are `sparse.per_tensor_stream(seed, name, step,
+worker)` under the route's fixed stream names (`qar.STREAM_PHASE1`,
+`qar.STREAM_PHASE2`, `sparse_rs.STREAM_ADAPTIVE`,
+`sparse_rs.STREAM_QUANTIZED`); `uniforms`, keyed by those names, replaces
+them in the CPU parity tests.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
-from deepreduce_tpu_torch import memory
+from deepreduce_tpu_torch import costmodel, memory, qar, sparse_rs
+from deepreduce_tpu_torch.collectives import Collectives, collectives_for
 from deepreduce_tpu_torch.config import DeepReduceConfig
 from deepreduce_tpu_torch.device import DeviceLike, resolve_device
 from deepreduce_tpu_torch.metrics import WireStats, combine
 from deepreduce_tpu_torch.ops import qsgd_encode_rows
+from deepreduce_tpu_torch.sparse import per_tensor_stream
 from deepreduce_tpu_torch.wrappers import TensorCodec
 
 Tree = Dict[str, torch.Tensor]
@@ -85,7 +102,8 @@ class GradientExchanger:
 
     `grads_like` maps parameter names to tensors (or shapes); names are
     processed in sorted order, as JAX flattens a dict. `group` is the
-    process group of the data-parallel workers; None means one worker."""
+    process group of the data-parallel workers (a `torch.distributed`
+    group or a `collectives.Collectives`); None means one worker."""
 
     def __init__(
         self,
@@ -93,23 +111,29 @@ class GradientExchanger:
         cfg: DeepReduceConfig,
         *,
         device: DeviceLike = "cuda",
-        group: Optional[dist.ProcessGroup] = None,
+        group: Optional[Union[dist.ProcessGroup, Collectives]] = None,
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.group = group
-        self.num_workers = dist.get_world_size(group) if group is not None else 1
-        self.rank = dist.get_rank(group) if group is not None else 0
+        self.coll = collectives_for(group)
+        self.num_workers = self.coll.world_size
+        self.rank = self.coll.rank
         self.names = sorted(grads_like)
-        shapes = {n: tuple(getattr(grads_like[n], "shape", grads_like[n])) for n in self.names}
-        self.dense = cfg.communicator == "allreduce" or (cfg.deepreduce is None and cfg.compressor == "none")
-        self.codecs = {
-            n: TensorCodec(shapes[n], cfg, name=n, device=self.device) for n in self.names
+        self.shapes = {n: tuple(getattr(grads_like[n], "shape", grads_like[n])) for n in self.names}
+        self.d = sum(math.prod(s) for s in self.shapes.values())
+        self.in_collective = cfg.communicator in ("qar", "sparse_rs")
+        self.dense = not self.in_collective and (
+            cfg.communicator == "allreduce" or (cfg.deepreduce is None and cfg.compressor == "none")
+        )
+        # the in-collective routes compress the flat gradient themselves
+        self.codecs = {} if self.in_collective else {
+            n: TensorCodec(self.shapes[n], cfg, name=n, device=self.device) for n in self.names
         }
         self.layouts: Dict[str, PayloadLayout] = {}
         self.offsets: Dict[str, int] = {}
         nbytes = 0
-        for n in self.names:
+        for n in self.codecs:
             self.layouts[n] = PayloadLayout(self.codecs[n].payload_specs())
             self.offsets[n] = nbytes
             nbytes += self.layouts[n].nbytes
@@ -121,10 +145,21 @@ class GradientExchanger:
         return None
 
     def payload_bytes(self) -> int:
-        """Static per-worker wire bytes: the fused buffer's size, or the
-        float32 gradients on the dense baseline."""
+        """Static per-worker wire bytes: the fused buffer's size, the
+        float32 gradients on the dense baseline, or what the in-collective
+        route injects (the JAX package's `qar.wire_bits_per_worker` and
+        `costmodel.rs_payload_bytes`)."""
+        cfg = self.cfg
+        if cfg.communicator == "qar":
+            return int(qar.wire_bits_per_worker(self.d, self.num_workers, cfg.bucket_size) // 8)
+        if cfg.communicator == "sparse_rs":
+            return int(costmodel.rs_payload_bytes(
+                cfg.rs_mode, self.d, self.num_workers, cfg.compress_ratio, headroom=cfg.rs_headroom,
+                out_headroom=cfg.rs_out_headroom, block=cfg.rs_block_size, bins=cfg.rs_oktopk_bins,
+                cap_headroom=cfg.rs_oktopk_cap_headroom,
+            ))
         if self.dense:
-            return sum(4 * c.d for c in self.codecs.values())
+            return 4 * self.d
         return self.fused_nbytes
 
     # -- 1. encode + pack ------------------------------------------------ #
@@ -176,11 +211,7 @@ class GradientExchanger:
 
     def gather(self, buf: torch.Tensor) -> torch.Tensor:
         """uint8[B] -> uint8[W, B], rows in rank order."""
-        if self.group is None:
-            return buf[None]
-        out = torch.empty(self.num_workers * buf.numel(), dtype=torch.uint8, device=buf.device)
-        dist.all_gather_into_tensor(out, buf, group=self.group)
-        return out.view(self.num_workers, -1)
+        return self.coll.all_gather(buf)
 
     # -- 3. decode + aggregate ------------------------------------------- #
 
@@ -220,8 +251,13 @@ class GradientExchanger:
         *,
         step: int,
         uniforms: Optional[Tree] = None,
+        collect: Optional[Tree] = None,
     ) -> Tuple[Tree, Optional[Tree], WireStats]:
-        """(aggregated dense grads, new residuals, this worker's wire stats)."""
+        """(aggregated dense grads, new residuals, this worker's wire stats).
+        `collect`, when a dict, receives the sparse_rs route's observables
+        (see `sparse_rs.exchange`)."""
+        if self.in_collective:
+            return self.exchange_in_collective(grads, residuals, step=step, uniforms=uniforms, collect=collect)
         if self.dense:
             return self.exchange_dense(grads), residuals, self.dense_wire_stats()
         buf, compensated, stats = self.encode_worker(
@@ -244,18 +280,85 @@ class GradientExchanger:
         1 without a group."""
         if self.group is None:
             return dict(grads)
-        flat = torch.cat([grads[n].reshape(-1).to(torch.float32) for n in self.names])
-        dist.all_reduce(flat, group=self.group)
+        flat = self.coll.all_reduce_sum(self._flatten(grads))
         flat /= self.num_workers
+        return self._unflatten(flat, grads)
+
+    # -- the in-collective communicators --------------------------------- #
+
+    def _flatten(self, tree: Tree) -> torch.Tensor:
+        """The tensors as one float32 vector, in sorted name order."""
+        return torch.cat([tree[n].reshape(-1).to(torch.float32) for n in self.names])
+
+    def _unflatten(self, flat: torch.Tensor, like: Tree) -> Tree:
         out, lo = {}, 0
         for n in self.names:
-            g = grads[n]
+            g = like[n]
             out[n] = flat[lo : lo + g.numel()].view(g.shape).to(g.dtype)
             lo += g.numel()
         return out
 
+    def stream(self, name: str, step: int) -> Tuple[int, int]:
+        """This worker's Philox (seed, offset) of the stream `name` at `step`."""
+        return per_tensor_stream(self.cfg.seed, name, step, self.rank)
+
+    def exchange_in_collective(
+        self,
+        grads: Tree,
+        residuals: Optional[Tree],
+        *,
+        step: int,
+        uniforms: Optional[Tree] = None,
+        collect: Optional[Tree] = None,
+    ) -> Tuple[Tree, Optional[Tree], WireStats]:
+        """compensate -> flatten -> `route_flat` -> unflatten; the residual
+        keeps what this worker did not transmit (qar keeps none)."""
+        cfg = self.cfg
+        compensated = grads
+        if residuals is not None:
+            compensated = memory.compensate(grads, residuals, beta=cfg.beta, gamma=cfg.gamma)
+        mean, own, stats = self.route_flat(self._flatten(compensated), step=step, uniforms=uniforms, collect=collect)
+        new_residuals = None
+        if residuals is not None:
+            new_residuals = memory.update(compensated, self._unflatten(own, grads))
+        return self._unflatten(mean, grads), new_residuals, stats
+
+    def route_flat(
+        self,
+        flat: torch.Tensor,
+        *,
+        step: int,
+        uniforms: Optional[Tree] = None,
+        collect: Optional[Tree] = None,
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor], WireStats]:
+        """(mean f32[d], own-transmitted f32[d] or None for qar, wire stats)
+        of this worker's flat gradient through the configured route."""
+        cfg = self.cfg
+        if cfg.communicator == "qar":
+            # the whole gradient through the int8 two-phase exchange
+            n = qar.pad_len(self.d, self.num_workers, cfg.bucket_size)
+            padded = torch.zeros(n, dtype=torch.float32, device=flat.device)
+            padded[: self.d] = flat
+            names = (qar.STREAM_PHASE1, qar.STREAM_PHASE2)
+            mean = qar.quantized_allreduce(
+                padded, self.coll, streams=[self.stream(s, step) for s in names], quantum_num=cfg.quantum_num,
+                bucket_size=cfg.bucket_size, uniforms=None if uniforms is None else [uniforms[s] for s in names],
+            )[: self.d]
+            # one payload (levels + norms) against the dense float32
+            # gradient: the JAX package's rel_volume convention for qar
+            stats = WireStats.constant(0.0, n * 8 + (n // cfg.bucket_size) * 32, self.d * 32, flat.device)
+            return mean, None, stats
+        name = {"adaptive": sparse_rs.STREAM_ADAPTIVE, "quantized": sparse_rs.STREAM_QUANTIZED}.get(cfg.rs_mode)
+        return sparse_rs.exchange(
+            flat, self.coll, ratio=cfg.compress_ratio, rs_mode=cfg.rs_mode, headroom=cfg.rs_headroom,
+            out_headroom=cfg.rs_out_headroom, block_size=cfg.rs_block_size,
+            density_threshold=cfg.rs_density_threshold, oktopk_bins=cfg.rs_oktopk_bins,
+            oktopk_cap_headroom=cfg.rs_oktopk_cap_headroom,
+            stream=None if name is None else self.stream(name, step),
+            uniforms=None if name is None or uniforms is None else uniforms[name],
+            collect=collect,
+        )
+
     def dense_wire_stats(self) -> WireStats:
         """No index stream; the value stream is the whole float32 tensor."""
-        bits = torch.full((), float(32 * sum(c.d for c in self.codecs.values())), device=self.device)
-        zero = torch.zeros((), device=self.device)
-        return WireStats(index_bits=zero, value_bits=bits, dense_bits=bits, saturated=zero)
+        return WireStats.constant(0.0, 32 * self.d, 32 * self.d, self.device)

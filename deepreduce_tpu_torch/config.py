@@ -3,9 +3,11 @@
 A copy of the knobs of `deepreduce_tpu/config.py` that the ported slices
 run (the Table-4 arms of `bench.py`: dense allreduce, Top-r, DRQSGD with a
 delta-bitpacked or a bloom index, sampled top-k, the sparsifier-free direct
-bloom encode, bloom index-only; and the README quick start: the classic
-bloom index with the PolyFit value codec), with the same names and
-defaults. A value the port does not implement raises `ConfigError` naming
+bloom encode, bloom index-only; the README quick start: the classic bloom
+index with the PolyFit value codec; and the in-collective communicators:
+the int8 quantized allreduce `qar` and the `sparse_rs` reduce-scatter routes
+sparse, adaptive, quantized and oktopk), with the same names and defaults.
+A value the port does not implement raises `ConfigError` naming
 the knob, so that no run quietly takes another path than the one it asked
 for (for instance `approx_topk=True`: torch has no `approx_max_k`, and
 exact top-k in its place would be a silent substitute).
@@ -30,7 +32,10 @@ _SUPPORTED = {
     "compressor": ("topk", "topk_sampled", "none"),
     "approx_topk": (False,),
     "memory": ("residual", "none"),
-    "communicator": ("allgather", "allreduce"),
+    "communicator": ("allgather", "allreduce", "qar", "sparse_rs"),
+    # 'sketch' needs the count-sketch codec, 'auto' the cost model's
+    # select_rs_mode: neither is ported
+    "rs_mode": ("sparse", "adaptive", "quantized", "oktopk"),
     "deepreduce": (None, "index", "both"),
     "fused": (True,),
     "decode_strategy": ("loop",),
@@ -70,6 +75,18 @@ class DeepReduceConfig:
     fused: bool = True
     decode_strategy: str = "loop"
     min_compress_size: Optional[int] = None
+    # sparse_rs (see sparse_rs.py): phase-1 per-shard budget and phase-2
+    # output budget multipliers over k/W, the route, the int8 block of the
+    # adaptive dense rows and the quantized route, the adaptive switch point
+    # (1.0 = never dense), and the oktopk histogram bins and per-(worker,
+    # shard) capacity multiplier over k/W**2
+    rs_headroom: float = 2.0
+    rs_out_headroom: float = 1.0
+    rs_mode: str = "sparse"
+    rs_block_size: int = 256
+    rs_density_threshold: float = 1.0
+    rs_oktopk_bins: int = 4096
+    rs_oktopk_cap_headroom: float = 2.0
 
     def __post_init__(self):
         checked = dict(_SUPPORTED, **(_SUPPORTED_CODEC if self.deepreduce is not None else {}))
@@ -100,6 +117,48 @@ class DeepReduceConfig:
             raise ConfigError("sort", "sort must be a bool")
         if self.poly_degree < 0:
             raise ConfigError("poly_degree", "poly_degree must be non-negative")
+        self._check_in_collective()
+
+    def _check_in_collective(self) -> None:
+        """The sparse_rs knobs' ranges and the fences of the in-collective
+        communicators (the JAX package's reason codes name the fences; it
+        raises the codec-stack ones when the exchanger is built)."""
+        if self.rs_mode != "sparse" and self.communicator != "sparse_rs":
+            raise ConfigError(
+                "rs-mode-needs-sparse-rs",
+                f"rs_mode={self.rs_mode!r} selects a sparse_rs route and would be silently ignored "
+                f"with communicator={self.communicator!r}: use communicator='sparse_rs'",
+            )
+        if self.rs_block_size < 4 or self.rs_block_size % 4:
+            raise ConfigError(
+                "rs_block_size",
+                f"rs_block_size must be a positive multiple of 4 (int8 levels ride 4 per f32 lane), "
+                f"got {self.rs_block_size}",
+            )
+        if not 0.0 <= self.rs_density_threshold <= 1.0:
+            raise ConfigError("rs_density_threshold", "rs_density_threshold must lie in [0, 1]")
+        b = self.rs_oktopk_bins
+        if b < 64 or b > (1 << 24) or b & (b - 1):
+            raise ConfigError("rs_oktopk_bins", f"rs_oktopk_bins must be a power of two in [64, 2**24], got {b}")
+        if not self.rs_oktopk_cap_headroom > 0.0:
+            raise ConfigError("rs_oktopk_cap_headroom", "rs_oktopk_cap_headroom must be positive")
+        if self.communicator == "qar" and (
+            self.deepreduce is not None or self.compressor != "none" or self.memory == "residual"
+        ):
+            raise ConfigError(
+                "build-qar-codec-stack",
+                "communicator='qar' quantizes the dense gradient inside the collective and runs no "
+                f"sparsifier, codec or error feedback: compressor={self.compressor!r}, "
+                f"deepreduce={self.deepreduce!r} and memory={self.memory!r} would be silently ignored; "
+                "use compressor='none', deepreduce=None, memory='none'",
+            )
+        if self.communicator == "sparse_rs" and (self.deepreduce is not None or self.compressor != "topk"):
+            raise ConfigError(
+                "build-sparse-rs-codec-stack",
+                "communicator='sparse_rs' top-k-sparsifies and routes the entries itself: "
+                f"deepreduce={self.deepreduce!r} and compressor={self.compressor!r} would be silently "
+                "ignored; use compressor='topk', deepreduce=None",
+            )
 
     def codec_params(self) -> Dict[str, Any]:
         return {

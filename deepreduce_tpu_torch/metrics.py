@@ -31,6 +31,14 @@ class WireStats:
     def val_rel_volume(self) -> torch.Tensor:
         return self.value_bits / self.dense_bits
 
+    @classmethod
+    def constant(cls, index_bits: float, value_bits: float, dense_bits: float, device) -> "WireStats":
+        """Stats fixed by the shapes alone (no saturation), as 0-d float32
+        tensors on `device`, filled without a host copy."""
+        full = lambda x: torch.full((), float(x), dtype=torch.float32, device=device)
+        return cls(index_bits=full(index_bits), value_bits=full(value_bits), dense_bits=full(dense_bits),
+                   saturated=full(0.0))
+
 
 def combine(stats: Dict[str, WireStats]) -> WireStats:
     """Sum wire stats across a gradient dict's tensors."""

@@ -82,17 +82,24 @@ def num_slots(dense_size: int, compress_ratio: float) -> int:
     return max(1, int(dense_size * compress_ratio))
 
 
-def topk(tensor: torch.Tensor, compress_ratio: float, *, k: Optional[int] = None) -> SparseGrad:
-    """Exact top-k by magnitude, indices ascending.
+def top_order(mags: torch.Tensor, k: int) -> torch.Tensor:
+    """Positions of the k largest `mags` in `jax.lax.top_k`'s order:
+    descending, and among equal magnitudes the lower index first. The first
+    k of a stable descending sort; `torch.topk` promises no tie order, and
+    ties are common (unused embedding rows have exactly-zero gradients)."""
+    return torch.sort(mags, descending=True, stable=True).indices[:k]
 
-    Selects like `jax.lax.top_k`: among equal magnitudes the lower index
-    wins. `torch.topk` promises no tie order, and ties are common (unused
-    embedding rows have exactly-zero gradients), so the selection is the
-    first k of a stable descending sort."""
+
+def topk(
+    tensor: torch.Tensor, compress_ratio: float, *, sort_indices: bool = True, k: Optional[int] = None
+) -> SparseGrad:
+    """Exact top-k by magnitude (`top_order`), indices ascending when
+    `sort_indices`, else in `jax.lax.top_k`'s descending-magnitude order."""
     flat = tensor.reshape(-1)
     k = num_slots(flat.shape[0], compress_ratio) if k is None else int(k)
-    order = torch.sort(flat.abs(), descending=True, stable=True).indices[:k]
-    idxs = torch.sort(order).values
+    idxs = top_order(flat.abs(), k)
+    if sort_indices:
+        idxs = torch.sort(idxs).values
     return SparseGrad(
         values=flat[idxs],
         indices=idxs.to(torch.int32),

@@ -1,8 +1,9 @@
 """Data-parallel training step, ported from `deepreduce_tpu/train.py`.
 
 One process per worker (rank of the process group; one worker without a
-group). The step is forward/backward -> `compensate` -> fused exchange ->
-`update` -> optimizer, with `torch.optim.SGD(lr, momentum)`, whose update
+group), or one thread per worker of a `collectives.InProcessGroup`. The
+step is forward/backward -> `compensate` -> exchange -> `update` ->
+optimizer, with `torch.optim.SGD(lr, momentum)`, whose update
 matches `optax.sgd(lr, momentum)`. Parameters and optimizer state are
 updated in place. A model with BatchNorm (ResNet-20) moves its running
 statistics in the forward; the step then averages them over the workers
@@ -19,6 +20,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from deepreduce_tpu_torch.collectives import collectives_for
 from deepreduce_tpu_torch.comm import GradientExchanger
 from deepreduce_tpu_torch.config import DeepReduceConfig
 from deepreduce_tpu_torch.device import DeviceLike, resolve_device
@@ -69,6 +71,7 @@ class Trainer:
         self.lr = lr
         self.momentum = momentum
         self.group = group
+        self.coll = collectives_for(group)
         self.loss_fn = loss_fn or classification_loss(self.model)
         self.exchanger: Optional[GradientExchanger] = None
 
@@ -84,9 +87,7 @@ class Trainer:
     def _mean_over_workers(self, x: torch.Tensor) -> torch.Tensor:
         if self.group is None:
             return x
-        x = x.clone()
-        dist.all_reduce(x, group=self.group)
-        return x / dist.get_world_size(self.group)
+        return self.coll.all_reduce_sum(x) / self.coll.world_size
 
     def _average_stats(self, stats: Dict[str, torch.Tensor]) -> None:
         """Replace each running statistic by its mean over the workers, in
@@ -100,12 +101,19 @@ class Trainer:
             lo += s.numel()
 
     def step(
-        self, state: TrainState, batch, *, uniforms: Optional[Dict[str, torch.Tensor]] = None
+        self,
+        state: TrainState,
+        batch,
+        *,
+        uniforms: Optional[Dict[str, torch.Tensor]] = None,
+        collect: Optional[Dict[str, torch.Tensor]] = None,
     ) -> Tuple[TrainState, torch.Tensor, WireStats]:
         """One synchronous step on this worker's batch shard. Returns the new
         state, the loss (mean over workers) and the wire stats (index and
         value bits averaged over workers, saturation counts summed).
-        `uniforms` is the CPU parity tests' QSGD hook (see `GradientExchanger`)."""
+        `uniforms` is the CPU parity tests' hook for the stochastic draws and
+        `collect` receives the exchange's observables (see
+        `GradientExchanger.exchange`)."""
         params = state.params
         for p in params.values():
             p.grad = None
@@ -113,7 +121,7 @@ class Trainer:
         loss.backward()
         grads = {n: p.grad for n, p in params.items()}
         agg, residuals, wire = self.exchanger.exchange(
-            grads, state.residuals, step=state.step, uniforms=uniforms
+            grads, state.residuals, step=state.step, uniforms=uniforms, collect=collect
         )
         for n, p in params.items():
             p.grad = agg[n]
@@ -121,7 +129,7 @@ class Trainer:
         self._average_stats(state.batch_stats)
         loss = self._mean_over_workers(loss.detach())
         if self.group is not None:
-            w = dist.get_world_size(self.group)
+            w = self.coll.world_size
             bits = torch.stack([wire.index_bits, wire.value_bits, wire.saturated * w])
             bits = self._mean_over_workers(bits)
             wire = WireStats(bits[0], bits[1], wire.dense_bits, bits[2])

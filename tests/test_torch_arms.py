@@ -439,13 +439,18 @@ def test_four_worker_exchange_matches_jax_mesh(arm):
 
 def test_two_rank_gloo_exchange_equals_virtual_workers(tmp_path):
     """Two processes exchange through `GradientExchanger.exchange` over a
-    gloo group (the real `all_gather_into_tensor` / `all_reduce`); each
-    rank's aggregate and residual equal the single-process decode of the
-    same two workers, bitwise."""
+    gloo group (the real `all_gather_into_tensor` / `all_reduce`, and for
+    the in-collective communicators `all_to_all_single`, int8
+    `reduce_scatter_tensor` and `all_reduce` MAX); each rank's aggregate and
+    residual equal the single-process decode of the same two workers, or
+    the in-process group's exchange of them, bitwise."""
     world, step = 2, 4
     shapes = {"a/kernel": (48, 40), "b": (40,), "c": (3000,)}
     arms = [("drqsgd_bloom", _knobs("drqsgd_bloom", seed=3, min_compress_size=100), step),
-            ("dense", _knobs("dense"), step)]
+            ("dense", _knobs("dense"), step),
+            ("qar", dict(communicator="qar", compressor="none", memory="none", seed=3), step),
+            ("rs_quantized", dict(communicator="sparse_rs", rs_mode="quantized", compress_ratio=0.1, memory="residual",
+                                  seed=3), step)]
     rng = np.random.default_rng(21)
     inputs = {
         arm: [({n: _t(x) for n, x in _grad_tree(rng, shapes).items()},
@@ -474,7 +479,21 @@ def test_two_rank_gloo_exchange_equals_virtual_workers(tmp_path):
 
     # the same workers, one process
     for arm, knobs, st in arms:
-        ex = port.GradientExchanger(shapes, port.DeepReduceConfig(**knobs), device="cpu")
+        cfg = port.DeepReduceConfig(**knobs)
+        if cfg.communicator in ("qar", "sparse_rs"):
+            def work(coll, grads, res, cfg=cfg, st=st):
+                ex = port.GradientExchanger(shapes, cfg, device="cpu", group=coll)
+                return ex.exchange(grads, res, step=st)[:2]
+
+            want = port.InProcessGroup(world).run(work, *zip(*inputs[arm]))
+            for r in range(world):
+                (gagg, gres), (agg, res) = got[r][arm], want[r]
+                assert (gres is None) == (res is None) == (cfg.memory == "none")
+                for n in shapes:
+                    assert torch.equal(gagg[n], agg[n]), (arm, r, n)
+                    assert res is None or torch.equal(gres[n], res[n]), (arm, r, n)
+            continue
+        ex = port.GradientExchanger(shapes, cfg, device="cpu")
         if ex.dense:
             mean = {n: (inputs[arm][0][0][n] + inputs[arm][1][0][n]) / world for n in shapes}
             for r in range(world):

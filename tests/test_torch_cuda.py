@@ -159,3 +159,57 @@ def test_quickstart_codec_card_equals_cpu(cuda):
         else:
             assert torch.equal(a.cpu(), b), i
     torch.testing.assert_close(gdec, cdec, rtol=0, atol=1e-5 * float(g.abs().max()))
+
+
+# the in-collective routes as `chip_smoke.py` phase 9 runs them
+IN_COLLECTIVE = {
+    "qar": dict(communicator="qar", compressor="none", memory="none"),
+    "rs_sparse": dict(communicator="sparse_rs", rs_mode="sparse"),
+    "rs_adaptive": dict(communicator="sparse_rs", rs_mode="adaptive", rs_density_threshold=0.05),
+    "rs_quantized": dict(communicator="sparse_rs", rs_mode="quantized"),
+    "rs_oktopk": dict(communicator="sparse_rs", rs_mode="oktopk"),
+}
+QUANTIZE_LAUNCHES = {"qar": 2, "rs_sparse": 0, "rs_adaptive": 1, "rs_quantized": 1, "rs_oktopk": 0}
+
+
+@pytest.mark.parametrize("route", list(IN_COLLECTIVE))
+def test_in_collective_route_card_equals_cpu(cuda, route):
+    """One exchange of a 200,000-element gradient (two leaves, a residual)
+    on the card and on the CPU under the same Philox streams: the mean and
+    the new residual bitwise equal, the quantizer kernel launched as often
+    as the route quantizes."""
+    from deepreduce_tpu_torch import DeepReduceConfig, GradientExchanger
+
+    cfg = DeepReduceConfig(compress_ratio=0.1, **IN_COLLECTIVE[route], seed=5)
+    shapes = {"a/kernel": (300, 600), "b": (20_000,)}
+    gen = torch.Generator().manual_seed(6)
+    grads = {n: torch.randn(s, generator=gen) * (torch.rand(s, generator=gen) > 0.3) for n, s in shapes.items()}
+    res = {n: torch.randn(s, generator=gen) * 1e-2 for n, s in shapes.items()}
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        ex = GradientExchanger(shapes, cfg, device=dev)
+        r = None if cfg.memory == "none" else {n: t.to(dev) for n, t in res.items()}
+        before = quantize_levels.launches
+        agg, new_res, _ = ex.exchange({n: g.to(dev) for n, g in grads.items()}, r, step=2)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert quantize_levels.launches - before == QUANTIZE_LAUNCHES[route]
+        out[dev.type] = (agg, new_res)
+    (gagg, gres), (cagg, cres) = out["cuda"], out["cpu"]
+    for n in shapes:
+        assert torch.equal(gagg[n].cpu(), cagg[n]), n
+        assert (gres is None) == (cres is None) and (gres is None or torch.equal(gres[n].cpu(), cres[n])), n
+
+
+def test_qsgd_quantize_at_the_qar_size(cuda):
+    """The per-leaf quantizer at the size qar gives it on the full-width
+    WordLSTM (4,050,944 = pad_len(4,050,748, 1, 512)), bitwise equal to its
+    plain version."""
+    n = 4_050_944
+    gen = torch.Generator().manual_seed(9)
+    v = torch.randn(n, generator=gen)
+    s = torch.rand(n, generator=gen) * 300
+    seed, offset = (11 << 32) | 5, (2 << 32) | 7
+    got = quantize_levels(v.to(cuda), s.to(cuda), seed, offset, device=cuda)
+    ref = quantize_levels_plain(v, s, philox_uniforms_plain(n, seed, offset))
+    assert torch.equal(got.cpu(), ref)

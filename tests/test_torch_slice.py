@@ -266,7 +266,9 @@ def test_two_step_wordlstm_trainer_matches_jax():
 
 def test_port_imports_no_jax():
     code = (
-        "import sys, deepreduce_tpu_torch, deepreduce_tpu_torch.models, deepreduce_tpu_torch.weights;"
+        "import sys, deepreduce_tpu_torch, deepreduce_tpu_torch.models, deepreduce_tpu_torch.weights,"
+        " deepreduce_tpu_torch.qar, deepreduce_tpu_torch.sparse_rs, deepreduce_tpu_torch.costmodel,"
+        " deepreduce_tpu_torch.collectives;"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'flax', 'optax'))"
         " or m == 'deepreduce_tpu' or m.startswith('deepreduce_tpu.')];"
         "print(bad); sys.exit(1 if bad else 0)"
@@ -285,6 +287,9 @@ def test_cuda_default_entry_points_raise_without_cuda():
         port.TensorCodec((2000,), cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         port.GradientExchanger({"w": (2000,)}, cfg)
+    for knobs in (dict(communicator="qar", compressor="none", memory="none"), dict(communicator="sparse_rs")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            port.GradientExchanger({"w": (2000,)}, port.DeepReduceConfig(**knobs))
     with pytest.raises(RuntimeError, match="CUDA"):
         port.Trainer(WordLSTM(16, 4, 8), cfg, lr=0.1)
     v = torch.zeros(16)
@@ -298,12 +303,20 @@ def test_config_rejects_unported_knobs_by_name():
     with pytest.raises(port.ConfigError, match="approx_topk") as e:
         port.DeepReduceConfig(**{**FLAGSHIP, "approx_topk": True})
     assert e.value.knob == "approx_topk"
-    for knob, val in [("communicator", "qar"), ("decode_strategy", "vmap"), ("bloom_blocked", "hash"),
+    for knob, val in [("decode_strategy", "vmap"), ("bloom_blocked", "hash"),
                       ("policy", "random"), ("compressor", "randomk"), ("deepreduce", "value"),
                       ("index", "rle"), ("compressor", "threshold")]:
         with pytest.raises(port.ConfigError) as e:
             port.DeepReduceConfig(**{**FLAGSHIP, knob: val})
         assert e.value.knob == knob
+    # sparse_rs runs, but not its count-sketch route
+    with pytest.raises(port.ConfigError) as e:
+        port.DeepReduceConfig(communicator="sparse_rs", compressor="topk", deepreduce=None, rs_mode="sketch")
+    assert e.value.knob == "rs_mode"
+    # qar runs, but not under the flagship's codec stack, which it would ignore
+    with pytest.raises(port.ConfigError) as e:
+        port.DeepReduceConfig(**{**FLAGSHIP, "communicator": "qar"})
+    assert e.value.knob == "build-qar-codec-stack"
     with pytest.raises(port.ConfigError) as e:
         port.from_params({**FLAGSHIP, "use_pallas": True})
     assert e.value.knob == "use_pallas"
