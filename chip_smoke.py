@@ -13,8 +13,8 @@ Phases, one line each; any failure raises and exits non-zero:
      and norm bytes bitwise equal, |level| <= q, unbiased over many
      offsets, repeatable for a fixed (seed, offset);
   4. one Embed_0-sized gradient through TensorCodec on the card and on the
-     CPU with the same seed: filter words, nsel, every bucket norm and every
-     level bitwise equal, decoded tensors within the stated tolerance;
+     CPU with the same seed: filter words, nsel, every bucket norm, every
+     level and the decoded tensor bitwise equal;
   5. the main path: `Trainer.step` of DRQSGD-BF-P0 (top-k 0.1, mod-blocked
      bloom p0 at fpr 0.02, QSGD q=127 / 512, residual memory, SGD lr 0.1
      momentum 0.9) on the full-width WordLSTM (4,050,748 parameters), batch
@@ -67,10 +67,22 @@ Phases, one line each; any failure raises and exits non-zero:
      card and on the CPU under the same stream, the mean, the own-transmitted
      tensor and the quantized levels bitwise equal; and qsgd_quantize on the
      qar path's own 4,050,944-element input bitwise equal to its plain
-     version on the card.
+     version on the card;
+ 10. the bucketed exchange at bench.py's 4 MiB buckets through the same NCCL
+     group, 3 steps each with the counts zeroed just before and read just
+     after: `drqsgd_bloom_bucketed` (the flagship in 4 buckets, pipelined:
+     one qsgd_encode_rows launch per step for every bucket),
+     `drqsgd_bloom_stream` (5 buckets in backward-completion order, streamed
+     from the backward pass on a side stream: one launch per bucket) and
+     `resnet20_quickstart_bucketed` (the quick start's 61 leaves in one
+     bucket: no launch); no host sync; finite losses, the first within 1e-4
+     of the CPU forward; payload bytes and rel_volume; one step's exchange
+     card = CPU (bitwise with QSGD); the arm's own QSGD segment table held
+     against the plain version; and one step from the same weights under
+     the barrier schedule bitwise equal to the pipelined and the streamed one.
 `--profile` adds one profiled training step after phase 5, after each arm
-of phases 7, 8 and 9: the device's busy and idle share over the step, its
-device launches and its largest kernels.
+of phases 7, 8, 9 and 10: the device's busy and idle share over the step,
+its device launches and its largest kernels.
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without
 the package beside it, the script exits non-zero and prints no result.
 """
@@ -143,6 +155,18 @@ IN_COLLECTIVE = {
     "rs_oktopk": (dict(RS, rs_mode="oktopk"), 9_738_160, 0),
 }
 QAR_N = 4_050_944  # qar.pad_len(4,050,748, 1, 512): qsgd_quantize's size on the qar path
+
+# phase 10: the bucketed exchange at bench.py's DEFAULT_BUCKET_BYTES
+# (bench.py:64): (model, knobs over the flagship or the quick start, bucket
+# count, qsgd_encode_rows launches per step, wire bytes: the JAX package's
+# GradientExchanger.payload_bytes)
+BUCKET_BYTES = 4_194_304
+BUCKETED = {
+    "drqsgd_bloom_bucketed": ("wordlstm", dict(bucket_bytes=BUCKET_BYTES), 4, 1, 1_183_968),
+    "drqsgd_bloom_stream": ("wordlstm", dict(bucket_bytes=BUCKET_BYTES, bucket_order="reverse", stream_exchange=True),
+                            5, 5, 1_183_992),
+    "resnet20_quickstart_bucketed": ("resnet20", dict(bucket_bytes=BUCKET_BYTES), 1, 0, 9_592),
+}
 LARGEST_CONV = ("BasicBlockV2_8/Conv_1/kernel", (3, 3, 64, 64))
 # PolyFit's coefficients are solved by another LU on the card than on the
 # CPU; the decode evaluates them (basis rows bounded by 1, six terms)
@@ -318,9 +342,9 @@ def _check_quantize(sizes) -> float:
 
 def _main_path_table(ex, seed: int):
     """The main path's segment table on the card: one segment per compressed
-    leaf of `ex`, f32[budget] values (30% exact zeros, gradient-sized) made
-    from `seed`, rows at the leaf's offset in the fused buffer, the leaf's
-    own stream at (TABLE_STEP, TABLE_WORKER)."""
+    unit of `ex` (leaf, or bucket when bucketed), f32[budget] values (30%
+    exact zeros, gradient-sized) made from `seed`, rows at the unit's offset
+    in the fused buffer, the unit's own stream at (TABLE_STEP, TABLE_WORKER)."""
     import torch
 
     from deepreduce_tpu_torch.ops import EncodeSegment
@@ -328,8 +352,7 @@ def _main_path_table(ex, seed: int):
 
     gen = torch.Generator().manual_seed(seed)
     segs = []
-    for n in ex.names:
-        codec = ex.codecs[n]
+    for n, codec in ex.codecs.items():
         if codec.rows_leaf is None:
             continue
         k = codec.val_codec.meta.k
@@ -476,11 +499,10 @@ def phase_codec(seed: int) -> None:
     same = int((gnorm == cnorm).sum())
     _check(same == meta.num_buckets, f"bucket norms differ: {same}/{meta.num_buckets} bitwise equal")
     _check(torch.equal(grows, crows), "levels differ")
-    # decoded values are norm/q * level; the divide may round differently
-    # on the two devices, hence the tolerance
-    _check(torch.allclose(gdec, cdec, rtol=1e-6, atol=1e-6), "decoded tensors differ")
+    # decoded values are level * (norm * fl(1/q)) on both devices
+    _check(torch.equal(gdec, cdec), f"decoded tensors differ (max |diff| {float((gdec - cdec).abs().max())})")
     print(f"phase 4 ok: Embed_0 {EMBED_SHAPE} codec cuda == cpu: words, nsel={int(gp.nsel)}, "
-          f"{same}/{meta.num_buckets} norms and every level bitwise, decoded within rtol 1e-6", flush=True)
+          f"{same}/{meta.num_buckets} norms, every level and the decoded tensor bitwise", flush=True)
 
 
 def _tokens(seed: int, steps: int, batch: int, seq: int, vocab: int):
@@ -644,8 +666,7 @@ def _codec_times(cfg, reps: int = 10) -> dict:
 def _check_embed_arm(cfg, seed: int, arm: str) -> dict:
     """The Embed_0-sized gradient through the arm's TensorCodec on the card
     and on the CPU: every payload leaf bitwise equal, the same host branch
-    (and, for sampled top-k, the same threshold), the decodes equal
-    (bitwise without QSGD, within rtol 1e-6 with it)."""
+    (and, for sampled top-k, the same threshold), the decodes bitwise equal."""
     import torch
 
     from deepreduce_tpu_torch.sparse import sampled_kth_magnitude
@@ -665,10 +686,7 @@ def _check_embed_arm(cfg, seed: int, arm: str) -> dict:
         _check(torch.equal(ts[0].cpu(), ts[1]), f"{arm}: sampled threshold {float(ts[0])} on the card, {float(ts[1])}")
         res["threshold"] = float(ts[1])
         res["branch"] = "sampled" if float(ts[1]) > 0 else "exact (zero threshold)"
-    if codec.val_codec is None:
-        _check(torch.equal(gdec, cdec), f"{arm}: decoded tensors differ")
-    else:
-        _check(torch.allclose(gdec, cdec, rtol=1e-6, atol=1e-6), f"{arm}: decoded tensors differ")
+    _check(torch.equal(gdec, cdec), f"{arm}: decoded tensors differ")
     if codec.compressed:
         res["nsel"] = int(codec.idx_codec.selected(cp.index_payload if codec.val_codec else cp))
     return res
@@ -1045,6 +1063,141 @@ def phase_in_collective(seed: int, tokens, group, ref_loss: float, profile: bool
     return results, quantize
 
 
+def _exchange_card_vs_cpu(trainer, state, batch, exact: bool) -> dict:
+    """One step's gradient (a probe copy of the model at the trainer's
+    state) through the arm's exchange on the card (the trainer's exchanger,
+    over the NCCL group) and on the CPU (an exchanger without a group) from
+    the same compensated gradient and Philox streams: the aggregate and the
+    new residuals bitwise equal when `exact`, else (PolyFit's solve runs
+    another LU on the card) nonzero at the same places and within
+    DECODE_ATOL of the largest compensated magnitude."""
+    import copy
+
+    import torch
+
+    from deepreduce_tpu_torch import GradientExchanger
+    from deepreduce_tpu_torch.train import classification_loss
+
+    ex = trainer.exchanger
+    probe = copy.deepcopy(trainer.model)
+    classification_loss(probe)(batch).backward()
+    grads = {n: p.grad for n, p in probe.flax_params().items()}
+    cpu_ex = GradientExchanger(ex.shapes, trainer.cfg, device="cpu")
+    outs = {}
+    for dev, e in (("cuda", ex), ("cpu", cpu_ex)):
+        g = {n: t.to(dev) for n, t in grads.items()}
+        r = {n: t.to(dev) for n, t in state.residuals.items()}
+        agg, res, _ = e.exchange(g, r, step=state.step)
+        outs[dev] = {**{f"agg/{n}": t for n, t in agg.items()}, **{f"res/{n}": t for n, t in res.items()}}
+    torch.cuda.synchronize()
+    vmax = max(float((grads[n].cpu() + state.residuals[n].cpu()).abs().max()) for n in grads)
+    err = 0.0
+    for key, ref in outs["cpu"].items():
+        got = outs["cuda"][key].cpu()
+        diff = float((got - ref).abs().max())
+        err = max(err, diff)
+        if exact:
+            _check(torch.equal(got, ref), f"{key} differs between the card and the CPU (max |diff| {diff})")
+        else:
+            _check(key.startswith("res/") or torch.equal(got != 0, ref != 0), f"{key}: nonzeros differ")
+            _check(diff <= DECODE_ATOL * vmax, f"{key} differs by {diff} between the card and the CPU")
+    return {"tensors": len(outs["cpu"]), "bitwise": exact, "max_abs_err": err,
+            "agg_nonzero": sum(int((t != 0).sum()) for k, t in outs["cpu"].items() if k.startswith("agg/"))}
+
+
+def _schedules_agree(seed: int, cfgs: dict, batch, group) -> dict:
+    """One training step from the same weights and batch under each named
+    config: the parameters and residuals bitwise equal to the first's."""
+    import torch
+
+    from deepreduce_tpu_torch import Trainer
+    from deepreduce_tpu_torch.models import WordLSTM
+
+    after = {}
+    for name, cfg in cfgs.items():
+        trainer = Trainer(WordLSTM(seed=seed), cfg, lr=0.1, momentum=0.9, device="cuda", group=group)
+        state, _, _ = trainer.step(trainer.init_state(), batch)
+        after[name] = {**{f"param/{n}": p.detach().clone() for n, p in state.params.items()},
+                       **{f"res/{n}": r for n, r in state.residuals.items()}}
+        del trainer, state
+    first, *rest = after
+    for name in rest:
+        for key, ref in after[first].items():
+            diff = float((after[name][key] - ref).abs().max())
+            _check(torch.equal(after[name][key], ref), f"{name} != {first} after one step: {key} (max |diff| {diff})")
+    return {"bitwise_equal": list(after), "tensors": len(after[first])}
+
+
+def phase_bucketed(seed: int, tokens, group, ref_loss: float, profile: bool = False) -> dict:
+    """Phase 10: the bucketed exchange (pipelined), the streamed one and the
+    bucketed quick start through `Trainer.step`."""
+    import dataclasses
+
+    import torch
+
+    from deepreduce_tpu_torch import DeepReduceConfig, Trainer
+    from deepreduce_tpu_torch.models import ResNet20, WordLSTM
+    from deepreduce_tpu_torch.ops import launch_counts, reset_launch_counts
+    from deepreduce_tpu_torch.sparse import host_branch
+    from deepreduce_tpu_torch.train import classification_loss
+
+    tokens = tokens[:ARM_STEPS].cuda()
+    images, labels = _images(seed, ARM_STEPS)
+    with torch.no_grad():
+        resnet_ref = float(classification_loss(ResNet20(seed=seed))((images[0], labels[0])))
+    images, labels = images.cuda(), labels.cuda()
+    batches = {"wordlstm": lambda i: (tokens[i, :, :-1], tokens[i, :, 1:]), "resnet20": lambda i: (images[i], labels[i])}
+    results = {}
+    for arm, (model_name, knobs, num_buckets, per_step, payload) in BUCKETED.items():
+        if model_name == "wordlstm":
+            cfg, model, ref = _flagship_cfg(seed, **knobs), WordLSTM(seed=seed), ref_loss
+        else:
+            cfg, model, ref = DeepReduceConfig(**{**QUICKSTART, **knobs}, seed=seed), ResNet20(seed=seed), resnet_ref
+        trainer = Trainer(model, cfg, lr=0.1, momentum=0.9, device="cuda", group=group)
+        state = trainer.init_state()
+        ex = trainer.exchanger
+        _check(ex.num_buckets == num_buckets, f"{arm}: {ex.num_buckets} buckets, expected {num_buckets}")
+        _check((trainer.streaming is not None) == cfg.stream_exchange, f"{arm}: the streamed branch is not taken")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        host_branch.syncs = 0
+        state, losses, dev_ms, host_ms, wire, sync_calls = _run_steps(trainer, state, batches[model_name], ARM_STEPS)
+        launches = launch_counts()
+        expected = {"qsgd_quantize": 0, "qsgd_encode_rows": per_step * ARM_STEPS}
+        _check(launches == expected, f"{arm}: kernel launches {launches}, expected {expected}")
+        _check_trained(state, losses, ref, arm)
+        _check(not any(sync_calls) and host_branch.syncs == 0, f"{arm}: host syncs in the step: {sync_calls}")
+        rel_volume = float(wire.rel_volume())
+        _check(0.0 < rel_volume < 1.0, f"{arm}: rel_volume {rel_volume}")
+        _check(ex.payload_bytes() == payload, f"{arm}: payload_bytes {ex.payload_bytes()}, expected {payload}")
+        res = {
+            "losses": losses, "step_ms_all": dev_ms, "step_ms_median": statistics.median(dev_ms),
+            "host_step_ms_all": host_ms, "rel_volume": rel_volume, "payload_bytes": ex.payload_bytes(),
+            "buckets": [[s.label, len(s.names), s.total] for s in ex.bucket_specs], "launches": launches,
+            "sync_calls_per_step": [len(x) for x in sync_calls], "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        }
+        res["card_vs_cpu"] = _exchange_card_vs_cpu(trainer, state, batches[model_name](0), exact=cfg.value == "qsgd")
+        if per_step:
+            # the kernel against its plain version on this arm's own table
+            segs = _main_path_table(ex, seed=23)
+            got, ref_rows = _encode_on_card_and_cpu(segs, ex.fused_nbytes, cfg.quantum_num, cfg.bucket_size)
+            res["qsgd_table_max_abs_err"] = _check_rows(got, ref_rows, segs, cfg.bucket_size, cfg.quantum_num,
+                                                        f"the {arm} table")
+            res["qsgd_segments"] = len(segs)
+        if model_name == "wordlstm":
+            # the schedules: pipelined = barrier; streamed = barrier on the same partition
+            other = dataclasses.replace(cfg, bucket_pipeline=False, stream_exchange=False)
+            res["schedules"] = _schedules_agree(seed, {arm: cfg, "barrier": other}, batches[model_name](0), group)
+        if profile:
+            prof = _profile_step(lambda: trainer.step(state, batches[model_name](0)))
+            res["profile"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share", "kernel_launches")}
+        print(f"phase 10 ok: {arm} " + json.dumps(res), flush=True)
+        results[arm] = res
+        del trainer, state
+        torch.cuda.empty_cache()
+    return results
+
+
 def _per_leaf_composition(segs, q: int, bs: int):
     """The QSGD encode of a worker-step as the port's first slice composed
     it, leaf by leaf: zero padding, the bucket norm (a float64 `sum`) and
@@ -1157,7 +1310,7 @@ def _time_encode(ex, launches: int, max_err: float) -> dict:
 
 
 def phase_timing(ex, errs: dict, by_arm: dict, quantize: dict) -> None:
-    # each path's run, counted from 0 just before it (phases 5, 7, 8 and 9)
+    # each path's run, counted from 0 just before it (phases 5, 7, 8, 9 and 10)
     total = lambda name: sum(counts[name] for counts in by_arm.values())
     kernels = [
         _quantize_entry(quantize, total("qsgd_quantize"), errs["qsgd_quantize"]),
@@ -1213,10 +1366,12 @@ def main(argv=None) -> int:
         resnet = phase_resnet(args.seed, dist.group.WORLD, args.profile)
         in_coll, quantize = phase_in_collective(args.seed, tokens, dist.group.WORLD, res["cpu_ref_loss0"],
                                                 args.profile)
+        bucketed = phase_bucketed(args.seed, tokens, dist.group.WORLD, res["cpu_ref_loss0"], args.profile)
     finally:
         dist.destroy_process_group()
-    by_arm = {"drqsgd_bloom": res["launches"], **{a: r["launches"] for a, r in arms.items()},
-              **{a: r["launches"] for a, r in resnet.items()}, **{a: r["launches"] for a, r in in_coll.items()}}
+    by_arm = {"drqsgd_bloom": res["launches"]}
+    for phase in (arms, resnet, in_coll, bucketed):
+        by_arm.update({a: r["launches"] for a, r in phase.items()})
     phase_timing(ex, errs, by_arm, quantize)
     print(f"chip_smoke total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({

@@ -22,8 +22,11 @@ averages over the workers; and the in-collective communicators, where the
 reduction happens inside a reduce-scatter: the int8 quantized allreduce
 (`communicator='qar'`, `qar.py`, whose levels come from the per-leaf
 quantizer kernel `ops/csrc/qsgd_quantize.cu`) and the `sparse_rs` routes
-sparse, adaptive, quantized and oktopk (`sparse_rs.py`). Collectives run
-through `collectives.Collectives`: a `torch.distributed` group, or an
+sparse, adaptive, quantized and oktopk (`sparse_rs.py`); and the bucketed
+exchange (`bucket_bytes`: one codec and one all_gather per bucket,
+`comm_bucket.py`), pipelined, barrier or streamed from the backward pass
+(`comm_stream.py`), built through `exchange.build_exchanger`. Collectives
+run through `collectives.Collectives`: a `torch.distributed` group, or an
 `InProcessGroup` of W lockstep workers in one process.
 """
 

@@ -11,7 +11,9 @@ launch). The bucket norm is summed in float64 in one fixed order
 (`ops.bucket_norms_ordered`) and rounded once to float32, so the CPU and
 the card derive the same norm bit for bit, and the scale `q / norm` is one
 IEEE divide, as in the JAX package. The JAX package sums in float32, so
-norms agree with it to float32 rounding, not bitwise.
+norms agree with it to float32 rounding, not bitwise. `decode` multiplies
+by the norm times the float32 reciprocal of q, the arithmetic XLA compiles
+the JAX package's `norms / q * levels` to.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from deepreduce_tpu_torch.numerics import reciprocal_f32
 from deepreduce_tpu_torch.ops import EncodeSegment, bucket_norms_ordered, qsgd_encode_rows, scale_from_norms
 from deepreduce_tpu_torch.sparse import SparseGrad
 
@@ -97,7 +100,8 @@ def decode(payload: QSGDPayload, meta: QSGDMeta, shape: Tuple[int, ...]) -> Spar
     rows = payload.data.reshape(b, bs + 4)
     levels = rows[:, :bs].to(torch.float32)
     norms = rows[:, bs:].contiguous().view(torch.float32).reshape(b)
-    vals = (norms[:, None] / q * levels).reshape(-1)[: meta.k]
+    # the JAX package's `norms / q * levels`, compiled: (norms * fl(1/q)) * levels
+    vals = (levels * (norms * reciprocal_f32(q))[:, None]).reshape(-1)[: meta.k]
     return SparseGrad(values=vals, indices=payload.indices, nnz=payload.nnz, shape=shape)
 
 

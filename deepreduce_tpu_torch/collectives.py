@@ -2,7 +2,9 @@
 
 The in-collective communicators (`qar.py`, `sparse_rs.py`) and the exchange
 are written against `Collectives`: five operations on one tensor each, in
-rank order. Three implementations:
+rank order, and an all_gather that returns before it completes
+(`all_gather_async`, for the bucketed exchange's schedules). Three
+implementations:
 
 - `ProcessGroupCollectives`: a `torch.distributed` group, NCCL on the card
   (int8 `reduce_scatter_tensor` and `all_to_all_single` are NCCL-native),
@@ -26,6 +28,22 @@ import torch
 import torch.distributed as dist
 
 
+class Gathered:
+    """An all_gather in flight; `wait()` returns its [W, ...] result. On
+    NCCL the wait makes the current CUDA stream wait for the collective (the
+    host does not block); a gather that completed at once returns it."""
+
+    def __init__(self, out: torch.Tensor, work=None):
+        self._out = out
+        self._work = work
+
+    def wait(self) -> torch.Tensor:
+        if self._work is not None:
+            self._work.wait()
+            self._work = None
+        return self._out
+
+
 class Collectives:
     """`world_size` workers; this one is `rank`. Every method is called by
     every worker in the same order, with tensors of the same shape and
@@ -33,6 +51,11 @@ class Collectives:
 
     world_size: int = 1
     rank: int = 0
+
+    def all_gather_async(self, x: torch.Tensor) -> Gathered:
+        """`all_gather(x)`, started now and read at `wait()`; `x` must not
+        change before then. Here it completes at once."""
+        return Gathered(self.all_gather(x))
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         """x[W, ...] -> [W, ...]: row j of every worker lands on worker j;
@@ -88,11 +111,14 @@ class ProcessGroupCollectives(Collectives):
         return out
 
     def all_gather(self, x):
+        return self.all_gather_async(x).wait()
+
+    def all_gather_async(self, x):
         x = x.contiguous()
         # the concatenated form: gloo accepts no stacked output
         out = torch.empty(self.world_size * x.numel(), dtype=x.dtype, device=x.device)
-        dist.all_gather_into_tensor(out, x.reshape(-1), group=self.group)
-        return out.view((self.world_size,) + tuple(x.shape))
+        work = dist.all_gather_into_tensor(out, x.reshape(-1), group=self.group, async_op=True)
+        return Gathered(out.view((self.world_size,) + tuple(x.shape)), work)
 
     def reduce_scatter_sum(self, x):
         x = x.contiguous()

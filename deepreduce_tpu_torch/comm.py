@@ -1,6 +1,7 @@
 """Gradient exchange: compress -> one fused uint8 allgather -> decode ->
 mean, ported from `deepreduce_tpu/comm.py` for `communicator='allgather'`,
-`fused=True` and `decode_strategy='loop'`; the dense baseline; and the
+`fused=True` and `decode_strategy='loop'`; the bucketed exchange
+(`bucket_bytes`, `comm_bucket.py`); the dense baseline; and the
 in-collective communicators `qar` and `sparse_rs`.
 
 The dense baseline (`communicator='allreduce'`, or no codec and the
@@ -21,9 +22,18 @@ The exchange is split into three parts so that each can be driven alone:
    (`dist.all_gather_into_tensor` for a process group), or the identity at
    world size 1 without a group;
 3. `decode_aggregate`: decode every row in worker order into one running
-   sum per tensor, keep this worker's own row for the residual, divide by W.
+   sum per tensor, keep this worker's own row for the residual, and take
+   the mean as XLA computes `/ W`: times the float32 reciprocal of W
+   (`numerics.mean_of_sum`).
 
 Tests drive 1 and 3 for W virtual workers in one process.
+
+The codecs and their byte layout in the buffer are a `FusedBuffer` over
+named units: the tensors themselves, or with `bucket_bytes` set the
+buckets of `comm_bucket.BucketedExchanger`, each the concatenation of its
+member tensors. The same encode (one grouped QSGD launch for every unit
+it is given) and decode serve both; the bucketed exchange gathers each
+bucket's contiguous slice of the buffer on its own.
 
 The in-collective communicators reduce inside the collective instead
 (`qar.py`: the int8 quantized allreduce; `sparse_rs.py`: the reduce-scatter
@@ -49,9 +59,10 @@ import torch.distributed as dist
 
 from deepreduce_tpu_torch import costmodel, memory, qar, sparse_rs
 from deepreduce_tpu_torch.collectives import Collectives, collectives_for
-from deepreduce_tpu_torch.config import DeepReduceConfig
+from deepreduce_tpu_torch.config import ConfigError, DeepReduceConfig
 from deepreduce_tpu_torch.device import DeviceLike, resolve_device
 from deepreduce_tpu_torch.metrics import WireStats, combine
+from deepreduce_tpu_torch.numerics import mean_of_sum
 from deepreduce_tpu_torch.ops import qsgd_encode_rows
 from deepreduce_tpu_torch.sparse import per_tensor_stream
 from deepreduce_tpu_torch.wrappers import TensorCodec
@@ -97,8 +108,91 @@ class PayloadLayout:
         return leaves
 
 
+class FusedBuffer:
+    """Named codec units (tensors, or the bucketed exchange's buckets) whose
+    payloads sit back to back in one uint8 buffer, in the units' order."""
+
+    def __init__(self, codecs: Dict[str, TensorCodec]):
+        self.codecs = codecs
+        self.units = list(codecs)
+        self.layouts: Dict[str, PayloadLayout] = {}
+        self.offsets: Dict[str, int] = {}
+        nbytes = 0
+        for u in self.units:
+            self.layouts[u] = PayloadLayout(codecs[u].payload_specs())
+            self.offsets[u] = nbytes
+            nbytes += self.layouts[u].nbytes
+        self.nbytes = nbytes
+
+    def span(self, unit: str) -> slice:
+        """The unit's bytes in the buffer."""
+        lo = self.offsets[unit]
+        return slice(lo, lo + self.layouts[unit].nbytes)
+
+    def encode(
+        self,
+        tensors: Tree,
+        buf: torch.Tensor,
+        *,
+        step: int,
+        worker: int,
+        uniforms: Optional[Tree] = None,
+        units: Optional[List[str]] = None,
+    ) -> Dict[str, WireStats]:
+        """Write the payloads of `units` (default: all) of `tensors` (unit ->
+        tensor) into their spans of `buf`; returns each unit's wire stats.
+        `uniforms` (unit -> f32, CPU only) replaces the QSGD draws of the
+        named units (the parity tests' hook)."""
+        segments, stats = [], {}
+        q = bs = None
+        # (a) every unit's index stage (and a reordering value codec's
+        # value stage); its leaves go straight into the buffer
+        for u in self.units if units is None else units:
+            codec, layout, lo = self.codecs[u], self.layouts[u], self.offsets[u]
+            payload = codec.encode_index(tensors[u])
+            skip = ()
+            r = codec.rows_leaf
+            if codec.val_codec is not None and r is None:
+                payload = codec.encode_values(payload)
+            elif r is not None:
+                rows_lo = lo + layout.leaf_offsets[r]
+                un = None if uniforms is None else uniforms.get(u)
+                segments.append(codec.value_segment(payload, rows_lo, step=step, worker=worker, uniforms=un))
+                rows = buf[rows_lo : rows_lo + layout.leaf_bytes[r]].view(torch.int8)
+                payload = codec.both_payload(payload, rows)
+                skip = (r,)
+                q, bs = codec.cfg.quantum_num, codec.cfg.bucket_size
+            layout.write_into(buf[lo : lo + layout.nbytes], payload.leaves(), skip=skip)
+            stats[u] = codec.wire_stats(payload)
+        # (b) the QSGD value stage of every compressed unit: one grouped launch
+        if segments:
+            qsgd_encode_rows(segments, buf, quantum_num=q, bucket_size=bs, device=buf.device)
+        return stats
+
+    def decode(self, unit: str, seg: torch.Tensor) -> torch.Tensor:
+        """One worker's bytes of `unit` -> its dense float32 tensor."""
+        codec = self.codecs[unit]
+        payload = codec.payload_from_leaves(self.layouts[unit].unpack(seg))
+        return codec.decode(payload).to(torch.float32)
+
+    def decode_sum(
+        self, unit: str, rows: torch.Tensor, own: Optional[int] = None
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(sum over the W rows of `unit`'s bytes [W, nbytes], the decode of
+        row `own` or None). Rows are summed in worker order from zeros, as
+        the JAX loop does."""
+        total = torch.zeros(self.codecs[unit].shape, dtype=torch.float32, device=rows.device)
+        own_dec = None
+        for w in range(rows.shape[0]):
+            dec = self.decode(unit, rows[w])
+            total = total + dec
+            if w == own:
+                own_dec = dec
+        return total, own_dec
+
+
 class GradientExchanger:
-    """Per-tensor codecs plus the fused allgather exchange.
+    """Per-tensor (or per-bucket) codecs plus the fused allgather exchange.
 
     `grads_like` maps parameter names to tensors (or shapes); names are
     processed in sorted order, as JAX flattens a dict. `group` is the
@@ -126,18 +220,33 @@ class GradientExchanger:
         self.dense = not self.in_collective and (
             cfg.communicator == "allreduce" or (cfg.deepreduce is None and cfg.compressor == "none")
         )
-        # the in-collective routes compress the flat gradient themselves
-        self.codecs = {} if self.in_collective else {
-            n: TensorCodec(self.shapes[n], cfg, name=n, device=self.device) for n in self.names
-        }
-        self.layouts: Dict[str, PayloadLayout] = {}
-        self.offsets: Dict[str, int] = {}
-        nbytes = 0
-        for n in self.codecs:
-            self.layouts[n] = PayloadLayout(self.codecs[n].payload_specs())
-            self.offsets[n] = nbytes
-            nbytes += self.layouts[n].nbytes
-        self.fused_nbytes = nbytes
+        self.bucketed = None
+        if cfg.bucket_bytes is not None:
+            _check_bucketable(cfg)
+            from deepreduce_tpu_torch.comm_bucket import BucketedExchanger
+
+            self.bucketed = BucketedExchanger(self.shapes, cfg, device=self.device)
+            self.fused = self.bucketed.fused
+        else:
+            # the in-collective routes compress the flat gradient themselves
+            self.fused = FusedBuffer({} if self.in_collective else {
+                n: TensorCodec(self.shapes[n], cfg, name=n, device=self.device) for n in self.names
+            })
+        # the codec units (tensor names, or bucket labels) and their layout
+        self.codecs = self.fused.codecs
+        self.layouts = self.fused.layouts
+        self.offsets = self.fused.offsets
+        self.fused_nbytes = self.fused.nbytes
+
+    @property
+    def num_buckets(self) -> int:
+        """Bucket count of the bucketed exchange; 0 when unbucketed."""
+        return 0 if self.bucketed is None else len(self.bucketed.specs)
+
+    @property
+    def bucket_specs(self):
+        """The static `BucketSpec` partition (empty when unbucketed)."""
+        return () if self.bucketed is None else self.bucketed.specs
 
     def init_state(self, grads_like: Tree) -> Optional[Tree]:
         if self.cfg.memory == "residual":
@@ -145,10 +254,10 @@ class GradientExchanger:
         return None
 
     def payload_bytes(self) -> int:
-        """Static per-worker wire bytes: the fused buffer's size, the
-        float32 gradients on the dense baseline, or what the in-collective
-        route injects (the JAX package's `qar.wire_bits_per_worker` and
-        `costmodel.rs_payload_bytes`)."""
+        """Static per-worker wire bytes: the fused buffer's size (the sum of
+        the bucket layouts when bucketed), the float32 gradients on the
+        dense baseline, or what the in-collective route injects (the JAX
+        package's `qar.wire_bits_per_worker` and `costmodel.rs_payload_bytes`)."""
         cfg = self.cfg
         if cfg.communicator == "qar":
             return int(qar.wire_bits_per_worker(self.d, self.num_workers, cfg.bucket_size) // 8)
@@ -164,6 +273,16 @@ class GradientExchanger:
 
     # -- 1. encode + pack ------------------------------------------------ #
 
+    def compensate(self, grads: Tree, residuals: Optional[Tree]) -> Tree:
+        if residuals is None:
+            return grads
+        return memory.compensate(grads, residuals, beta=self.cfg.beta, gamma=self.cfg.gamma)
+
+    def units_of(self, tensors: Tree) -> Tree:
+        """Tensor name -> tensor as unit -> tensor: the bucket super-tensors
+        when bucketed, else the tensors themselves."""
+        return tensors if self.bucketed is None else self.bucketed.concat_all(tensors)
+
     def encode_worker(
         self,
         grads: Tree,
@@ -174,37 +293,11 @@ class GradientExchanger:
         uniforms: Optional[Tree] = None,
     ) -> Tuple[torch.Tensor, Tree, WireStats]:
         """(uint8[B] fused buffer, compensated grads, combined wire stats)
-        of one worker. `uniforms` (name -> f32, CPU only) replaces the QSGD
-        draws of the named tensors (the parity tests' hook)."""
-        cfg = self.cfg
-        compensated = grads
-        if residuals is not None:
-            compensated = memory.compensate(grads, residuals, beta=cfg.beta, gamma=cfg.gamma)
+        of one worker. `uniforms` (unit -> f32, CPU only) replaces the QSGD
+        draws of the named units (the parity tests' hook)."""
+        compensated = self.compensate(grads, residuals)
         buf = torch.empty(self.fused_nbytes, dtype=torch.uint8, device=self.device)
-        segments, stats = [], {}
-        # (a) every tensor's index stage (and a reordering value codec's
-        # value stage); its leaves go straight into the buffer
-        for n in self.names:
-            codec, layout, lo = self.codecs[n], self.layouts[n], self.offsets[n]
-            payload = codec.encode_index(compensated[n])
-            skip = ()
-            r = codec.rows_leaf
-            if codec.val_codec is not None and r is None:
-                payload = codec.encode_values(payload)
-            elif r is not None:
-                rows_lo = lo + layout.leaf_offsets[r]
-                u = None if uniforms is None else uniforms.get(n)
-                segments.append(codec.value_segment(payload, rows_lo, step=step, worker=worker, uniforms=u))
-                rows = buf[rows_lo : rows_lo + layout.leaf_bytes[r]].view(torch.int8)
-                payload = codec.both_payload(payload, rows)
-                skip = (r,)
-            layout.write_into(buf[lo : lo + layout.nbytes], payload.leaves(), skip=skip)
-            stats[n] = codec.wire_stats(payload)
-        # (b) the QSGD value stage of every compressed tensor: one grouped launch
-        if segments:
-            qsgd_encode_rows(
-                segments, buf, quantum_num=cfg.quantum_num, bucket_size=cfg.bucket_size, device=self.device
-            )
+        stats = self.fused.encode(self.units_of(compensated), buf, step=step, worker=worker, uniforms=uniforms)
         return buf, compensated, combine(stats)
 
     # -- 2. gather ------------------------------------------------------- #
@@ -216,31 +309,40 @@ class GradientExchanger:
     # -- 3. decode + aggregate ------------------------------------------- #
 
     def decode_row(self, row: torch.Tensor) -> Tree:
-        """One worker's uint8[B] buffer -> dense float32 tensors."""
-        out = {}
-        for n in self.names:
-            layout = self.layouts[n]
-            lo = self.offsets[n]
-            leaves = layout.unpack(row[lo : lo + layout.nbytes])
-            payload = self.codecs[n].payload_from_leaves(leaves)
-            out[n] = self.codecs[n].decode(payload).to(torch.float32)
-        return out
+        """One worker's uint8[B] buffer -> dense float32 tensors by name."""
+        return self.to_tensors({u: self.fused.decode(u, row[self.fused.span(u)]) for u in self.fused.units})
+
+    def to_tensors(self, by_unit: Tree) -> Tree:
+        """Unit -> dense float32 as tensor name -> tensor (the inverse of
+        `units_of`)."""
+        return by_unit if self.bucketed is None else self.bucketed.split_all(by_unit)
 
     def decode_aggregate(
         self, gathered: torch.Tensor, *, own: Optional[int] = None
     ) -> Tuple[Tree, Optional[Tree]]:
-        """(mean over the W rows, the decode of row `own` or None). Rows
-        are summed in worker order from zeros, as the JAX loop does."""
-        total = {n: torch.zeros(self.codecs[n].shape, dtype=torch.float32, device=gathered.device) for n in self.names}
-        own_dec = None
-        for w in range(gathered.shape[0]):
-            dec = self.decode_row(gathered[w])
-            for n in self.names:
-                total[n] += dec[n]
-            if w == own:
-                own_dec = dec
-        num_workers = gathered.shape[0]
-        return {n: t / num_workers for n, t in total.items()}, own_dec
+        """(mean over the W rows, the decode of row `own` or None), by
+        tensor name."""
+        totals, owns = {}, {}
+        for u in self.fused.units:
+            totals[u], owns[u] = self.fused.decode_sum(u, gathered[:, self.fused.span(u)], own)
+        return self.mean_and_own(totals, owns if own is not None else None, gathered.shape[0])
+
+    def mean_and_own(self, totals: Tree, owns: Optional[Tree], num_workers: int) -> Tuple[Tree, Optional[Tree]]:
+        """Unit sums and own decodes -> (the mean, the own decode) by tensor
+        name; the mean multiplies by the float32 reciprocal of W, as XLA
+        compiles the JAX package's `total / W`."""
+        mean = self.to_tensors({u: mean_of_sum(t, num_workers) for u, t in totals.items()})
+        return mean, None if owns is None else self.to_tensors(owns)
+
+    def finish(
+        self, grads: Tree, compensated: Tree, mean: Tree, own: Optional[Tree]
+    ) -> Tuple[Tree, Optional[Tree]]:
+        """(the aggregate in the gradients' dtypes, the new residuals or
+        None): compensated minus this worker's own decode."""
+        agg = {n: mean[n].to(grads[n].dtype) for n in self.names}
+        if own is None:
+            return agg, None
+        return agg, memory.update(compensated, {n: own[n].to(grads[n].dtype) for n in self.names})
 
     # ------------------------------------------------------------------ #
 
@@ -255,21 +357,27 @@ class GradientExchanger:
     ) -> Tuple[Tree, Optional[Tree], WireStats]:
         """(aggregated dense grads, new residuals, this worker's wire stats).
         `collect`, when a dict, receives the sparse_rs route's observables
-        (see `sparse_rs.exchange`)."""
+        (see `sparse_rs.exchange`) or the bucketed exchange's per-bucket
+        saturation flags (`bucket_saturated`)."""
         if self.in_collective:
             return self.exchange_in_collective(grads, residuals, step=step, uniforms=uniforms, collect=collect)
         if self.dense:
             return self.exchange_dense(grads), residuals, self.dense_wire_stats()
-        buf, compensated, stats = self.encode_worker(
-            grads, residuals, step=step, worker=self.rank, uniforms=uniforms
-        )
-        gathered = self.gather(buf)
-        agg, own = self.decode_aggregate(gathered, own=self.rank if residuals is not None else None)
-        agg = {n: agg[n].to(grads[n].dtype) for n in self.names}
-        new_residuals = None
-        if residuals is not None:
-            own = {n: own[n].to(grads[n].dtype) for n in self.names}
-            new_residuals = memory.update(compensated, own)
+        own = self.rank if residuals is not None else None
+        if self.bucketed is not None:
+            compensated = self.compensate(grads, residuals)
+            totals, owns, stats = self.bucketed.run(
+                self.units_of(compensated), self.coll, step=step, worker=self.rank, own=own, uniforms=uniforms
+            )
+            if collect is not None:
+                collect["bucket_saturated"] = self.bucketed.saturation_vector(stats)
+            mean, own_dec = self.mean_and_own(totals, owns, self.num_workers)
+            stats = combine(stats)
+        else:
+            buf, compensated, stats = self.encode_worker(grads, residuals, step=step, worker=self.rank,
+                                                         uniforms=uniforms)
+            mean, own_dec = self.decode_aggregate(self.gather(buf), own=own)
+        agg, new_residuals = self.finish(grads, compensated, mean, own_dec)
         return agg, new_residuals, stats
 
     # -- the dense baseline ---------------------------------------------- #
@@ -280,8 +388,7 @@ class GradientExchanger:
         1 without a group."""
         if self.group is None:
             return dict(grads)
-        flat = self.coll.all_reduce_sum(self._flatten(grads))
-        flat /= self.num_workers
+        flat = mean_of_sum(self.coll.all_reduce_sum(self._flatten(grads)), self.num_workers)
         return self._unflatten(flat, grads)
 
     # -- the in-collective communicators --------------------------------- #
@@ -313,10 +420,7 @@ class GradientExchanger:
     ) -> Tuple[Tree, Optional[Tree], WireStats]:
         """compensate -> flatten -> `route_flat` -> unflatten; the residual
         keeps what this worker did not transmit (qar keeps none)."""
-        cfg = self.cfg
-        compensated = grads
-        if residuals is not None:
-            compensated = memory.compensate(grads, residuals, beta=cfg.beta, gamma=cfg.gamma)
+        compensated = self.compensate(grads, residuals)
         mean, own, stats = self.route_flat(self._flatten(compensated), step=step, uniforms=uniforms, collect=collect)
         new_residuals = None
         if residuals is not None:
@@ -362,3 +466,20 @@ class GradientExchanger:
     def dense_wire_stats(self) -> WireStats:
         """No index stream; the value stream is the whole float32 tensor."""
         return WireStats.constant(0.0, 32 * self.d, 32 * self.d, self.device)
+
+
+def _check_bucketable(cfg: DeepReduceConfig) -> None:
+    """The exchanger-build fences of `bucket_bytes`, under the JAX package's
+    reason codes (`deepreduce_tpu/comm.py`)."""
+    if not (cfg.fused and cfg.communicator == "allgather"):
+        raise ConfigError(
+            "build-buckets-need-fused-allgather",
+            "bucket_bytes partitions the fused allgather exchange and would be silently ignored here "
+            f"(communicator={cfg.communicator!r}): use communicator='allgather', or bucket_bytes=None",
+        )
+    if cfg.deepreduce is None and cfg.compressor == "none":
+        raise ConfigError(
+            "build-buckets-need-compression",
+            "bucket_bytes only affects the compressed allgather path; the dense baseline "
+            "(deepreduce=None, compressor='none') would silently ignore it: set bucket_bytes=None",
+        )

@@ -6,7 +6,9 @@ delta-bitpacked or a bloom index, sampled top-k, the sparsifier-free direct
 bloom encode, bloom index-only; the README quick start: the classic bloom
 index with the PolyFit value codec; and the in-collective communicators:
 the int8 quantized allreduce `qar` and the `sparse_rs` reduce-scatter routes
-sparse, adaptive, quantized and oktopk), with the same names and defaults.
+sparse, adaptive, quantized and oktopk; and the bucketed exchange with its
+pipelined, barrier and backprop-streamed schedules), with the same names and
+defaults.
 A value the port does not implement raises `ConfigError` naming
 the knob, so that no run quietly takes another path than the one it asked
 for (for instance `approx_topk=True`: torch has no `approx_max_k`, and
@@ -40,6 +42,7 @@ _SUPPORTED = {
     "fused": (True,),
     "decode_strategy": ("loop",),
 }
+BUCKET_ORDERS = ("trace", "reverse")
 # codec knobs, read only when a codec runs (deepreduce is not None)
 _SUPPORTED_CODEC = {
     "index": ("bloom", "integer"),
@@ -87,6 +90,16 @@ class DeepReduceConfig:
     rs_density_threshold: float = 1.0
     rs_oktopk_bins: int = 4096
     rs_oktopk_cap_headroom: float = 2.0
+    # the bucketed exchange (comm_bucket.py): buckets of at most
+    # bucket_bytes dense float32 bytes, one codec and one all_gather each
+    # (None: one codec per leaf); bucket b+1's gather started before bucket
+    # b's decode (False: gather every bucket, then decode); the partition's
+    # order ('reverse': backward-completion order, for streaming); and the
+    # exchange streamed out of the backward pass (comm_stream.py)
+    bucket_bytes: Optional[int] = None
+    bucket_pipeline: bool = True
+    bucket_order: str = "trace"
+    stream_exchange: bool = False
 
     def __post_init__(self):
         checked = dict(_SUPPORTED, **(_SUPPORTED_CODEC if self.deepreduce is not None else {}))
@@ -118,6 +131,7 @@ class DeepReduceConfig:
         if self.poly_degree < 0:
             raise ConfigError("poly_degree", "poly_degree must be non-negative")
         self._check_in_collective()
+        self._check_buckets()
 
     def _check_in_collective(self) -> None:
         """The sparse_rs knobs' ranges and the fences of the in-collective
@@ -158,6 +172,30 @@ class DeepReduceConfig:
                 "communicator='sparse_rs' top-k-sparsifies and routes the entries itself: "
                 f"deepreduce={self.deepreduce!r} and compressor={self.compressor!r} would be silently "
                 "ignored; use compressor='topk', deepreduce=None",
+            )
+
+    def _check_buckets(self) -> None:
+        """The bucketed and streamed exchange's fences, under the JAX
+        package's reason codes (`deepreduce_tpu/config.py`); the exchanger
+        raises the codec-stack ones when it is built (`comm.py`)."""
+        if self.bucket_bytes is not None and self.bucket_bytes < 4:
+            raise ConfigError(
+                "bucket-bytes-range",
+                f"bucket_bytes must be >= 4 (one f32 element) or None, got {self.bucket_bytes}",
+            )
+        if self.bucket_order not in BUCKET_ORDERS:
+            raise ConfigError("enum-bucket_order", f"bucket_order must be one of {BUCKET_ORDERS}, got {self.bucket_order!r}")
+        if self.bucket_order != "trace" and self.bucket_bytes is None:
+            raise ConfigError(
+                "bucket-order-needs-buckets",
+                f"bucket_order={self.bucket_order!r} orders the bucketed exchange's partition and would be "
+                "silently ignored with bucket_bytes=None: set bucket_bytes (or drop bucket_order)",
+            )
+        if self.stream_exchange and self.bucket_bytes is None:
+            raise ConfigError(
+                "stream-needs-buckets",
+                "stream_exchange=True streams the bucketed exchange out of the backward pass (one hook per "
+                "bucket): with bucket_bytes=None there is no partition to stream; set bucket_bytes",
             )
 
     def codec_params(self) -> Dict[str, Any]:

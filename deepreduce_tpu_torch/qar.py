@@ -16,8 +16,8 @@ The levels come from `ops.quantize_levels`, the hand-written CUDA kernel
 (`ops/csrc/qsgd_quantize.cu`) on the card. The norm is
 `ops.bucket_norms_ordered` and the scale one IEEE divide
 (`ops.scale_from_norms`), so the card and the CPU agree bitwise. Dequantize
-multiplies by the float32 reciprocal of q, as XLA rewrites the JAX
-package's `norms / q`.
+multiplies by the float32 reciprocal of q (`numerics.reciprocal_f32`), as
+XLA rewrites the JAX package's `norms / q`.
 
 Randomness: one Philox (seed, offset) per (step, worker, phase) from
 `sparse.per_tensor_stream` under the stream names `STREAM_PHASE1` and
@@ -30,10 +30,10 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from deepreduce_tpu_torch.collectives import Collectives
+from deepreduce_tpu_torch.numerics import reciprocal_f32
 from deepreduce_tpu_torch.ops import bucket_norms_ordered, quantize_levels, quantize_levels_plain, scale_from_norms
 
 STREAM_PHASE1 = "qar/phase1"
@@ -78,11 +78,6 @@ def bucket_quantize(
     else:
         levels = quantize_levels_plain(flat, scale, uniforms)
     return levels, norms
-
-
-def reciprocal_f32(x: int) -> float:
-    """1 / x rounded to float32: XLA's rewrite of a divide by a constant."""
-    return float(np.float32(1.0) / np.float32(x))
 
 
 def bucket_dequantize(levels: torch.Tensor, norms: torch.Tensor, quantum_num: int, bucket_size: int) -> torch.Tensor:

@@ -82,6 +82,13 @@ def num_slots(dense_size: int, compress_ratio: float) -> int:
     return max(1, int(dense_size * compress_ratio))
 
 
+def bucket_num_slots(sizes, compress_ratio: float) -> int:
+    """Slot budget of a fused bucket: the sum of its member leaves'
+    per-tensor budgets (per-leaf rounding and the max(1, .) floor kept), so
+    bucketing never changes the total wire budget."""
+    return sum(num_slots(int(s), compress_ratio) for s in sizes)
+
+
 def top_order(mags: torch.Tensor, k: int) -> torch.Tensor:
     """Positions of the k largest `mags` in `jax.lax.top_k`'s order:
     descending, and among equal magnitudes the lower index first. The first

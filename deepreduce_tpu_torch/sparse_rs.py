@@ -50,6 +50,7 @@ import torch
 from deepreduce_tpu_torch import qar, sparse
 from deepreduce_tpu_torch.collectives import Collectives
 from deepreduce_tpu_torch.metrics import WireStats
+from deepreduce_tpu_torch.numerics import reciprocal_f32
 from deepreduce_tpu_torch.ops import bucket_norms_ordered
 
 RS_MODES = ("sparse", "adaptive", "quantized", "oktopk")
@@ -237,7 +238,7 @@ def _sparse_phase2(shard_est, coll: Collectives, S: int, K2: int, d: int):
     W = coll.world_size
     gathered = coll.all_gather(_phase2_pack(shard_est, coll.rank, S, K2))  # [W, 2 K2]
     gi, dense = _phase2_unpack(gathered, K2, W, S)
-    return gi, dense[:d] * qar.reciprocal_f32(W)
+    return gi, dense[:d] * reciprocal_f32(W)
 
 
 def _exchange_sparse(flat, coll: Collectives, *, ratio, headroom, out_headroom):
@@ -270,7 +271,7 @@ def _exchange_adaptive(
     shard, keep, idxs, vals, pos = _route(sp.values, sp.indices, live, coll, S, B)
 
     # the density decision stays on the device
-    density = (shard != 0).sum(dtype=torch.float32) * qar.reciprocal_f32(S)
+    density = (shard != 0).sum(dtype=torch.float32) * reciprocal_f32(S)
     go_dense = (density > density_threshold).to(torch.float32)
     if collect is not None:
         collect["rs_density"] = density
@@ -301,7 +302,7 @@ def _exchange_adaptive(
     nm_rx = body[:, Sp // 4 : Sp // 4 + Sp // block]
     deq = qar.bucket_dequantize(lv_rx, nm_rx, q, block)  # [W, Sp]
     d_contrib = torch.where(flags > 0.5, torch.nan_to_num(deq[:, :S]), 0.0).reshape(W * S)
-    mean = (s_contrib + d_contrib)[:d] * qar.reciprocal_f32(W)
+    mean = (s_contrib + d_contrib)[:d] * reciprocal_f32(W)
 
     own = _own_transmitted(keep, idxs, vals, pos, W, S, d)
     return mean, own, WireStats.constant(W * B * 32.0, (W * B + L + 1) * 32.0, d * 32.0, dev)

@@ -4,10 +4,14 @@ One process per worker (rank of the process group; one worker without a
 group), or one thread per worker of a `collectives.InProcessGroup`. The
 step is forward/backward -> `compensate` -> exchange -> `update` ->
 optimizer, with `torch.optim.SGD(lr, momentum)`, whose update
-matches `optax.sgd(lr, momentum)`. Parameters and optimizer state are
+matches `optax.sgd(lr, momentum)`. With `cfg.stream_exchange` the
+bucketed exchange runs from the backward pass instead
+(`comm_stream.StreamingExchange`). Parameters and optimizer state are
 updated in place. A model with BatchNorm (ResNet-20) moves its running
 statistics in the forward; the step then averages them over the workers
-with one `all_reduce` (the JAX package's `pmean(new_stats)`).
+with one `all_reduce` (the JAX package's `pmean(new_stats)`). Every mean
+over the workers multiplies by the float32 reciprocal of W, as XLA
+compiles the JAX package's `pmean`.
 """
 
 from __future__ import annotations
@@ -22,9 +26,12 @@ from torch import nn
 
 from deepreduce_tpu_torch.collectives import collectives_for
 from deepreduce_tpu_torch.comm import GradientExchanger
+from deepreduce_tpu_torch.comm_stream import StreamingExchange
 from deepreduce_tpu_torch.config import DeepReduceConfig
 from deepreduce_tpu_torch.device import DeviceLike, resolve_device
+from deepreduce_tpu_torch.exchange import build_exchanger, wrap_streaming
 from deepreduce_tpu_torch.metrics import WireStats
+from deepreduce_tpu_torch.numerics import mean_of_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,10 +81,12 @@ class Trainer:
         self.coll = collectives_for(group)
         self.loss_fn = loss_fn or classification_loss(self.model)
         self.exchanger: Optional[GradientExchanger] = None
+        self.streaming: Optional[StreamingExchange] = None
 
     def init_state(self) -> TrainState:
         params = self.model.flax_params()
-        self.exchanger = GradientExchanger(params, self.cfg, device=self.device, group=self.group)
+        self.exchanger = build_exchanger(params, self.cfg, device=self.device, group=self.group)
+        self.streaming = wrap_streaming(self.exchanger)
         residuals = self.exchanger.init_state({n: p.detach() for n, p in params.items()})
         opt = torch.optim.SGD(list(params.values()), lr=self.lr, momentum=self.momentum)
         return TrainState(
@@ -87,7 +96,7 @@ class Trainer:
     def _mean_over_workers(self, x: torch.Tensor) -> torch.Tensor:
         if self.group is None:
             return x
-        return self.coll.all_reduce_sum(x) / self.coll.world_size
+        return mean_of_sum(self.coll.all_reduce_sum(x), self.coll.world_size)
 
     def _average_stats(self, stats: Dict[str, torch.Tensor]) -> None:
         """Replace each running statistic by its mean over the workers, in
@@ -115,22 +124,28 @@ class Trainer:
         `collect` receives the exchange's observables (see
         `GradientExchanger.exchange`)."""
         params = state.params
-        for p in params.values():
-            p.grad = None
-        loss = self.loss_fn(batch)
-        loss.backward()
-        grads = {n: p.grad for n, p in params.items()}
-        agg, residuals, wire = self.exchanger.exchange(
-            grads, state.residuals, step=state.step, uniforms=uniforms, collect=collect
-        )
+        if self.streaming is not None:
+            loss, _, agg, residuals, wire = self.streaming.value_and_grad_exchange(
+                self.loss_fn, params, batch, state.residuals, step=state.step, uniforms=uniforms, collect=collect
+            )
+        else:
+            for p in params.values():
+                p.grad = None
+            loss = self.loss_fn(batch)
+            loss.backward()
+            grads = {n: p.grad for n, p in params.items()}
+            agg, residuals, wire = self.exchanger.exchange(
+                grads, state.residuals, step=state.step, uniforms=uniforms, collect=collect
+            )
         for n, p in params.items():
             p.grad = agg[n]
         state.optimizer.step()
         self._average_stats(state.batch_stats)
         loss = self._mean_over_workers(loss.detach())
         if self.group is not None:
-            w = self.coll.world_size
-            bits = torch.stack([wire.index_bits, wire.value_bits, wire.saturated * w])
-            bits = self._mean_over_workers(bits)
-            wire = WireStats(bits[0], bits[1], wire.dense_bits, bits[2])
+            # index and value bits averaged (the JAX package's pmean), the
+            # saturation count summed (its psum)
+            bits = self.coll.all_reduce_sum(torch.stack([wire.index_bits, wire.value_bits, wire.saturated]))
+            mean = mean_of_sum(bits[:2], self.coll.world_size)
+            wire = WireStats(mean[0], mean[1], wire.dense_bits, bits[2])
         return dataclasses.replace(state, residuals=residuals, step=state.step + 1), loss, wire

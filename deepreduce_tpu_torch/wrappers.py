@@ -82,8 +82,13 @@ class TensorCodec:
         cfg: DeepReduceConfig,
         name: str = "",
         *,
+        slots: Optional[int] = None,
         device: DeviceLike = "cuda",
     ):
+        """`slots` overrides the k = num_slots(d, ratio) budget of the
+        sparsifier and the index codec: the bucketed exchange passes the sum
+        of its member leaves' budgets (`sparse.bucket_num_slots`). Ignored
+        for compressor='none' (k is the whole tensor)."""
         self.device = resolve_device(device)
         self.shape = tuple(int(s) for s in shape)
         self.cfg = cfg
@@ -91,7 +96,14 @@ class TensorCodec:
         self.d = int(math.prod(self.shape)) if self.shape else 1
         min_size = 1000 if cfg.min_compress_size is None else cfg.min_compress_size
         self.compressed = cfg.deepreduce is not None and self.d > min_size
-        self.k = self.d if cfg.compressor == "none" else sparse.num_slots(self.d, cfg.compress_ratio)
+        if cfg.compressor == "none":
+            self.k = self.d
+        elif slots is not None:
+            self.k = int(slots)
+        else:
+            self.k = sparse.num_slots(self.d, cfg.compress_ratio)
+        if self.k > self.d:
+            raise ValueError(f"slot budget k={self.k} exceeds the tensor size d={self.d}")
         if (
             cfg.bloom_threshold_insert
             and cfg.index == "bloom"

@@ -213,3 +213,72 @@ def test_qsgd_quantize_at_the_qar_size(cuda):
     got = quantize_levels(v.to(cuda), s.to(cuda), seed, offset, device=cuda)
     ref = quantize_levels_plain(v, s, philox_uniforms_plain(n, seed, offset))
     assert torch.equal(got.cpu(), ref)
+
+
+BUCKET_FLAGSHIP = dict(compressor="topk", compress_ratio=0.1, memory="residual", deepreduce="both", index="bloom",
+                       value="qsgd", fpr=0.02, policy="p0", bloom_blocked="mod", min_compress_size=100, seed=3)
+
+
+def test_bucketed_exchange_makes_one_encode_launch(cuda):
+    """Every bucket's QSGD rows in one qsgd_encode_rows launch; the aggregate
+    and the residuals bitwise equal on the card and the CPU."""
+    from deepreduce_tpu_torch import DeepReduceConfig, GradientExchanger
+
+    cfg = DeepReduceConfig(**BUCKET_FLAGSHIP, bucket_bytes=40_000)
+    shapes = {"a/kernel": (100, 100), "b": (9_000,), "c": (3_000,), "d": (400,)}
+    gen = torch.Generator().manual_seed(8)
+    grads = {n: torch.randn(s, generator=gen) for n, s in shapes.items()}
+    res = {n: torch.randn(s, generator=gen) * 1e-2 for n, s in shapes.items()}
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        ex = GradientExchanger(shapes, cfg, device=dev)
+        before = qsgd_encode_rows.launches
+        agg, new_res, _ = ex.exchange({n: g.to(dev) for n, g in grads.items()}, {n: r.to(dev) for n, r in res.items()},
+                                      step=1)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert ex.num_buckets == 3 and qsgd_encode_rows.launches - before == 1
+        out[dev.type] = (agg, new_res)
+    for n in shapes:
+        assert torch.equal(out["cuda"][0][n].cpu(), out["cpu"][0][n]), n
+        assert torch.equal(out["cuda"][1][n].cpu(), out["cpu"][1][n]), n
+
+
+def test_streamed_step_runs_on_a_side_stream_and_equals_the_barrier_step(cuda, monkeypatch):
+    """The streamed Trainer step encodes and gathers each bucket on the
+    side stream, one launch per bucket, and two steps equal two
+    barrier-scheduled ones bitwise."""
+    from deepreduce_tpu_torch import DeepReduceConfig, Trainer
+    from deepreduce_tpu_torch.comm_bucket import BucketedExchanger
+    from deepreduce_tpu_torch.models import WordLSTM
+
+    streams = []
+    real = BucketedExchanger.run_streaming_bucket
+
+    def spy(self, *args, **kw):
+        streams.append(torch.cuda.current_stream())
+        return real(self, *args, **kw)
+
+    monkeypatch.setattr(BucketedExchanger, "run_streaming_bucket", spy)
+    tokens = torch.randint(0, 256, (2, 8, 11), generator=torch.Generator().manual_seed(1)).to(cuda)
+    knobs = dict(BUCKET_FLAGSHIP, bucket_bytes=20_000, bucket_order="reverse")
+    states = {}
+    for arm, extra in (("streamed", dict(stream_exchange=True)), ("barrier", dict(bucket_pipeline=False))):
+        trainer = Trainer(WordLSTM(256, 16, 32, seed=2), DeepReduceConfig(**knobs, **extra), lr=0.1, momentum=0.9,
+                          device=cuda)
+        state = trainer.init_state()
+        buckets = trainer.exchanger.num_buckets
+        before = qsgd_encode_rows.launches
+        for i in range(2):
+            state, _, _ = trainer.step(state, (tokens[i, :, :-1], tokens[i, :, 1:]))
+        torch.cuda.synchronize()
+        launches = qsgd_encode_rows.launches - before
+        if arm == "streamed":
+            assert streams and all(s == trainer.streaming.side for s in streams)
+            assert len(streams) == 2 * buckets and launches == 2 * buckets > 2
+        else:
+            assert launches == 2
+        states[arm] = state
+    for n, p in states["streamed"].params.items():
+        assert torch.equal(p, states["barrier"].params[n]), n
+        assert torch.equal(states["streamed"].residuals[n], states["barrier"].residuals[n]), n

@@ -268,7 +268,8 @@ def test_port_imports_no_jax():
     code = (
         "import sys, deepreduce_tpu_torch, deepreduce_tpu_torch.models, deepreduce_tpu_torch.weights,"
         " deepreduce_tpu_torch.qar, deepreduce_tpu_torch.sparse_rs, deepreduce_tpu_torch.costmodel,"
-        " deepreduce_tpu_torch.collectives;"
+        " deepreduce_tpu_torch.collectives, deepreduce_tpu_torch.comm_bucket, deepreduce_tpu_torch.comm_stream,"
+        " deepreduce_tpu_torch.exchange, deepreduce_tpu_torch.numerics;"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'flax', 'optax'))"
         " or m == 'deepreduce_tpu' or m.startswith('deepreduce_tpu.')];"
         "print(bad); sys.exit(1 if bad else 0)"
