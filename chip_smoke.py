@@ -80,9 +80,28 @@ Phases, one line each; any failure raises and exits non-zero:
      card = CPU (bitwise with QSGD); the arm's own QSGD segment table held
      against the plain version; and one step from the same weights under
      the barrier schedule bitwise equal to the pipelined and the streamed one.
+ 11. the codec zoo through the same NCCL group, 3 steps each with the counts
+     zeroed just before and read just after, on the full-width WordLSTM
+     (the flagship's knobs unless the arm says otherwise): the bloom random
+     policy P1 (`drqsgd_bloom_p1`), the approximate P2 (`_p2a`), the
+     hash-blocked layout (`_hash`), the run-length index (`drqsgd_rle`),
+     value-only PolyFit, Fit-DExp and count sketch on Top-r (`topr_*`),
+     random-k with value-only QSGD (`randomk_qsgd`) and the Table-6
+     natural-sparsity arm (`threshold_bloom_qsgd`: threshold 0.0 at budget
+     0.2, no memory, bloom fpr 0.6 p0, QSGD q = 63); and PolySeg on
+     ResNet-20's conv kernels (`resnet20_polyseg`). One qsgd_encode_rows
+     launch per step in the QSGD arms, none elsewhere; no host sync;
+     finite losses, the first within 1e-4 of the CPU forward; payload
+     bytes; one step's exchange card = CPU (bitwise for the integer and
+     QSGD arms, within a stated atol for the fits and the sketch); the
+     arm's QSGD table against the plain version; Embed_0's natural
+     sparsity and threshold overflow (0) in the threshold arm; then the
+     encode and decode times of each new codec at d = 4,053,428 and the
+     Embed_0 filter's measured false-positive rate under the mod, hash and
+     classic layouts (card = CPU).
 `--profile` adds one profiled training step after phase 5, after each arm
-of phases 7, 8, 9 and 10: the device's busy and idle share over the step,
-its device launches and its largest kernels.
+of phases 7, 8, 9, 10 and 11: the device's busy and idle share over the
+step, its device launches and its largest kernels.
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without
 the package beside it, the script exits non-zero and prints no result.
 """
@@ -166,6 +185,38 @@ BUCKETED = {
     "drqsgd_bloom_stream": ("wordlstm", dict(bucket_bytes=BUCKET_BYTES, bucket_order="reverse", stream_exchange=True),
                             5, 5, 1_183_992),
     "resnet20_quickstart_bucketed": ("resnet20", dict(bucket_bytes=BUCKET_BYTES), 1, 0, 9_592),
+}
+# phase 11: the codec zoo, every on-device codec, policy, layout, wrapper
+# mode and sparsifier: (model, knobs over the flagship or the quick start,
+# qsgd_encode_rows launches per step, wire bytes: the JAX package's
+# GradientExchanger.payload_bytes, card = CPU: "bitwise" or the atol over
+# max |g| of a fitted or sketched value: the card solves its own LU and sums
+# in another order, which an H100 puts at 4.0e-8 (PolyFit, Fit-DExp, the
+# sketch) and 1.4e-7 (PolySeg) of max |g| (PERF.md); a wrong card path is
+# off by a share of max |g| itself)
+FIT_CARD_ATOL = 1e-6
+ZOO = {
+    "drqsgd_bloom_p1": ("wordlstm", dict(policy="random"), 1, 1_109_120, "bitwise"),
+    "drqsgd_bloom_p2a": ("wordlstm", dict(policy="conflict_sets_approx"), 1, 1_109_120, "bitwise"),
+    "drqsgd_bloom_hash": ("wordlstm", dict(bloom_blocked="hash"), 1, 1_189_572, "bitwise"),
+    "drqsgd_rle": ("wordlstm", dict(index="rle"), 1, 2_358_196, "bitwise"),
+    "topr_polyfit": ("wordlstm", dict(deepreduce="value", value="polyfit"), 0, 1_627_804, FIT_CARD_ATOL),
+    "topr_dexp": ("wordlstm", dict(deepreduce="value", value="doubleexp"), 0, 1_621_660, FIT_CARD_ATOL),
+    "topr_countsketch": ("wordlstm", dict(deepreduce="value", value="countsketch"), 0, 4_859_888, FIT_CARD_ATOL),
+    "randomk_qsgd": ("wordlstm", dict(compressor="randomk", deepreduce="value", value="qsgd"), 1, 2_031_688, "bitwise"),
+    # the Table-6 knobs (benchmarks/ncf_table6.py:113-117): natural sparsity
+    "threshold_bloom_qsgd": ("wordlstm", dict(compressor="threshold", threshold_val=0.0, compress_ratio=0.2,
+                                              memory="none", fpr=0.6, quantum_num=63), 1, 3_020_240, "bitwise"),
+    # the quick start with PolySeg on its conv kernels (the default '(?i)conv')
+    "resnet20_polyseg": ("resnet20", dict(deepreduce="value", value="polyseg"), 0, 20_076, FIT_CARD_ATOL),
+}
+# the codec table's configs (bench.py:159 measure_config's input, d =
+# 4,053,428 at ratio 0.1); PolySeg's pattern is opened to the flat tensor
+ZOO_CODEC_TABLE = {
+    "rle": dict(index="rle"), "doubleexp": dict(deepreduce="value", value="doubleexp"),
+    "polyseg": dict(deepreduce="value", value="polyseg", layer_pattern=".*"),
+    "countsketch": dict(deepreduce="value", value="countsketch"), "polyfit_value": dict(deepreduce="value", value="polyfit"),
+    "bloom_p1": dict(policy="random"), "bloom_p2a": dict(policy="conflict_sets_approx"), "bloom_hash": dict(bloom_blocked="hash"),
 }
 LARGEST_CONV = ("BasicBlockV2_8/Conv_1/kernel", (3, 3, 64, 64))
 # PolyFit's coefficients are solved by another LU on the card than on the
@@ -1063,14 +1114,18 @@ def phase_in_collective(seed: int, tokens, group, ref_loss: float, profile: bool
     return results, quantize
 
 
-def _exchange_card_vs_cpu(trainer, state, batch, exact: bool) -> dict:
+def _exchange_card_vs_cpu(trainer, state, batch, exact: bool, atol: float = DECODE_ATOL) -> dict:
     """One step's gradient (a probe copy of the model at the trainer's
     state) through the arm's exchange on the card (the trainer's exchanger,
     over the NCCL group) and on the CPU (an exchanger without a group) from
     the same compensated gradient and Philox streams: the aggregate and the
-    new residuals bitwise equal when `exact`, else (PolyFit's solve runs
-    another LU on the card) nonzero at the same places and within
-    DECODE_ATOL of the largest compensated magnitude."""
+    new residuals bitwise equal when `exact`, else (a fit solves another LU
+    on the card, a sketch adds its columns in another order) within `atol`
+    of the largest compensated magnitude, with the same selection: the
+    fits' aggregates nonzero at the same places, the count sketch's codecs
+    choosing the same indices (its estimate can cancel to exactly 0 in one
+    order of adds and not in the other, so its zeros are not its
+    selection)."""
     import copy
 
     import torch
@@ -1086,22 +1141,31 @@ def _exchange_card_vs_cpu(trainer, state, batch, exact: bool) -> dict:
     outs = {}
     for dev, e in (("cuda", ex), ("cpu", cpu_ex)):
         g = {n: t.to(dev) for n, t in grads.items()}
-        r = {n: t.to(dev) for n, t in state.residuals.items()}
+        r = None if state.residuals is None else {n: t.to(dev) for n, t in state.residuals.items()}
         agg, res, _ = e.exchange(g, r, step=state.step)
-        outs[dev] = {**{f"agg/{n}": t for n, t in agg.items()}, **{f"res/{n}": t for n, t in res.items()}}
+        outs[dev] = {**{f"agg/{n}": t for n, t in agg.items()}, **{f"res/{n}": t for n, t in (res or {}).items()}}
     torch.cuda.synchronize()
-    vmax = max(float((grads[n].cpu() + state.residuals[n].cpu()).abs().max()) for n in grads)
-    err = 0.0
+    comp = {n: grads[n].cpu() + (0.0 if state.residuals is None else state.residuals[n].cpu()) for n in grads}
+    vmax = max(float(comp[n].abs().max()) for n in grads)
+    sketch = trainer.cfg.value == "countsketch"
+    if sketch:
+        for n, codec in cpu_ex.codecs.items():
+            if codec.compressed:
+                on_card = ex.codecs[n].sparsify(comp[n].cuda()).indices.cpu()
+                _check(torch.equal(on_card, codec.sparsify(comp[n]).indices), f"{n}: the card selects other indices")
+    err, zeros_differ = 0.0, 0
     for key, ref in outs["cpu"].items():
         got = outs["cuda"][key].cpu()
         diff = float((got - ref).abs().max())
         err = max(err, diff)
+        zeros_differ += int(((got != 0) != (ref != 0)).sum()) if key.startswith("agg/") else 0
         if exact:
             _check(torch.equal(got, ref), f"{key} differs between the card and the CPU (max |diff| {diff})")
         else:
-            _check(key.startswith("res/") or torch.equal(got != 0, ref != 0), f"{key}: nonzeros differ")
-            _check(diff <= DECODE_ATOL * vmax, f"{key} differs by {diff} between the card and the CPU")
-    return {"tensors": len(outs["cpu"]), "bitwise": exact, "max_abs_err": err,
+            _check(sketch or key.startswith("res/") or torch.equal(got != 0, ref != 0), f"{key}: nonzeros differ")
+            _check(diff <= atol * vmax, f"{key} differs by {diff} between the card and the CPU")
+    return {"tensors": len(outs["cpu"]), "bitwise": exact, "atol_over_max": None if exact else atol, "max_abs_err": err,
+            "max_abs_err_over_max": err / vmax if vmax else 0.0, "agg_zeros_differ": zeros_differ,
             "agg_nonzero": sum(int((t != 0).sum()) for k, t in outs["cpu"].items() if k.startswith("agg/"))}
 
 
@@ -1195,6 +1259,122 @@ def phase_bucketed(seed: int, tokens, group, ref_loss: float, profile: bool = Fa
         results[arm] = res
         del trainer, state
         torch.cuda.empty_cache()
+    return results
+
+
+def _embed_filters(seed: int) -> dict:
+    """The Embed_0-sized gradient's top-k 0.1 filter at fpr 0.02 under the
+    mod, hash and classic layouts: `measured_fpr` on the card, equal to the
+    CPU's."""
+    import torch
+
+    from deepreduce_tpu_torch.codecs import bloom
+    from deepreduce_tpu_torch.sparse import topk
+
+    g = _embed_grad(seed).reshape(-1)
+    out = {}
+    for layout, blocked in (("mod", "mod"), ("hash", "hash"), ("classic", False)):
+        fprs = []
+        for dev in ("cuda", "cpu"):
+            x = g.to(dev)
+            sp = topk(x, 0.1)
+            meta = bloom.BloomMeta.create(sp.k, x.numel(), fpr=0.02, policy="p0", blocked=blocked)
+            payload = bloom.encode(sp, x, meta)
+            fprs.append(bloom.measured_fpr(sp, payload.words, meta).cpu())
+        _check(torch.equal(fprs[0], fprs[1]), f"{layout}: measured_fpr {float(fprs[0])} on the card, {float(fprs[1])}")
+        out[layout] = {"measured_fpr": float(fprs[0]), "m_bits": meta.m_bits, "num_hash": meta.num_hash,
+                       "target_fpr": meta.fpr}
+    return out
+
+
+def _natural_sparsity(trainer, batch, cfg) -> dict:
+    """Embed_0's natural sparsity and threshold overflow in one step's
+    gradient (a probe copy of the model): at most one row per token of the
+    batch touched, every nonzero inside the budget."""
+    import copy
+
+    from deepreduce_tpu_torch.sparse import natural_sparsity, threshold_overflow
+    from deepreduce_tpu_torch.train import classification_loss
+
+    probe = copy.deepcopy(trainer.model)
+    classification_loss(probe)(batch).backward()
+    g = probe.flax_params()["Embed_0/embedding"].grad
+    rows = int((g != 0).any(dim=1).sum())
+    sparsity = float(natural_sparsity(g, cfg.threshold_val))
+    overflow = int(threshold_overflow(g, cfg.threshold_val, budget_ratio=cfg.compress_ratio))
+    _check(rows <= batch[0].numel() and sparsity <= cfg.compress_ratio and overflow == 0,
+           f"Embed_0: {rows} rows touched, natural sparsity {sparsity}, overflow {overflow}")
+    return {"rows_touched": rows, "rows": g.shape[0], "natural_sparsity": sparsity, "threshold_overflow": overflow}
+
+
+def phase_zoo(seed: int, tokens, group, ref_loss: float, profile: bool = False) -> dict:
+    """Phase 11: the codec zoo through `Trainer.step`, 3 steps per arm."""
+    import torch
+
+    from deepreduce_tpu_torch import DeepReduceConfig, Trainer
+    from deepreduce_tpu_torch.models import ResNet20, WordLSTM
+    from deepreduce_tpu_torch.ops import launch_counts, reset_launch_counts
+    from deepreduce_tpu_torch.sparse import host_branch
+    from deepreduce_tpu_torch.train import classification_loss
+
+    tokens = tokens[:ARM_STEPS].cuda()
+    images, labels = _images(seed, ARM_STEPS)
+    with torch.no_grad():
+        resnet_ref = float(classification_loss(ResNet20(seed=seed))((images[0], labels[0])))
+    images, labels = images.cuda(), labels.cuda()
+    batches = {"wordlstm": lambda i: (tokens[i, :, :-1], tokens[i, :, 1:]), "resnet20": lambda i: (images[i], labels[i])}
+    results = {}
+    for arm, (model_name, knobs, per_step, payload, card_cpu) in ZOO.items():
+        if model_name == "wordlstm":
+            cfg, model, ref = _flagship_cfg(seed, **knobs), WordLSTM(seed=seed), ref_loss
+        else:
+            cfg, model, ref = DeepReduceConfig(**{**QUICKSTART, **knobs}, seed=seed), ResNet20(seed=seed), resnet_ref
+        trainer = Trainer(model, cfg, lr=0.1, momentum=0.9, device="cuda", group=group)
+        state = trainer.init_state()
+        ex = trainer.exchanger
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        host_branch.syncs = 0
+        state, losses, dev_ms, host_ms, wire, sync_calls = _run_steps(trainer, state, batches[model_name], ARM_STEPS)
+        launches = launch_counts()
+        expected = {"qsgd_quantize": 0, "qsgd_encode_rows": per_step * ARM_STEPS}
+        _check(launches == expected, f"{arm}: kernel launches {launches}, expected {expected}")
+        _check_trained(state, losses, ref, arm)
+        _check(not any(sync_calls) and host_branch.syncs == 0, f"{arm}: host syncs in the step: {sync_calls}")
+        rel_volume = float(wire.rel_volume())
+        _check(0.0 < rel_volume < 1.0, f"{arm}: rel_volume {rel_volume}")
+        _check(ex.payload_bytes() == payload, f"{arm}: payload_bytes {ex.payload_bytes()}, expected {payload}")
+        res = {
+            "losses": losses, "step_ms_all": dev_ms, "step_ms_median": statistics.median(dev_ms),
+            "host_step_ms_all": host_ms, "rel_volume": rel_volume, "payload_bytes": ex.payload_bytes(),
+            "launches": launches, "qsgd_encode_rows_per_step": launches["qsgd_encode_rows"] / ARM_STEPS,
+            "host_syncs_per_step": [len(x) for x in sync_calls],
+            "compressed_leaves": sum(c.compressed for c in ex.codecs.values()),
+            "dense_leaves": sum(c.dense_fallback for c in ex.codecs.values()),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        }
+        exact = card_cpu == "bitwise"
+        res["card_vs_cpu"] = _exchange_card_vs_cpu(trainer, state, batches[model_name](0), exact,
+                                                   atol=0.0 if exact else card_cpu)
+        if per_step:
+            # the kernel against its plain version on this arm's own table
+            segs = _main_path_table(ex, seed=29)
+            got, ref_rows = _encode_on_card_and_cpu(segs, ex.fused_nbytes, cfg.quantum_num, cfg.bucket_size)
+            res["qsgd_table_max_abs_err"] = _check_rows(got, ref_rows, segs, cfg.bucket_size, cfg.quantum_num,
+                                                        f"the {arm} table")
+            res["qsgd_segments"] = len(segs)
+        if arm == "threshold_bloom_qsgd":
+            res["embed_0"] = _natural_sparsity(trainer, batches[model_name](0), cfg)
+        if profile:
+            prof = _profile_step(lambda: trainer.step(state, batches[model_name](0)))
+            res["profile"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share", "kernel_launches")}
+        print(f"phase 11 ok: {arm} " + json.dumps(res), flush=True)
+        results[arm] = res
+        del trainer, state
+        torch.cuda.empty_cache()
+    table = {name: _codec_times(_flagship_cfg(seed, **knobs)) for name, knobs in ZOO_CODEC_TABLE.items()}
+    print("phase 11 ok: codec table " + json.dumps(table), flush=True)
+    print("phase 11 ok: Embed_0 filters " + json.dumps(_embed_filters(seed)), flush=True)
     return results
 
 
@@ -1310,7 +1490,7 @@ def _time_encode(ex, launches: int, max_err: float) -> dict:
 
 
 def phase_timing(ex, errs: dict, by_arm: dict, quantize: dict) -> None:
-    # each path's run, counted from 0 just before it (phases 5, 7, 8, 9 and 10)
+    # each path's run, counted from 0 just before it (phases 5, 7, 8, 9, 10 and 11)
     total = lambda name: sum(counts[name] for counts in by_arm.values())
     kernels = [
         _quantize_entry(quantize, total("qsgd_quantize"), errs["qsgd_quantize"]),
@@ -1367,10 +1547,11 @@ def main(argv=None) -> int:
         in_coll, quantize = phase_in_collective(args.seed, tokens, dist.group.WORLD, res["cpu_ref_loss0"],
                                                 args.profile)
         bucketed = phase_bucketed(args.seed, tokens, dist.group.WORLD, res["cpu_ref_loss0"], args.profile)
+        zoo = phase_zoo(args.seed, tokens, dist.group.WORLD, res["cpu_ref_loss0"], args.profile)
     finally:
         dist.destroy_process_group()
     by_arm = {"drqsgd_bloom": res["launches"]}
-    for phase in (arms, resnet, in_coll, bucketed):
+    for phase in (arms, resnet, in_coll, bucketed, zoo):
         by_arm.update({a: r["launches"] for a, r in phase.items()})
     phase_timing(ex, errs, by_arm, quantize)
     print(f"chip_smoke total {time.perf_counter() - t0:.1f} s", flush=True)

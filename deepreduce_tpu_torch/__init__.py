@@ -25,7 +25,13 @@ quantizer kernel `ops/csrc/qsgd_quantize.cu`) and the `sparse_rs` routes
 sparse, adaptive, quantized and oktopk (`sparse_rs.py`); and the bucketed
 exchange (`bucket_bytes`: one codec and one all_gather per bucket,
 `comm_bucket.py`), pipelined, barrier or streamed from the backward pass
-(`comm_stream.py`), built through `exchange.build_exchanger`. Collectives
+(`comm_stream.py`), built through `exchange.build_exchanger`; and every
+codec, policy, layout, wrapper mode and sparsifier that the JAX package runs
+on the device: the bloom random policy P1 and the approximate P2, the
+hash-blocked layout, the run-length index (`codecs/rle.py`), the value-only
+mode with PolyFit, Fit-DExp (`codecs/doubleexp.py`), PolySeg
+(`codecs/polyseg.py`), the count sketch (`codecs/countsketch.py`) or QSGD,
+and the random-k and threshold sparsifiers. Collectives
 run through `collectives.Collectives`: a `torch.distributed` group, or an
 `InProcessGroup` of W lockstep workers in one process.
 """

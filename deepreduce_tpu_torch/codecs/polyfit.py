@@ -10,8 +10,10 @@ cross the wire; the receiver re-derives the segments from (k, num_pos) and
 evaluates.
 
 The segment structure is bitwise the JAX package's: the sizes floor
-float32(num_pos) * float32(ratio), the element basis is the same float32
-arithmetic, and the sort is stable. The normal equations are summed with
+float32(num_pos) * float32(ratio), the element basis is the float32
+arithmetic of the JAX package's jitted program (the Legendre recurrence and
+the jitter as the fused multiply-adds XLA:CPU contracts them to,
+`numerics.fma_f32`), and the sort is stable. The normal equations are summed with
 `index_add_` into [S, p, p] / [S, p] and solved by one batched
 `torch.linalg.solve_ex` on the tensor's own device (no host round trip, no
 host sync); the sums and the LU round differently from XLA's, so the
@@ -23,8 +25,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
+from deepreduce_tpu_torch.numerics import fma_f32, reciprocal_f32
 from deepreduce_tpu_torch.sparse import SparseGrad
 
 RATIOS = (1 / 5, 1 / 10, 1 / 30, 1 / 100, 1 / 300, 1 / 1000, 1 / 3000, 1 / 10000, 1 / 30000, 1 / 100000)
@@ -88,11 +92,25 @@ def _boundaries(sizes: torch.Tensor) -> torch.Tensor:
 
 
 def _legendre_basis(t: torch.Tensor, degree: int) -> torch.Tensor:
-    """Shifted-Legendre rows P_0..P_degree at t in [-1, 1]; shape [..., degree+1]."""
+    """Shifted-Legendre rows P_0..P_degree at t in [-1, 1]; shape [..., degree+1].
+    The recurrence `((2m+1) t P_m - m P_{m-1}) / (m+1)` as jitted XLA:CPU
+    computes it: `fma(fl((2m+1) t), P_m, fl(-m P_{m-1})) * fl(1/(m+1))`."""
     cols = [torch.ones_like(t), t]
     for m in range(1, degree):
-        cols.append(((2 * m + 1) * t * cols[m] - m * cols[m - 1]) / (m + 1))
+        cols.append(fma_f32((2 * m + 1) * t, cols[m], (-m) * cols[m - 1]) * reciprocal_f32(m + 1))
     return torch.stack(cols[: degree + 1], dim=-1)
+
+
+def jitter(a: torch.Tensor, p: int) -> torch.Tensor:
+    """[S, 1, 1] Tikhonov jitter `1e-6 * trace / p + 1e-12` of the normal
+    matrices a [S, p, p], as jitted XLA:CPU computes it: the trace summed
+    left to right, then `fma(trace, fl(fl(1e-6) * fl(1/p)), 1e-12)`."""
+    diag = a.diagonal(dim1=-2, dim2=-1)
+    tr = diag[:, 0]
+    for i in range(1, p):
+        tr = tr + diag[:, i]
+    tr = tr[:, None, None]
+    return fma_f32(tr, float(np.float32(1e-6) * np.float32(reciprocal_f32(p))), 1e-12)
 
 
 def _element_basis(k: int, sizes: torch.Tensor, degree: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -130,8 +148,7 @@ def encode(sp: SparseGrad, meta: PolyFitMeta) -> PolyFitPayload:
     # evaluated) without perturbing active ones; it also makes every system
     # nonsingular, so solve_ex's unchecked result is the solution
     eye = torch.eye(p, dtype=torch.float32, device=vals.device)
-    tr = a.diagonal(dim1=-2, dim2=-1).sum(-1)[:, None, None]
-    coeffs = torch.linalg.solve_ex(a + (1e-6 * tr / p + 1e-12) * eye, b[..., None]).result[..., 0]
+    coeffs = torch.linalg.solve_ex(a + jitter(a, p) * eye, b[..., None]).result[..., 0]
     return PolyFitPayload(coeffs=coeffs, num_pos=num_pos, indices=idxs.to(torch.int32))
 
 

@@ -149,7 +149,7 @@ class FusedBuffer:
         # value stage); its leaves go straight into the buffer
         for u in self.units if units is None else units:
             codec, layout, lo = self.codecs[u], self.layouts[u], self.offsets[u]
-            payload = codec.encode_index(tensors[u])
+            payload = codec.encode_index(tensors[u], step=step, worker=worker)
             skip = ()
             r = codec.rows_leaf
             if codec.val_codec is not None and r is None:
@@ -159,7 +159,7 @@ class FusedBuffer:
                 un = None if uniforms is None else uniforms.get(u)
                 segments.append(codec.value_segment(payload, rows_lo, step=step, worker=worker, uniforms=un))
                 rows = buf[rows_lo : rows_lo + layout.leaf_bytes[r]].view(torch.int8)
-                payload = codec.both_payload(payload, rows)
+                payload = codec.rows_payload(payload, rows)
                 skip = (r,)
                 q, bs = codec.cfg.quantum_num, codec.cfg.bucket_size
             layout.write_into(buf[lo : lo + layout.nbytes], payload.leaves(), skip=skip)
@@ -169,14 +169,15 @@ class FusedBuffer:
             qsgd_encode_rows(segments, buf, quantum_num=q, bucket_size=bs, device=buf.device)
         return stats
 
-    def decode(self, unit: str, seg: torch.Tensor) -> torch.Tensor:
-        """One worker's bytes of `unit` -> its dense float32 tensor."""
+    def decode(self, unit: str, seg: torch.Tensor, *, step: int = 0) -> torch.Tensor:
+        """One worker's bytes of `unit` -> its dense float32 tensor (`step`
+        keys the bloom codec's random policies)."""
         codec = self.codecs[unit]
         payload = codec.payload_from_leaves(self.layouts[unit].unpack(seg))
-        return codec.decode(payload).to(torch.float32)
+        return codec.decode(payload, step=step).to(torch.float32)
 
     def decode_sum(
-        self, unit: str, rows: torch.Tensor, own: Optional[int] = None
+        self, unit: str, rows: torch.Tensor, own: Optional[int] = None, *, step: int = 0
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """(sum over the W rows of `unit`'s bytes [W, nbytes], the decode of
         row `own` or None). Rows are summed in worker order from zeros, as
@@ -184,7 +185,7 @@ class FusedBuffer:
         total = torch.zeros(self.codecs[unit].shape, dtype=torch.float32, device=rows.device)
         own_dec = None
         for w in range(rows.shape[0]):
-            dec = self.decode(unit, rows[w])
+            dec = self.decode(unit, rows[w], step=step)
             total = total + dec
             if w == own:
                 own_dec = dec
@@ -308,9 +309,9 @@ class GradientExchanger:
 
     # -- 3. decode + aggregate ------------------------------------------- #
 
-    def decode_row(self, row: torch.Tensor) -> Tree:
+    def decode_row(self, row: torch.Tensor, *, step: int = 0) -> Tree:
         """One worker's uint8[B] buffer -> dense float32 tensors by name."""
-        return self.to_tensors({u: self.fused.decode(u, row[self.fused.span(u)]) for u in self.fused.units})
+        return self.to_tensors({u: self.fused.decode(u, row[self.fused.span(u)], step=step) for u in self.fused.units})
 
     def to_tensors(self, by_unit: Tree) -> Tree:
         """Unit -> dense float32 as tensor name -> tensor (the inverse of
@@ -318,13 +319,13 @@ class GradientExchanger:
         return by_unit if self.bucketed is None else self.bucketed.split_all(by_unit)
 
     def decode_aggregate(
-        self, gathered: torch.Tensor, *, own: Optional[int] = None
+        self, gathered: torch.Tensor, *, own: Optional[int] = None, step: int = 0
     ) -> Tuple[Tree, Optional[Tree]]:
         """(mean over the W rows, the decode of row `own` or None), by
         tensor name."""
         totals, owns = {}, {}
         for u in self.fused.units:
-            totals[u], owns[u] = self.fused.decode_sum(u, gathered[:, self.fused.span(u)], own)
+            totals[u], owns[u] = self.fused.decode_sum(u, gathered[:, self.fused.span(u)], own, step=step)
         return self.mean_and_own(totals, owns if own is not None else None, gathered.shape[0])
 
     def mean_and_own(self, totals: Tree, owns: Optional[Tree], num_workers: int) -> Tuple[Tree, Optional[Tree]]:
@@ -376,7 +377,7 @@ class GradientExchanger:
         else:
             buf, compensated, stats = self.encode_worker(grads, residuals, step=step, worker=self.rank,
                                                          uniforms=uniforms)
-            mean, own_dec = self.decode_aggregate(self.gather(buf), own=own)
+            mean, own_dec = self.decode_aggregate(self.gather(buf), own=own, step=step)
         agg, new_residuals = self.finish(grads, compensated, mean, own_dec)
         return agg, new_residuals, stats
 
@@ -476,6 +477,13 @@ def _check_bucketable(cfg: DeepReduceConfig) -> None:
             "build-buckets-need-fused-allgather",
             "bucket_bytes partitions the fused allgather exchange and would be silently ignored here "
             f"(communicator={cfg.communicator!r}): use communicator='allgather', or bucket_bytes=None",
+        )
+    if cfg.layer_pattern is not None:
+        raise ConfigError(
+            "build-buckets-vs-layer-pattern",
+            "layer_pattern excludes leaves by name from compression, but a bucket's one codec spans many "
+            "leaves, so the pattern would be silently ignored: use layer_pattern=None with bucket_bytes, "
+            "or per-tensor codecs with layer_pattern",
         )
     if cfg.deepreduce is None and cfg.compressor == "none":
         raise ConfigError(

@@ -212,7 +212,7 @@ class BucketedExchanger:
 
         def decode(b: int, handle: Gathered) -> None:
             label = self.specs[b].label
-            totals[label], owns[label] = self.fused.decode_sum(label, handle.wait(), own)
+            totals[label], owns[label] = self.fused.decode_sum(label, handle.wait(), own, step=step)
 
         count = len(self.specs)
         if self.cfg.bucket_pipeline and count:

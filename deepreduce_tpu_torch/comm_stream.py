@@ -100,7 +100,7 @@ class StreamingExchange:
             rows = handle.wait()
             if main is not None:
                 rows.record_stream(main)
-            totals[spec.label], owns[spec.label] = self.bucketed.fused.decode_sum(spec.label, rows, own)
+            totals[spec.label], owns[spec.label] = self.bucketed.fused.decode_sum(spec.label, rows, own, step=step)
         if collect is not None:
             collect["bucket_saturated"] = self.bucketed.saturation_vector(stats)
         mean, own_dec = ex.mean_and_own(totals, owns if own is not None else None, ex.num_workers)

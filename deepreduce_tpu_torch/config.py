@@ -4,11 +4,15 @@ A copy of the knobs of `deepreduce_tpu/config.py` that the ported slices
 run (the Table-4 arms of `bench.py`: dense allreduce, Top-r, DRQSGD with a
 delta-bitpacked or a bloom index, sampled top-k, the sparsifier-free direct
 bloom encode, bloom index-only; the README quick start: the classic bloom
-index with the PolyFit value codec; and the in-collective communicators:
-the int8 quantized allreduce `qar` and the `sparse_rs` reduce-scatter routes
-sparse, adaptive, quantized and oktopk; and the bucketed exchange with its
-pipelined, barrier and backprop-streamed schedules), with the same names and
-defaults.
+index with the PolyFit value codec; the in-collective communicators: the
+int8 quantized allreduce `qar` and the `sparse_rs` reduce-scatter routes
+sparse, adaptive, quantized and oktopk; the bucketed exchange with its
+pipelined, barrier and backprop-streamed schedules; and every on-device
+codec, policy, layout, wrapper mode and sparsifier: random-k and the
+magnitude threshold, the value-only mode, the RLE index, the Fit-DExp,
+PolySeg and count-sketch value codecs, the bloom P1 (random) and
+approximate P2 policies and its hash-blocked layout), with the same names
+and defaults.
 A value the port does not implement raises `ConfigError` naming
 the knob, so that no run quietly takes another path than the one it asked
 for (for instance `approx_topk=True`: torch has no `approx_max_k`, and
@@ -31,31 +35,38 @@ class ConfigError(ValueError):
 
 # knob -> the values the port implements
 _SUPPORTED = {
-    "compressor": ("topk", "topk_sampled", "none"),
+    "compressor": ("topk", "topk_sampled", "randomk", "threshold", "none"),
     "approx_topk": (False,),
     "memory": ("residual", "none"),
     "communicator": ("allgather", "allreduce", "qar", "sparse_rs"),
     # 'sketch' needs the count-sketch codec, 'auto' the cost model's
     # select_rs_mode: neither is ported
     "rs_mode": ("sparse", "adaptive", "quantized", "oktopk"),
-    "deepreduce": (None, "index", "both"),
+    "deepreduce": (None, "value", "index", "both"),
     "fused": (True,),
     "decode_strategy": ("loop",),
 }
 BUCKET_ORDERS = ("trace", "reverse")
-# codec knobs, read only when a codec runs (deepreduce is not None)
+# codec knobs, read only when a codec runs (deepreduce is not None). The
+# JAX package's other values run on the host (huffman, gzip, polyfit_host,
+# the *_native codecs through its C++ library, the exact conflict_sets
+# policy) and are not ported
 _SUPPORTED_CODEC = {
-    "index": ("bloom", "integer"),
-    "value": ("qsgd", "polyfit"),
-    "policy": ("p0", "leftmost"),
-    "bloom_blocked": ("mod", True, False),
+    "index": ("bloom", "integer", "rle"),
+    "value": ("qsgd", "polyfit", "doubleexp", "polyseg", "countsketch"),
+    "policy": ("p0", "leftmost", "random", "conflict_sets_approx"),
+    "bloom_blocked": ("mod", "hash", True, False),
 }
+# reference-style aliases of `from_params` (the JAX package's _KEY_MAP)
+_KEY_MAP = {"threshold": "threshold_val"}
 
 
 @dataclasses.dataclass(frozen=True)
 class DeepReduceConfig:
     compressor: str = "topk"
     compress_ratio: float = 0.01
+    # the `threshold` sparsifier's cut (0.0: every nonzero, natural sparsity)
+    threshold_val: float = 0.0
     approx_topk: bool = False
     topk_sample_size: int = 1 << 15
     topk_undershoot: float = 0.9
@@ -77,7 +88,11 @@ class DeepReduceConfig:
     seed: int = 0
     fused: bool = True
     decode_strategy: str = "loop"
+    # None: 1000, or 9000 when value='doubleexp' (the per-codec gates)
     min_compress_size: Optional[int] = None
+    # regex on the tensor's name: a leaf it does not match ships dense, not
+    # even sparsified (None: every leaf, or '(?i)conv' when value='polyseg')
+    layer_pattern: Optional[str] = None
     # sparse_rs (see sparse_rs.py): phase-1 per-shard budget and phase-2
     # output budget multipliers over k/W, the route, the int8 block of the
     # adaptive dense rows and the quantized route, the adaptive switch point
@@ -130,6 +145,7 @@ class DeepReduceConfig:
             raise ConfigError("sort", "sort must be a bool")
         if self.poly_degree < 0:
             raise ConfigError("poly_degree", "poly_degree must be non-negative")
+
         self._check_in_collective()
         self._check_buckets()
 
@@ -213,13 +229,17 @@ class DeepReduceConfig:
 
 
 def from_params(params: Dict[str, Any]) -> DeepReduceConfig:
-    """Build a config from a reference-style params dict. Unlike the JAX
-    package's lenient default, every key must be a knob of the port: a key
-    that would be dropped raises `ConfigError` naming it."""
+    """Build a config from a reference-style params dict (`threshold` is an
+    alias of `threshold_val`). Unlike the JAX package's lenient default,
+    every key must be a knob of the port: a key that would be dropped raises
+    `ConfigError` naming it."""
     fields = {f.name for f in dataclasses.fields(DeepReduceConfig)}
-    for key in params:
+    kwargs = {}
+    for key, val in params.items():
+        key = _KEY_MAP.get(key, key)
         if key not in fields:
             raise ConfigError(
                 key, f"{key!r} is not a knob of deepreduce_tpu_torch (known: {sorted(fields)})"
             )
-    return DeepReduceConfig(**params)
+        kwargs[key] = val
+    return DeepReduceConfig(**kwargs)

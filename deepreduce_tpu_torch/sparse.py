@@ -1,5 +1,6 @@
-"""Sparse-gradient core: `SparseGrad`, exact and sampled top-k, the
-identity sparsifier and the rank-inversion compaction, ported from
+"""Sparse-gradient core: `SparseGrad`, exact and sampled top-k, random-k,
+the magnitude threshold with its natural-sparsity diagnostics, the identity
+sparsifier and the rank-inversion compaction, ported from
 `deepreduce_tpu/sparse.py`.
 
 Every sparsifier returns exactly `k` slots; `nnz` says how many are live and
@@ -21,6 +22,8 @@ from typing import Optional, Tuple
 import torch
 
 from deepreduce_tpu_torch import u32
+from deepreduce_tpu_torch.numerics import mean_of_sum
+from deepreduce_tpu_torch.ops.qsgd_kernel import philox_uniforms_plain
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,6 +126,118 @@ def host_branch(pred: torch.Tensor) -> bool:
 
 
 host_branch.syncs = 0
+
+
+def randomk(
+    tensor: torch.Tensor,
+    compress_ratio: float,
+    stream: Tuple[int, int],
+    *,
+    sort_indices: bool = True,
+    k: Optional[int] = None,
+    uniforms: Optional[torch.Tensor] = None,
+) -> SparseGrad:
+    """Uniform random k of d without replacement: the k largest of d i.i.d.
+    uniform priorities drawn from the Philox `stream` (seed, offset) by
+    `philox_uniforms_plain`, the same bits on the card and on the CPU.
+    Uniforms take 2**24 values, so priorities tie often at large d: they are
+    ranked by `top_order` (the tie order of `lax.top_k`). `uniforms` (f32[d],
+    CPU only) replaces the draws: the parity tests feed the priorities JAX
+    draws."""
+    flat = tensor.reshape(-1)
+    d = flat.shape[0]
+    k = num_slots(d, compress_ratio) if k is None else int(k)
+    if uniforms is None:
+        priorities = philox_uniforms_plain(d, stream[0], stream[1], device=flat.device)
+    else:
+        if flat.device.type != "cpu":
+            raise ValueError("injected uniforms are a CPU parity hook; on CUDA the priorities are drawn")
+        priorities = uniforms
+    idxs = top_order(priorities, k)
+    if sort_indices:
+        idxs = torch.sort(idxs).values
+    return SparseGrad(
+        values=flat[idxs],
+        indices=idxs.to(torch.int32),
+        nnz=torch.full((), k, dtype=torch.int32, device=flat.device),
+        shape=tuple(tensor.shape),
+    )
+
+
+def _passing(flat: torch.Tensor, threshold_val: float) -> torch.Tensor:
+    """bool mask of the elements that pass `threshold_val`: the nonzeros at
+    a threshold <= 0, else |g| >= threshold_val."""
+    if threshold_val <= 0.0:
+        return flat != 0
+    return flat.abs() >= threshold_val
+
+
+def natural_sparsity(tensor: torch.Tensor, threshold_val: float = 0.0) -> torch.Tensor:
+    """0-d float32 fraction of the elements that pass `threshold_val` (the
+    nonzeros at 0.0): the model's true sparsity at this step. The mean is
+    the sum times fl(1/d), as XLA compiles the JAX package's `jnp.mean`."""
+    flat = tensor.reshape(-1)
+    return mean_of_sum(_passing(flat, threshold_val).to(torch.float32).sum(), flat.shape[0])
+
+
+def calibrate_threshold_budget(sample_grads, threshold_val: float = 0.0, *, safety: float = 1.25) -> float:
+    """The `threshold` sparsifier's budget ratio from sample gradients (a
+    dict or a sequence of tensors): the largest natural sparsity over the
+    leaves times `safety`, clipped to [1e-6, 1]. Host-side (one read per
+    leaf), called once before the codecs are built."""
+    leaves = sample_grads.values() if isinstance(sample_grads, dict) else sample_grads
+    worst = 0.0
+    for leaf in leaves:
+        worst = max(worst, float(natural_sparsity(leaf, threshold_val)))
+    return float(min(max(worst * safety, 1e-6), 1.0))
+
+
+def threshold_overflow(tensor: torch.Tensor, threshold_val: float, *, budget_ratio: float = 1.0) -> torch.Tensor:
+    """0-d int: how many passing elements did not fit the static budget
+    k = num_slots(d, budget_ratio) this step (0: the budget captured the
+    natural sparsity). Above 0 the threshold is clamped to max |g| as
+    `threshold` clamps it. No host sync."""
+    flat = tensor.reshape(-1)
+    k = num_slots(flat.shape[0], budget_ratio)
+    if threshold_val <= 0.0:
+        passing = flat != 0
+    else:
+        mags = flat.abs()
+        passing = mags >= torch.clamp(mags.max(), max=float(threshold_val))
+    return torch.clamp(passing.sum() - k, min=0)
+
+
+def threshold(
+    tensor: torch.Tensor,
+    threshold_val: float,
+    *,
+    budget_ratio: float = 1.0,
+    k: Optional[int] = None,
+) -> SparseGrad:
+    """Keep |g| >= min(threshold_val, max |g|) in a static budget of
+    k = num_slots(d, budget_ratio) slots: when more pass than fit, the
+    largest magnitudes win (`top_order`). At `threshold_val <= 0` only
+    nonzeros are kept (natural sparsity). Live slots come first in
+    ascending index order: the dead ones are moved to d and sorted past
+    them, all on the device (the clamp, the count and the compaction make
+    no host sync)."""
+    flat = tensor.reshape(-1)
+    d = flat.shape[0]
+    dev = flat.device
+    k = num_slots(d, budget_ratio) if k is None else int(k)
+    mags = flat.abs()
+    thr = torch.clamp(mags.max(), max=float(threshold_val))
+    idxs = top_order(mags, k)
+    vals_top = mags[idxs]
+    keep = vals_top >= thr
+    if threshold_val <= 0.0:
+        keep = keep & (vals_top > 0)
+    nnz = keep.sum().to(torch.int32)
+    idxs = torch.sort(torch.where(keep, idxs, d)).values
+    live = torch.arange(k, device=dev) < nnz
+    idxs = torch.where(live, idxs, 0)
+    vals = torch.where(live, flat[idxs], torch.zeros((), dtype=flat.dtype, device=dev))
+    return SparseGrad(values=vals, indices=idxs.to(torch.int32), nnz=nnz, shape=tuple(tensor.shape))
 
 
 def none_sparsifier(tensor: torch.Tensor) -> SparseGrad:

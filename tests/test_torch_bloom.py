@@ -1,6 +1,9 @@
-"""Port parity: the mod-blocked bloom codec against the JAX package, bitwise
-(hash words, filter words, membership, positions, decoded tensors)."""
+"""Port parity: the mod- and hash-blocked bloom codec and its policies
+against the JAX package, bitwise (hash words, filter words, membership,
+positions, the random policies' selections given the JAX package's
+uniforms, decoded tensors, the measured false-positive rate)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -50,10 +53,13 @@ def test_meta_geometry_matches(k, d, fpr, policy):
 
 
 def test_meta_rejects_unported_layouts():
-    with pytest.raises(ValueError, match="mod"):
-        tbloom.BloomMeta.create(10, 100, blocked="hash")
+    with pytest.raises(ValueError, match="bloom_blocked"):
+        tbloom.BloomMeta.create(10, 100, blocked="diagonal")
+    # exact P2 runs on the host in the JAX package
     with pytest.raises(ValueError, match="policy"):
-        tbloom.BloomMeta.create(10, 100, policy="random", blocked="mod")
+        tbloom.BloomMeta.create(10, 100, policy="conflict_sets", blocked="mod")
+    with pytest.raises(ValueError, match="threshold_insert"):
+        tbloom.BloomMeta.create(10, 100, blocked="hash", threshold_insert=True)
 
 
 def _dense(d, seed, zero_frac=0.5):
@@ -141,3 +147,99 @@ def test_u32_bits_round_trip():
     assert bits.dtype == torch.int32
     np.testing.assert_array_equal(bits.numpy().view(np.uint32), w.numpy().astype(np.uint32))
     np.testing.assert_array_equal(u32.from_bits(bits).numpy(), w.numpy())
+
+
+# -- the hash layout, the random policies, the list decode, the FPR ---------- #
+
+
+_j_encode = jax.jit(jbloom.encode, static_argnums=2, static_argnames=("step", "seed"))
+_j_query = jax.jit(jbloom.query_universe, static_argnums=1)
+_j_select = jax.jit(jbloom.select, static_argnums=1, static_argnames=("step", "seed"))
+_j_decode = jax.jit(jbloom.decode, static_argnums=(1, 2), static_argnames=("step", "seed"))
+_j_decode_dense = jax.jit(jbloom.decode_dense, static_argnums=(1, 2), static_argnames=("step", "seed"))
+_j_measured_fpr = jax.jit(jbloom.measured_fpr, static_argnums=2)
+
+
+def _jax_select_uniforms(seed, step, n):
+    """The JAX package's draws of the random policies: keyed by (seed, step)."""
+    return _t(jax.random.uniform(jax.random.fold_in(jax.random.PRNGKey(seed), jnp.uint32(step)), (n,)))
+
+
+@pytest.mark.parametrize("d,k,fpr", [(20_000, 2000, 0.02), (4096, 400, None)])
+def test_hash_layout_bitwise(d, k, fpr):
+    jm = jbloom.BloomMeta.create(k, d, fpr=fpr, policy="p0", blocked="hash")
+    tm = tbloom.BloomMeta.create(k, d, fpr=fpr, policy="p0", blocked="hash")
+    assert (tm.m_bits, tm.num_hash, tm.budget, tm.blocked) == (jm.m_bits, jm.num_hash, jm.budget, "hash")
+    idx = _t(np.random.default_rng(d).integers(0, d, size=5000).astype(np.int32))
+    jb, jmask = jbloom.blocked_block_and_mask(jnp.asarray(idx.numpy()), jm)
+    tb, tmask = tbloom.blocked_block_and_mask(idx, tm)
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+    np.testing.assert_array_equal(tmask.numpy(), np.asarray(jmask).astype(np.int64))
+    g = _dense(d, seed=k)
+    sp = topk(_t(g), 1.0, k=k)
+    jsp = JSparseGrad(jnp.asarray(sp.values.numpy()), jnp.asarray(sp.indices.numpy()), jnp.int32(k), (d,))
+    jp, tp = _j_encode(jsp, jnp.asarray(g), jm), tbloom.encode(sp, _t(g), tm)
+    np.testing.assert_array_equal(tp.words.numpy(), np.asarray(jp.words).view(np.int32))
+    np.testing.assert_array_equal(tbloom.query_universe(tp.words, tm).numpy(), np.asarray(_j_query(jp.words, jm)))
+    np.testing.assert_array_equal(tp.values.numpy(), np.asarray(jp.values))
+    assert int(tp.nsel) == int(jp.nsel)
+    np.testing.assert_array_equal(tbloom.decode_dense(tp, tm, (d,)).numpy(), np.asarray(_j_decode_dense(jp, jm, (d,))))
+
+
+@pytest.mark.parametrize("policy", ["random", "conflict_sets_approx"])
+@pytest.mark.parametrize("blocked,d,k,fpr", [("mod", 20_000, 2000, 0.02), ("hash", 8192, 800, 0.1),
+                                             (False, 4096, 400, 0.3), ("mod", 2048, 1000, 0.6)])
+def test_random_policies_bitwise_given_jax_uniforms(policy, blocked, d, k, fpr):
+    """P1 and the approximate P2 with JAX's uniforms injected: the selection,
+    its count, the FP-aware values, the list and the dense decodes, bitwise.
+    Then with the Philox draws: encode and decode agree on the selection."""
+    step, seed = 3, 7
+    jm = jbloom.BloomMeta.create(k, d, fpr=fpr, policy=policy, blocked=blocked)
+    tm = tbloom.BloomMeta.create(k, d, fpr=fpr, policy=policy, blocked=blocked)
+    assert (tm.m_bits, tm.num_hash, tm.budget) == (jm.m_bits, jm.num_hash, jm.budget)
+    g = _dense(d, seed=d + k)
+    sp = topk(_t(g), 1.0, k=k)
+    jsp = JSparseGrad(jnp.asarray(sp.values.numpy()), jnp.asarray(sp.indices.numpy()), jnp.int32(k), (d,))
+    n = d if policy == "random" else jbloom.p0_budget(k, d, jm.fpr)
+    u = _jax_select_uniforms(seed, step, n)
+    jp = _j_encode(jsp, jnp.asarray(g), jm, step=step, seed=seed)
+    tp = tbloom.encode(sp, _t(g), tm, step=step, seed=seed, uniforms=u)
+    np.testing.assert_array_equal(tp.words.numpy(), np.asarray(jp.words).view(np.int32))
+    np.testing.assert_array_equal(tp.values.numpy(), np.asarray(jp.values))
+    assert int(tp.nsel) == int(jp.nsel)
+    mask = tbloom.query_universe(tp.words, tm)
+    jsel, jcount = _j_select(jnp.asarray(mask.numpy()), jm, step=step, seed=seed)
+    tsel, tcount = tbloom.select(mask, tm, step=step, seed=seed, uniforms=u)
+    np.testing.assert_array_equal(tsel.numpy(), np.asarray(jsel))
+    assert int(tcount) == int(jcount) and tsel.dtype == torch.int32
+    jl, tl = _j_decode(jp, jm, (d,), step=step, seed=seed), tbloom.decode(tp, tm, (d,), step=step, seed=seed, uniforms=u)
+    np.testing.assert_array_equal(tl.indices.numpy(), np.asarray(jl.indices))
+    assert int(tl.nnz) == int(jl.nnz)
+    np.testing.assert_array_equal(tbloom.decode_dense(tp, tm, (d,), step=step, seed=seed, uniforms=u).numpy(),
+                                  np.asarray(_j_decode_dense(jp, jm, (d,), step=step, seed=seed)))
+    # the Philox draws: the decoder re-derives the encoder's selection
+    own = tbloom.encode(sp, _t(g), tm, step=step, seed=seed)
+    dec = tbloom.decode_dense(own, tm, (d,), step=step, seed=seed).numpy()
+    assert np.count_nonzero(dec) == np.count_nonzero(own.values.numpy())
+    assert np.all(dec[dec != 0] == g[dec != 0])
+    other_step = tbloom.select(mask, tm, step=step + 1, seed=seed)[0]
+    assert not torch.equal(other_step, tbloom.select(mask, tm, step=step, seed=seed)[0])
+
+
+@pytest.mark.parametrize("blocked", [False, "hash", "mod"])
+def test_measured_fpr_and_fp_stats_match_jax(blocked):
+    d, k = 20_000, 2000
+    jm = jbloom.BloomMeta.create(k, d, fpr=0.05, policy="p0", blocked=blocked)
+    tm = tbloom.BloomMeta.create(k, d, fpr=0.05, policy="p0", blocked=blocked)
+    g = _dense(d, seed=5)
+    sp = topk(_t(g), 1.0, k=k)
+    jsp = JSparseGrad(jnp.asarray(sp.values.numpy()), jnp.asarray(sp.indices.numpy()), jnp.int32(k), (d,))
+    jp, tp = _j_encode(jsp, jnp.asarray(g), jm), tbloom.encode(sp, _t(g), tm)
+    got = tbloom.measured_fpr(sp, tp.words, tm)
+    assert got.dtype == torch.float32 and float(got) == float(_j_measured_fpr(jsp, jp.words, jm))
+    assert 0.0 < float(got) < 0.2
+    from deepreduce_tpu.codecs.registry import BloomCodec as JBloomCodec
+
+    fp, universe = tbloom.fp_stats(tp, tm)
+    jfp, juni = jax.jit(JBloomCodec(k, d, dict(fpr=0.05, policy="p0", bloom_blocked=blocked)).fp_stats)(jp)
+    assert (float(fp), float(universe)) == (float(jfp), float(juni))

@@ -361,6 +361,7 @@ FENCES = [
     (dict(FLAGSHIP, bucket_bytes=MIB4, communicator="allreduce"), "build-buckets-need-fused-allgather"),
     (dict(compressor="none", memory="none", bucket_bytes=MIB4, communicator="qar"), "build-buckets-need-fused-allgather"),
     (dict(compressor="none", deepreduce=None, memory="none", bucket_bytes=MIB4), "build-buckets-need-compression"),
+    (dict(FLAGSHIP, bucket_bytes=MIB4, layer_pattern="kernel"), "build-buckets-vs-layer-pattern"),
 ]
 
 

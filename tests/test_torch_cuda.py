@@ -282,3 +282,68 @@ def test_streamed_step_runs_on_a_side_stream_and_equals_the_barrier_step(cuda, m
     for n, p in states["streamed"].params.items():
         assert torch.equal(p, states["barrier"].params[n]), n
         assert torch.equal(states["streamed"].residuals[n], states["barrier"].residuals[n]), n
+
+
+def test_value_mode_grouped_launch_randomk_qsgd_table(cuda):
+    """The `randomk_qsgd` arm's value-only QSGD: one grouped launch writes
+    every compressed leaf's rows (random-k's k values each, at the QSGD
+    payload's first leaf) bitwise equal to the plain version, and one
+    exchange of its WordLSTM-shaped gradient makes that one launch with the
+    card equal to the CPU bitwise."""
+    from deepreduce_tpu_torch import DeepReduceConfig, GradientExchanger
+    from deepreduce_tpu_torch.models import WordLSTM
+
+    cfg = DeepReduceConfig(compressor="randomk", compress_ratio=0.1, deepreduce="value", value="qsgd", seed=3)
+    shapes = {n: tuple(p.shape) for n, p in WordLSTM(512, 24, 48).flax_params().items()}
+    ex = GradientExchanger(shapes, cfg, device=cuda)
+    segs_cpu, segs_dev = [], []
+    for i, n in enumerate(ex.names):
+        c = ex.codecs[n]
+        if c.rows_leaf is None:
+            continue
+        assert c.rows_leaf == 0 and c.idx_codec is None
+        v = _values(c.k, 3000 + i)
+        off = ex.offsets[n] + ex.layouts[n].leaf_offsets[c.rows_leaf]
+        segs_cpu.append(EncodeSegment(v, off, 17 + i, (2 << 32) | i))
+        segs_dev.append(EncodeSegment(v.to(cuda), off, 17 + i, (2 << 32) | i))
+    assert len(segs_cpu) >= 8
+    ref = torch.zeros(ex.fused_nbytes, dtype=torch.uint8)
+    qsgd_encode_rows_plain(segs_cpu, 127, 512, ref)
+    out = torch.zeros(ex.fused_nbytes, dtype=torch.uint8, device=cuda)
+    before = qsgd_encode_rows.launches
+    qsgd_encode_rows(segs_dev, out, quantum_num=127, bucket_size=512, device=cuda)
+    torch.cuda.synchronize()
+    assert qsgd_encode_rows.launches == before + 1
+    assert torch.equal(out.cpu(), ref)
+    gen = torch.Generator().manual_seed(8)
+    grads = {n: torch.randn(s, generator=gen) * 0.05 for n, s in shapes.items()}
+    res = {n: torch.zeros(s) for n, s in shapes.items()}
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        e = ex if dev.type == "cuda" else GradientExchanger(shapes, cfg, device=dev)
+        before = qsgd_encode_rows.launches
+        agg, new_res, _ = e.exchange({n: g.to(dev) for n, g in grads.items()},
+                                     {n: r.to(dev) for n, r in res.items()}, step=4)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert qsgd_encode_rows.launches - before == 1
+        outs[dev.type] = (agg, new_res)
+    for n in shapes:
+        assert torch.equal(outs["cuda"][0][n].cpu(), outs["cpu"][0][n]), n
+        assert torch.equal(outs["cuda"][1][n].cpu(), outs["cpu"][1][n]), n
+
+
+def test_count_sketch_agrees_with_the_cpu_on_the_card(cuda):
+    """The count sketch's column sums (one `index_add_` per row) on the
+    card within 1e-6 of max |v| of the CPU's: the card's atomics add each
+    column in the order they land, the CPU in slot order."""
+    from deepreduce_tpu_torch.codecs import countsketch
+
+    k = 96_038  # Embed_0's slot budget at ratio 0.1
+    gen = torch.Generator().manual_seed(12)
+    vals = torch.randn(k, generator=gen)
+    idx = torch.randperm(960_384, generator=gen)[:k].to(torch.int32)
+    cols = -(-2 * k // 5)
+    got = countsketch.sketch_from_sparse(vals.to(cuda), idx.to(cuda), 5, cols, seed=1)
+    ref = countsketch.sketch_from_sparse(vals, idx, 5, cols, seed=1)
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-6 * float(vals.abs().max()))

@@ -304,9 +304,10 @@ def test_config_rejects_unported_knobs_by_name():
     with pytest.raises(port.ConfigError, match="approx_topk") as e:
         port.DeepReduceConfig(**{**FLAGSHIP, "approx_topk": True})
     assert e.value.knob == "approx_topk"
-    for knob, val in [("decode_strategy", "vmap"), ("bloom_blocked", "hash"),
-                      ("policy", "random"), ("compressor", "randomk"), ("deepreduce", "value"),
-                      ("index", "rle"), ("compressor", "threshold")]:
+    # the JAX package's host-side values (its C++ library, pure_callback)
+    for knob, val in [("decode_strategy", "vmap"), ("policy", "conflict_sets"),
+                      ("index", "huffman"), ("index", "bloom_native"), ("index", "integer_native"),
+                      ("value", "gzip"), ("value", "polyfit_host")]:
         with pytest.raises(port.ConfigError) as e:
             port.DeepReduceConfig(**{**FLAGSHIP, knob: val})
         assert e.value.knob == knob
@@ -324,8 +325,13 @@ def test_config_rejects_unported_knobs_by_name():
     assert port.from_params(FLAGSHIP) == port.DeepReduceConfig(**FLAGSHIP)
     # the codec knobs are read only when a codec runs, as in the JAX package:
     # an unported value codec stands without one and is rejected with one
-    assert port.DeepReduceConfig(value="doubleexp").deepreduce is None
+    assert port.DeepReduceConfig(value="polyfit_host").deepreduce is None
     with pytest.raises(port.ConfigError) as e:
-        port.DeepReduceConfig(deepreduce="both", value="doubleexp")
+        port.DeepReduceConfig(deepreduce="both", value="polyfit_host")
     assert e.value.knob == "value"
+    # every on-device value builds
+    for knob, val in [("bloom_blocked", "hash"), ("policy", "random"), ("policy", "conflict_sets_approx"),
+                      ("compressor", "randomk"), ("compressor", "threshold"), ("deepreduce", "value"),
+                      ("index", "rle"), ("value", "doubleexp"), ("value", "polyseg"), ("value", "countsketch")]:
+        assert getattr(port.DeepReduceConfig(**{**FLAGSHIP, knob: val}), knob) == val
     assert dataclasses.asdict(port.from_params(FLAGSHIP))["policy"] == "p0"

@@ -100,3 +100,60 @@ def test_memory_matches_jax():
             np.testing.assert_array_equal(tu[n].numpy(), np.asarray(ju[n]))
     z = tmemory.init(tg)
     assert all(float(z[n].abs().sum()) == 0.0 and z[n].shape == tg[n].shape for n in names)
+
+
+# -- random-k and the threshold sparsifier ----------------------------------- #
+
+
+def _natural(d, touched, seed, width=8):
+    """An embedding-like gradient: `touched` rows of `width` nonzeros, the
+    rest exactly zero."""
+    rng = np.random.default_rng(seed)
+    g = np.zeros((d // width, width), np.float32)
+    rows = rng.choice(d // width, size=touched, replace=False)
+    g[rows] = rng.normal(size=(touched, width)).astype(np.float32)
+    return g.reshape(-1)
+
+
+@pytest.mark.parametrize("d,ratio", [(2048, 0.1), (65536, 0.01), (5000, 0.5)])
+def test_randomk_matches_jax_given_its_uniforms(d, ratio):
+    """Bitwise with JAX's priorities injected; ties among them (uniforms of
+    2**23 values) break toward the lower index in both."""
+    import jax
+
+    g = np.random.default_rng(d).normal(size=d).astype(np.float32)
+    key = jax.random.fold_in(jax.random.PRNGKey(3), 7)
+    pri = _t(jax.random.uniform(key, (d,)))
+    j = jsparse.randomk(jnp.asarray(g), ratio, key)
+    t = tsparse.randomk(_t(g), ratio, (0, 0), uniforms=pri)
+    np.testing.assert_array_equal(t.indices.numpy(), np.asarray(j.indices))
+    np.testing.assert_array_equal(t.values.numpy(), np.asarray(j.values))
+    assert int(t.nnz) == int(j.nnz) == tsparse.num_slots(d, ratio)
+    # the Philox draws: a fixed stream repeats, another stream differs
+    a = tsparse.randomk(_t(g), ratio, (5, 1 << 32))
+    assert torch.equal(a.indices, tsparse.randomk(_t(g), ratio, (5, 1 << 32)).indices)
+    assert not torch.equal(a.indices, tsparse.randomk(_t(g), ratio, (5, 2 << 32)).indices)
+    assert torch.equal(a.indices, torch.sort(a.indices).values) and len(set(a.indices.tolist())) == a.k
+
+
+@pytest.mark.parametrize("d,touched,ratio,thr", [
+    (8192, 100, 0.2, 0.0),   # natural sparsity inside the budget
+    (8192, 400, 0.2, 0.0),   # more nonzeros than the budget: the largest win
+    (4096, 60, 0.2, 0.5),    # a positive threshold
+    (4096, 60, 0.2, 50.0),   # above max |g|: clamped to it, one survivor
+    (1024, 0, 0.1, 0.0),     # all zero: nothing kept
+])
+def test_threshold_and_its_diagnostics_match_jax(d, touched, ratio, thr):
+    g = _natural(d, touched, seed=d + touched)
+    j = jsparse.threshold(jnp.asarray(g), thr, budget_ratio=ratio)
+    t = tsparse.threshold(_t(g), thr, budget_ratio=ratio)
+    np.testing.assert_array_equal(t.indices.numpy(), np.asarray(j.indices))
+    np.testing.assert_array_equal(t.values.numpy(), np.asarray(j.values))
+    assert int(t.nnz) == int(j.nnz) and t.nnz.dtype == torch.int32
+    for th in (thr, 0.0):
+        assert int(tsparse.threshold_overflow(_t(g), th, budget_ratio=ratio)) == int(
+            jsparse.threshold_overflow(jnp.asarray(g), th, budget_ratio=ratio))
+        assert float(tsparse.natural_sparsity(_t(g), th)) == float(jsparse.natural_sparsity(jnp.asarray(g), th))
+    grads = {"a": g, "b": _natural(d, touched // 2, seed=1)}
+    assert tsparse.calibrate_threshold_budget({n: _t(x) for n, x in grads.items()}, thr) == \
+        jsparse.calibrate_threshold_budget(grads, thr)
