@@ -99,9 +99,35 @@ Phases, one line each; any failure raises and exits non-zero:
      encode and decode times of each new codec at d = 4,053,428 and the
      Embed_0 filter's measured false-positive rate under the mod, hash and
      classic layouts (card = CPU).
+ 12. compressed FedAvg (`FedAvg.run_round`, one process, no group) at full
+     width, each arm with the counts zeroed just before its rounds and read
+     just after, every round under the sync debug mode: MobileNetV1 (width
+     1.0, 32x32x3, 10 of 10 clients, 4 local steps of SGD 0.2 momentum 0.9
+     on 24 images) dense for 3 rounds and DRQSGD-BF-P0 both ways for 3
+     rounds, and the WordLSTM (56 of 57 clients, 4 local steps of SGD 2.0
+     momentum 0.9 on 16 x 20 tokens) DRQSGD-BF-P0 for 2 rounds: finite
+     parameters and held-out loss, each round's per-direction index and
+     dense bits equal to FEDAVG_WIRE (the JAX package's codec geometry) and
+     its value bits within their bounds, qsgd_encode_rows exactly
+     rounds x (1 + C) times in the DRQSGD arms and never in the dense one,
+     host syncs per round, round times (CUDA events); and for one round of
+     each DRQSGD arm the S2C and one client's C2S `compress_tree` on the
+     card and on the CPU bitwise, with each tree's grouped QSGD rows
+     (`wrappers.encode_group`, the main path's encode) bitwise the plain
+     version's on the same segment table;
+ 13. Table 6 on NeuMF at the ML-20m widths (31,832,577 parameters): budgets
+     from the gradient of one batch of 10^6 interactions
+     (benchmarks/ncf_table6.py's `batch_at(0)`), each leaf routed and
+     encoded on the gradient of `batch_at(1)`: routes equal to
+     NCF_TABLE6.json's, the total rel_volume within 1e-3 of its 0.1906,
+     overflow 0, one qsgd_encode_rows launch per QSGD leaf, every QSGD
+     leaf's rows from the main path's encode bitwise the plain version's,
+     every leaf's decode on the card bitwise the CPU's encode and decode of
+     the same gradient, encode and decode times of the two user tables.
 `--profile` adds one profiled training step after phase 5, after each arm
-of phases 7, 8, 9, 10 and 11: the device's busy and idle share over the
-step, its device launches and its largest kernels.
+of phases 7, 8, 9, 10 and 11, and one profiled round after each arm of
+phase 12: the device's busy and idle share over the step or round, its
+device launches and its largest kernels.
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without
 the package beside it, the script exits non-zero and prints no result.
 """
@@ -111,6 +137,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -218,6 +245,81 @@ ZOO_CODEC_TABLE = {
     "countsketch": dict(deepreduce="value", value="countsketch"), "polyfit_value": dict(deepreduce="value", value="polyfit"),
     "bloom_p1": dict(policy="random"), "bloom_p2a": dict(policy="conflict_sets_approx"), "bloom_hash": dict(bloom_blocked="hash"),
 }
+# phase 12: compressed FedAvg, the paper's federated deployment, at full
+# width: MobileNetV1 (Table 5, benchmarks/mobilenet_table5.py:58-101 and
+# :138-147, whose width 0.25 and 16x16 images were smoke-scale cuts) and the
+# WordLSTM (Table 2, benchmarks/lstm_table2.py:90-95 and :136-149, whose
+# vocab 256 / embed 32 / hidden 64 were cuts). DRQSGD-BF-P0 as the scripts
+# build it (their tpu_defaults' approx_topk replaced by exact top-k, which
+# the port implements), the same config both ways.
+FED_DRQSGD = dict(
+    compressor="topk", compress_ratio=0.1, deepreduce="both", index="bloom", value="qsgd", policy="p0",
+    fpr=0.02, bloom_blocked="mod", approx_topk=False, memory="residual", min_compress_size=500,
+)
+FEDAVG = {
+    "fedavg_mobilenet_dense": dict(model="mobilenet", knobs=dict(compressor="none", deepreduce=None, memory="none"),
+                                   clients=(10, 10), local_steps=4, lr=0.2, momentum=0.9, batch=24, rounds=3),
+    "fedavg_mobilenet_drqsgd": dict(model="mobilenet", knobs=FED_DRQSGD, clients=(10, 10), local_steps=4, lr=0.2,
+                                    momentum=0.9, batch=24, rounds=3),
+    "fedavg_lstm_drqsgd": dict(model="wordlstm", knobs=FED_DRQSGD, clients=(57, 56), local_steps=4, lr=2.0,
+                               momentum=0.9, batch=16, seq=20, rounds=2),
+}
+# each arm's wire for one tree in one direction, from the JAX package's codec
+# geometry (tests/test_torch_fedavg.py derives them): index bits and dense
+# bits as float32 sums in the leaves' order, and the least and the most
+# value bits (a p0 bloom leaf sends between k and its budget of values)
+FEDAVG_WIRE = {
+    "fedavg_mobilenet_dense": (0.0, 102951232.0, 102951232.0, 102951232.0),
+    "fedavg_mobilenet_drqsgd": (4435456.0, 102951232.0, 2603504.0, 3122816.0),
+    "fedavg_lstm_drqsgd": (5576672.0, 129623936.0, 3266368.0, 3892080.0),
+}
+# phase 13: the Table-6 per-leaf encode of benchmarks/ncf_table6.py:56-160 on
+# NeuMF at the ML-20m widths: threshold 0.0 with the bloom index at fpr 0.6
+# p0 and QSGD 7-bit (q 63) / 512 where the leaf is naturally sparse, dense
+# QSGD where its calibrated budget saturates
+TABLE6_THRESHOLD = dict(
+    compressor="threshold", threshold_val=0.0, memory="none", deepreduce="both", index="bloom", value="qsgd",
+    policy="p0", fpr=0.6, bloom_blocked="mod", quantum_num=63, bucket_size=512, min_compress_size=1000,
+)
+TABLE6_DENSE = dict(compressor="none", memory="none", deepreduce="value", value="qsgd", quantum_num=63,
+                    bucket_size=512, min_compress_size=1000)
+# the JAX package's run of the same encode, beside this script
+TABLE6_RECORD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "NCF_TABLE6.json")
+
+
+def table6_route(sample_grad, safety: float = 1.25):
+    """(route, budget ratio, knobs) of one leaf from its sample gradient, as
+    benchmarks/ncf_table6.py routes it."""
+    from deepreduce_tpu_torch.sparse import calibrate_threshold_budget
+
+    ratio = calibrate_threshold_budget([sample_grad], 0.0, safety=safety)
+    if ratio >= 1.0:
+        return "dense_qsgd", ratio, TABLE6_DENSE
+    return "threshold_bloom_qsgd", ratio, dict(TABLE6_THRESHOLD, compress_ratio=ratio)
+
+
+def ncf_batch(seed: int, num_users: int, num_items: int, interactions: int = 1_000_000,
+              zipf: float = 0.8, negatives: int = 4):
+    """benchmarks/ncf_table6.py's `batch_at(seed)`: power-law users and
+    positive items, `negatives` uniform negative items per positive
+    (numpy arrays: users, items, float32 labels)."""
+    import numpy as np
+
+    u_w = np.arange(1, num_users + 1, dtype=np.float64) ** (-zipf)
+    u_w /= u_w.sum()
+    i_w = np.arange(1, num_items + 1, dtype=np.float64) ** (-zipf)
+    i_w /= i_w.sum()
+    n_pos = interactions // (1 + negatives)
+    r = np.random.default_rng(seed)
+    pos_users = r.choice(num_users, size=n_pos, p=u_w)
+    pos_items = r.choice(num_items, size=n_pos, p=i_w)
+    neg_items = r.integers(0, num_items, n_pos * negatives)
+    users = np.concatenate([pos_users, np.repeat(pos_users, negatives)])
+    items = np.concatenate([pos_items, neg_items])
+    labels = np.concatenate([np.ones(n_pos, np.float32), np.zeros(n_pos * negatives, np.float32)])
+    return users, items, labels
+
+
 LARGEST_CONV = ("BasicBlockV2_8/Conv_1/kernel", (3, 3, 64, 64))
 # PolyFit's coefficients are solved by another LU on the card than on the
 # CPU; the decode evaluates them (basis rows bounded by 1, six terms)
@@ -270,14 +372,16 @@ def _device_ms(fn, reps: int, name_part: str = "") -> tuple:
 
 
 def _kernel_rows(prof):
-    """(name, count, device us) of the device-side events only: the CPU-side
-    operator rows also carry their kernels' device time, and summing both
-    would count it twice."""
+    """(name, count, device us) of the device-side kernel events only: the
+    CPU-side operator rows also carry their kernels' device time, and
+    summing both would count it twice."""
     from torch.autograd import DeviceType
 
     rows = []
     for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
+        # a `record_function` range (FedAvg's "fedavg/s2c", "fedavg/clients")
+        # shows as a device row spanning its kernels: not a kernel
+        if evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
             continue
         us = getattr(evt, "self_device_time_total", 0.0) or getattr(evt, "self_cuda_time_total", 0.0)
         rows.append((evt.key, evt.count, us))
@@ -415,11 +519,24 @@ def _main_path_table(ex, seed: int):
     return segs
 
 
+def _plain_rows(segs, nbytes: int, q: int, bs: int):
+    """The rows of one segment table from the plain version on the CPU:
+    uint8[nbytes]."""
+    import dataclasses
+
+    import torch
+
+    from deepreduce_tpu_torch.ops import qsgd_encode_rows
+
+    ref = torch.zeros(nbytes, dtype=torch.uint8)
+    cpu_segs = [dataclasses.replace(s, values=s.values.cpu()) for s in segs]
+    qsgd_encode_rows(cpu_segs, ref, quantum_num=q, bucket_size=bs, device="cpu")
+    return ref
+
+
 def _encode_on_card_and_cpu(segs, nbytes: int, q: int, bs: int):
     """(rows from the kernel, rows from the plain version on the CPU) of
     one table, both uint8[nbytes] on the CPU."""
-    import dataclasses
-
     import torch
 
     from deepreduce_tpu_torch.ops import qsgd_encode_rows
@@ -427,10 +544,7 @@ def _encode_on_card_and_cpu(segs, nbytes: int, q: int, bs: int):
     out = torch.zeros(nbytes, dtype=torch.uint8, device="cuda")
     qsgd_encode_rows(segs, out, quantum_num=q, bucket_size=bs, device="cuda")
     torch.cuda.synchronize()
-    ref = torch.zeros(nbytes, dtype=torch.uint8)
-    cpu_segs = [dataclasses.replace(s, values=s.values.cpu()) for s in segs]
-    qsgd_encode_rows(cpu_segs, ref, quantum_num=q, bucket_size=bs, device="cpu")
-    return out.cpu(), ref
+    return out.cpu(), _plain_rows(segs, nbytes, q, bs)
 
 
 def _segment_rows(buf, seg, bs: int):
@@ -563,11 +677,10 @@ def _tokens(seed: int, steps: int, batch: int, seq: int, vocab: int):
     return torch.randint(0, vocab, (steps, batch, seq + 1), generator=gen)
 
 
-def _step_counting_syncs(trainer, state, batch, **step_kw):
-    """One training step under torch's sync debug mode: (state, loss, wire,
-    the file:line of each host sync the step made). Every synchronizing call
-    it detects (a copy to or from the host, `.item()`, a stream wait) warns
-    once."""
+def _counting_syncs(fn):
+    """`fn()` under torch's sync debug mode: (its result, the file:line of
+    each host sync it made). Every synchronizing call the mode detects (a
+    copy to or from the host, `.item()`, a stream wait) warns once."""
     import warnings
 
     import torch
@@ -576,11 +689,17 @@ def _step_counting_syncs(trainer, state, batch, **step_kw):
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            state, loss, wire = trainer.step(state, batch, **step_kw)
+            out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     # where each sync was called from: the Python line that made the call
-    syncs = [f"{w.filename}:{w.lineno}" for w in caught if "called a synchronizing" in str(w.message)]
+    return out, [f"{w.filename}:{w.lineno}" for w in caught if "called a synchronizing" in str(w.message)]
+
+
+def _step_counting_syncs(trainer, state, batch, **step_kw):
+    """One training step under torch's sync debug mode: (state, loss, wire,
+    the file:line of each host sync the step made)."""
+    (state, loss, wire), syncs = _counting_syncs(lambda: trainer.step(state, batch, **step_kw))
     return state, loss, wire, syncs
 
 
@@ -1378,6 +1497,289 @@ def phase_zoo(seed: int, tokens, group, ref_loss: float, profile: bool = False) 
     return results
 
 
+def _f32_sum(x: float, n: int) -> float:
+    """x added n times from 0 in float32: the cohort's wire sum."""
+    import numpy as np
+
+    acc = np.float32(0)
+    for _ in range(n):
+        acc = np.float32(acc + np.float32(x))
+    return float(acc)
+
+
+def _check_fed_wire(arm: str, out: dict, clients: int) -> dict:
+    """The round's per-direction wire against FEDAVG_WIRE: index and dense
+    bits exactly, value bits within [least, most] (C2S: C trees summed)."""
+    idx, dense, lo, hi = FEDAVG_WIRE[arm]
+    got = {}
+    for direction, n in (("s2c", 1), ("c2s", clients)):
+        w = out[f"wire_{direction}"]
+        bits = {f: float(getattr(w, f)) for f in ("index_bits", "value_bits", "dense_bits", "saturated")}
+        want_idx, want_dense = _f32_sum(idx, n), _f32_sum(dense, n)
+        _check(bits["index_bits"] == want_idx and bits["dense_bits"] == want_dense,
+               f"{arm} {direction}: index / dense bits {bits['index_bits']} / {bits['dense_bits']}, "
+               f"expected {want_idx} / {want_dense}")
+        _check(n * lo * (1 - 1e-5) <= bits["value_bits"] <= n * hi * (1 + 1e-5),
+               f"{arm} {direction}: value bits {bits['value_bits']} outside [{n * lo}, {n * hi}]")
+        got[direction] = bits
+    rel = float(out["rel_volume"])
+    if lo == dense:
+        _check(rel == 1.0, f"{arm}: rel_volume {rel}, expected 1.0")
+    else:
+        _check(0.0 < rel < 1.0, f"{arm}: rel_volume {rel}")
+    got["rel_volume"] = rel
+    return got
+
+
+def _fed_model(name: str, seed: int):
+    """(model on the card, loss_fn(params, batch), batch maker(rounds, C, E, gen))."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepreduce_tpu_torch.models import MobileNetV1, WordLSTM
+
+    if name == "mobilenet":
+        model = MobileNetV1(seed=seed).cuda().train()
+
+        def loss_fn(p, b):
+            return F.cross_entropy(model.functional(p, b[0]), b[1])
+
+        def batches(spec, gen):
+            # class prototypes plus noise 2.5, benchmarks/mobilenet_table5.py's task
+            c, e, bsz = spec["clients"][1], spec["local_steps"], spec["batch"]
+            protos = torch.randn(10, 32, 32, 3, device="cuda", generator=gen)
+            out = []
+            for _ in range(spec["rounds"] + 1):
+                y = torch.randint(0, 10, (c, e, bsz), device="cuda", generator=gen)
+                out.append((protos[y] + 2.5 * torch.randn(c, e, bsz, 32, 32, 3, device="cuda", generator=gen), y))
+            return out
+    else:
+        model = WordLSTM(seed=seed).cuda().train()
+        vocab = model.vocab_size
+
+        def loss_fn(p, b):
+            logits = model.functional(p, b[0])
+            return F.cross_entropy(logits.reshape(-1, vocab), b[1].reshape(-1))
+
+        def batches(spec, gen):
+            c, e, bsz = spec["clients"][1], spec["local_steps"], spec["batch"]
+            out = []
+            for _ in range(spec["rounds"] + 1):
+                t = torch.randint(0, vocab, (c, e, bsz, spec["seq"] + 1), device="cuda", generator=gen)
+                out.append((t[..., :-1], t[..., 1:]))
+            return out
+    return model, loss_fn, batches
+
+
+def _fed_round(fa, state, ids, batch):
+    """One FedAvg round under torch's sync debug mode: (state, out, device
+    ms from CUDA events, host ms, the file:line of each host sync)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    (state, out), syncs = _counting_syncs(lambda: fa.run_round(state, ids, batch))
+    end.record()
+    end.synchronize()
+    return state, out, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3, syncs
+
+
+def _group_rows_vs_plain(units, nbytes: int, step: int, worker: int, what: str) -> dict:
+    """The main path's grouped encode (`wrappers.encode_group`) of `units` on
+    the card, its rows held bitwise against the plain version on the same
+    segment table."""
+    import torch
+
+    from deepreduce_tpu_torch.wrappers import encode_group
+
+    rows = torch.zeros(nbytes, dtype=torch.uint8, device="cuda")
+    _, segs = encode_group(units, rows, step=step, worker=worker)
+    torch.cuda.synchronize()
+    err = 0.0
+    if segs:
+        meta = next(codec.val_codec.meta for _, codec, _, _ in units if codec.rows_leaf is not None)
+        err = _check_rows(rows.cpu(), _plain_rows(segs, nbytes, meta.quantum_num, meta.bucket_size), segs,
+                          meta.bucket_size, meta.quantum_num, what)
+    return {"segments": len(segs), "values": sum(s.values.numel() for s in segs), "max_abs_err": err}
+
+
+def _fed_card_vs_cpu(fa, state, batch, cfg) -> dict:
+    """One round's S2C tree (the delta params - w_ref) and client 0's C2S
+    tree (its update from w_ref, with its residual) through `compress_tree`
+    on the card and on the CPU: decoded trees, residuals and wire bitwise;
+    then each tree's grouped QSGD rows against the plain version."""
+    import torch
+
+    from deepreduce_tpu_torch import TreeCodec
+    from deepreduce_tpu_torch.fedsim.round import index_batch, tree_sub
+
+    delta = tree_sub(state.params, state.w_ref)
+    update = tree_sub(fa._local_train(state.w_ref, index_batch(batch, 0)), state.w_ref)
+    residual = None if state.c2s_residuals is None else {n: r[0] for n, r in state.c2s_residuals.items()}
+    cpu = lambda t: None if t is None else {n: x.cpu() for n, x in t.items()}
+    res = {}
+    for direction, tree, r, worker in (("s2c", delta, None, 0), ("c2s", update, residual, 0)):
+        tc = TreeCodec(direction, cfg, device="cuda")
+        card = tc.compress_tree(tree, r, step=state.round, worker=worker)
+        host = TreeCodec(direction, cfg, device="cpu").compress_tree(cpu(tree), cpu(r), step=state.round,
+                                                                     worker=worker)
+        torch.cuda.synchronize()
+        for what, a, b in (("decoded", card[0], host[0]), ("residual", card[1], host[1])):
+            if a is None:
+                continue
+            diff = [n for n in a if not torch.equal(a[n].cpu(), b[n])]
+            _check(not diff, f"{direction} {what} card != CPU at {diff[:5]}")
+        for f in ("index_bits", "value_bits", "dense_bits", "saturated"):
+            _check(float(getattr(card[2], f)) == float(getattr(host[2], f)), f"{direction} wire {f}: card != CPU")
+        _, _, units, nbytes = tc.group(tree, r)
+        rows = _group_rows_vs_plain(units, nbytes, state.round, worker, f"the {direction} tree")
+        res[direction] = {"bitwise": True, "moved": sum(int((d != 0).sum()) for d in card[0].values()),
+                          "qsgd_rows": rows}
+    return res
+
+
+def phase_fedavg(seed: int, profile: bool = False) -> dict:
+    """Phase 12: compressed FedAvg on the card, `FedAvg.run_round` per arm."""
+    import torch
+
+    from deepreduce_tpu_torch import DeepReduceConfig, FedAvg, FedConfig
+    from deepreduce_tpu_torch.fedsim.round import index_batch
+    from deepreduce_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    results = {}
+    for arm, spec in FEDAVG.items():
+        model, loss_fn, make_batches = _fed_model(spec["model"], seed)
+        params = {n: p.detach() for n, p in model.flax_params().items()}
+        n_params = sum(p.numel() for p in params.values())
+        cfg = DeepReduceConfig(**spec["knobs"], seed=seed)
+        n_clients, per_round = spec["clients"]
+        fa = FedAvg(loss_fn, cfg, FedConfig(n_clients, per_round, local_steps=spec["local_steps"]),
+                    spec["lr"], spec["momentum"], device="cuda")
+        state = fa.init(params)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+        batches = make_batches(spec, gen)
+        id_gen = torch.Generator().manual_seed(seed + 12)
+        probe = index_batch(index_batch(batches[-1], 0), 0)  # a batch no round trains on
+        with torch.no_grad():
+            loss0 = float(loss_fn(state.params, probe))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        rounds, card_cpu = [], None
+        for r in range(spec["rounds"]):
+            ids = fa.sample_clients(state, id_gen)
+            state, out, dev_ms, host_ms, syncs = _fed_round(fa, state, ids, batches[r])
+            rounds.append({"ms": dev_ms, "host_ms": host_ms, "syncs": syncs, "wire": _check_fed_wire(arm, out, per_round)})
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        qsgd = cfg.deepreduce is not None
+        expected = {"qsgd_quantize": 0, "qsgd_encode_rows": spec["rounds"] * (1 + per_round) if qsgd else 0}
+        _check(launches == expected, f"{arm}: kernel launches {launches}, expected {expected}")
+        _check(all(bool(torch.isfinite(p).all()) for p in state.params.values()), f"{arm}: non-finite parameters")
+        with torch.no_grad():
+            loss_end = float(loss_fn(state.params, probe))
+        _check(math.isfinite(loss0) and math.isfinite(loss_end), f"{arm}: loss {loss0} -> {loss_end}")
+        res = {
+            "params": n_params, "clients": spec["clients"], "rounds": spec["rounds"],
+            "round_ms_all": [x["ms"] for x in rounds], "round_ms_median": statistics.median(x["ms"] for x in rounds),
+            "host_round_ms_all": [x["host_ms"] for x in rounds], "loss_before": loss0, "loss_after": loss_end,
+            "wire_by_round": [x["wire"] for x in rounds], "launches": launches,
+            "host_syncs_per_round": [len(x["syncs"]) for x in rounds],
+            "sync_call_sites": sorted({m for x in rounds for m in x["syncs"]}), "peak_mem_bytes": peak,
+        }
+        if qsgd:
+            res["card_vs_cpu"] = _fed_card_vs_cpu(fa, state, batches[spec["rounds"]], cfg)
+        if profile:
+            ids = fa.sample_clients(state, id_gen)
+            prof = _profile_step(lambda: fa.run_round(state, ids, batches[spec["rounds"]]))
+            res["profile"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share",
+                                                   "kernel_launches", "top_device_ms")}
+        print(f"phase 12 ok: {arm} " + json.dumps(res), flush=True)
+        results[arm] = res
+        del fa, state, batches, model
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_table6(seed: int) -> dict:
+    """Phase 13: the Table-6 per-leaf encode on NeuMF at the ML-20m widths."""
+    import torch
+
+    from deepreduce_tpu_torch import DeepReduceConfig, TensorCodec
+    from deepreduce_tpu_torch.models import NeuMF
+    from deepreduce_tpu_torch.models.ncf import sigmoid_bce_mean
+    from deepreduce_tpu_torch.ops import launch_counts, reset_launch_counts
+    from deepreduce_tpu_torch.sparse import natural_sparsity, threshold_overflow
+
+    with open(TABLE6_RECORD) as f:
+        record = json.load(f)
+    model = NeuMF(seed=seed).cuda()
+    params = model.flax_params()
+    n_params = sum(p.numel() for p in params.values())
+    _check(n_params == 31_832_577, f"NeuMF has {n_params} parameters")
+
+    def grads(batch_seed):
+        users, items, labels = (torch.from_numpy(a).cuda()
+                                for a in ncf_batch(batch_seed, model.num_users, model.num_items))
+        for p in params.values():
+            p.grad = None
+        sigmoid_bce_mean(model(users, items), labels).backward()
+        return {n: p.grad.detach().clone() for n, p in params.items()}
+
+    torch.cuda.reset_peak_memory_stats()
+    sample, fresh = grads(0), grads(1)
+    peak = torch.cuda.max_memory_allocated()
+    routed = {n: table6_route(g) for n, g in sample.items()}
+    codecs = {n: TensorCodec(tuple(sample[n].shape), DeepReduceConfig(**knobs, seed=seed), name=n, device="cuda")
+              for n, (_, _, knobs) in routed.items()}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    payloads = {n: codecs[n].encode(fresh[n], step=0, worker=0) for n in sorted(fresh)}
+    launches = launch_counts()
+    qsgd_leaves = sum(c.rows_leaf is not None for c in codecs.values())
+    expected = {"qsgd_quantize": 0, "qsgd_encode_rows": qsgd_leaves}
+    _check(launches == expected, f"table 6: kernel launches {launches}, expected {expected}")
+    per_leaf, total, dense = {}, 0.0, 0.0
+    for n in sorted(fresh):
+        route, ratio, _ = routed[n]
+        stats = codecs[n].wire_stats(payloads[n])
+        overflow = 0 if route == "dense_qsgd" else int(threshold_overflow(fresh[n], 0.0, budget_ratio=ratio))
+        want = record["per_leaf"][n]
+        per_leaf[n] = {"d": fresh[n].numel(), "natural_sparsity": float(natural_sparsity(fresh[n])),
+                       "budget_ratio": ratio, "route": route, "overflow_on_fresh_batch": overflow,
+                       "rel_volume": float(stats.rel_volume()), "record_rel_volume": want["rel_volume"]}
+        _check(route == want["route"], f"table 6 {n}: route {route}, the record's {want['route']}")
+        decoded = codecs[n].decode(payloads[n])
+        _check(bool(torch.isfinite(decoded).all()), f"table 6 {n}: non-finite decode")
+        # the leaf's encode and decode on the CPU, from the same gradient
+        host = TensorCodec(tuple(fresh[n].shape), codecs[n].cfg, name=n, device="cpu")
+        _check(torch.equal(decoded.cpu(), host.decode(host.encode(fresh[n].cpu(), step=0, worker=0))),
+               f"table 6 {n}: decode on the card != CPU")
+        per_leaf[n]["decode_card_eq_cpu"] = True
+        if codecs[n].rows_leaf is not None:
+            # the main path's encode of this leaf, its rows against the plain version
+            nbytes = codecs[n].val_codec.meta.payload_len
+            per_leaf[n]["qsgd_rows"] = _group_rows_vs_plain([(n, codecs[n], fresh[n], 0)], nbytes, 0, 0,
+                                                            f"table 6 {n}")
+        total += float(stats.total_bits)
+        dense += float(stats.dense_bits)
+    rel_volume = total / dense
+    total_overflow = sum(v["overflow_on_fresh_batch"] for v in per_leaf.values())
+    _check(abs(rel_volume - record["rel_volume"]) <= 1e-3,
+           f"table 6: rel_volume {rel_volume}, the record's {record['rel_volume']}")
+    _check(total_overflow == 0, f"table 6: overflow {total_overflow}")
+    times = {}
+    for n in ("mf_user/embedding", "mlp_user/embedding"):
+        times[n] = {"encode_ms": _events_ms(lambda: codecs[n].encode(fresh[n])),
+                    "decode_ms": _events_ms(lambda: codecs[n].decode(payloads[n]))}
+    res = {"params": n_params, "interactions": 1_000_000, "rel_volume": rel_volume,
+           "record_rel_volume": record["rel_volume"], "total_overflow": total_overflow, "launches": launches,
+           "qsgd_leaves": qsgd_leaves, "per_leaf": per_leaf, "times": times, "peak_mem_bytes": peak}
+    print("phase 13 ok: table 6 " + json.dumps(res), flush=True)
+    return {"ncf_table6": res}
+
+
 def _per_leaf_composition(segs, q: int, bs: int):
     """The QSGD encode of a worker-step as the port's first slice composed
     it, leaf by leaf: zero padding, the bucket norm (a float64 `sum`) and
@@ -1490,7 +1892,7 @@ def _time_encode(ex, launches: int, max_err: float) -> dict:
 
 
 def phase_timing(ex, errs: dict, by_arm: dict, quantize: dict) -> None:
-    # each path's run, counted from 0 just before it (phases 5, 7, 8, 9, 10 and 11)
+    # each path's run, counted from 0 just before it (phases 5 and 7-13)
     total = lambda name: sum(counts[name] for counts in by_arm.values())
     kernels = [
         _quantize_entry(quantize, total("qsgd_quantize"), errs["qsgd_quantize"]),
@@ -1550,8 +1952,10 @@ def main(argv=None) -> int:
         zoo = phase_zoo(args.seed, tokens, dist.group.WORLD, res["cpu_ref_loss0"], args.profile)
     finally:
         dist.destroy_process_group()
+    fed = phase_fedavg(args.seed, args.profile)
+    table6 = phase_table6(args.seed)
     by_arm = {"drqsgd_bloom": res["launches"]}
-    for phase in (arms, resnet, in_coll, bucketed, zoo):
+    for phase in (arms, resnet, in_coll, bucketed, zoo, fed, table6):
         by_arm.update({a: r["launches"] for a, r in phase.items()})
     phase_timing(ex, errs, by_arm, quantize)
     print(f"chip_smoke total {time.perf_counter() - t0:.1f} s", flush=True)

@@ -31,7 +31,12 @@ on the device: the bloom random policy P1 and the approximate P2, the
 hash-blocked layout, the run-length index (`codecs/rle.py`), the value-only
 mode with PolyFit, Fit-DExp (`codecs/doubleexp.py`), PolySeg
 (`codecs/polyseg.py`), the count sketch (`codecs/countsketch.py`) or QSGD,
-and the random-k and threshold sparsifiers. Collectives
+and the random-k and threshold sparsifiers; and the paper's federated
+deployment: compressed FedAvg (`fedavg.FedAvg`, the round body of
+`fedsim.round`, the per-leaf codec bank `fedsim.TreeCodec`, whose every
+direction's QSGD rows are one grouped launch) on MobileNetV1
+(`models.MobileNetV1`) and the WordLSTM, and NeuMF (`models.NeuMF`) for the
+Table-6 natural-sparsity encode. Collectives
 run through `collectives.Collectives`: a `torch.distributed` group, or an
 `InProcessGroup` of W lockstep workers in one process.
 """
@@ -40,6 +45,8 @@ from deepreduce_tpu_torch.collectives import Collectives, InProcessGroup
 from deepreduce_tpu_torch.config import ConfigError, DeepReduceConfig, from_params
 from deepreduce_tpu_torch.codecs.registry import PolyFitCodec
 from deepreduce_tpu_torch.comm import GradientExchanger
+from deepreduce_tpu_torch.fedavg import FedAvg, FedAvgState
+from deepreduce_tpu_torch.fedsim import FedConfig, TreeCodec
 from deepreduce_tpu_torch.train import Trainer, TrainState
 from deepreduce_tpu_torch.wrappers import TensorCodec
 
@@ -47,10 +54,14 @@ __all__ = [
     "Collectives",
     "ConfigError",
     "DeepReduceConfig",
+    "FedAvg",
+    "FedAvgState",
+    "FedConfig",
     "GradientExchanger",
     "InProcessGroup",
     "PolyFitCodec",
     "TensorCodec",
+    "TreeCodec",
     "Trainer",
     "TrainState",
     "from_params",

@@ -63,9 +63,8 @@ from deepreduce_tpu_torch.config import ConfigError, DeepReduceConfig
 from deepreduce_tpu_torch.device import DeviceLike, resolve_device
 from deepreduce_tpu_torch.metrics import WireStats, combine
 from deepreduce_tpu_torch.numerics import mean_of_sum
-from deepreduce_tpu_torch.ops import qsgd_encode_rows
 from deepreduce_tpu_torch.sparse import per_tensor_stream
-from deepreduce_tpu_torch.wrappers import TensorCodec
+from deepreduce_tpu_torch.wrappers import TensorCodec, encode_group
 
 Tree = Dict[str, torch.Tensor]
 
@@ -143,30 +142,21 @@ class FusedBuffer:
         tensor) into their spans of `buf`; returns each unit's wire stats.
         `uniforms` (unit -> f32, CPU only) replaces the QSGD draws of the
         named units (the parity tests' hook)."""
-        segments, stats = [], {}
-        q = bs = None
-        # (a) every unit's index stage (and a reordering value codec's
-        # value stage); its leaves go straight into the buffer
-        for u in self.units if units is None else units:
+        units = self.units if units is None else units
+        group = []
+        for u in units:
+            r = self.codecs[u].rows_leaf
+            rows_lo = self.offsets[u] + (0 if r is None else self.layouts[u].leaf_offsets[r])
+            group.append((u, self.codecs[u], tensors[u], rows_lo))
+        # every unit's index stage, then one grouped QSGD launch that writes
+        # the rows straight into the buffer; the other leaves follow them
+        payloads, _ = encode_group(group, buf, step=step, worker=worker, uniforms=uniforms)
+        stats = {}
+        for u in units:
             codec, layout, lo = self.codecs[u], self.layouts[u], self.offsets[u]
-            payload = codec.encode_index(tensors[u], step=step, worker=worker)
-            skip = ()
-            r = codec.rows_leaf
-            if codec.val_codec is not None and r is None:
-                payload = codec.encode_values(payload)
-            elif r is not None:
-                rows_lo = lo + layout.leaf_offsets[r]
-                un = None if uniforms is None else uniforms.get(u)
-                segments.append(codec.value_segment(payload, rows_lo, step=step, worker=worker, uniforms=un))
-                rows = buf[rows_lo : rows_lo + layout.leaf_bytes[r]].view(torch.int8)
-                payload = codec.rows_payload(payload, rows)
-                skip = (r,)
-                q, bs = codec.cfg.quantum_num, codec.cfg.bucket_size
-            layout.write_into(buf[lo : lo + layout.nbytes], payload.leaves(), skip=skip)
-            stats[u] = codec.wire_stats(payload)
-        # (b) the QSGD value stage of every compressed unit: one grouped launch
-        if segments:
-            qsgd_encode_rows(segments, buf, quantum_num=q, bucket_size=bs, device=buf.device)
+            skip = () if codec.rows_leaf is None else (codec.rows_leaf,)
+            layout.write_into(buf[lo : lo + layout.nbytes], payloads[u].leaves(), skip=skip)
+            stats[u] = codec.wire_stats(payloads[u])
         return stats
 
     def decode(self, unit: str, seg: torch.Tensor, *, step: int = 0) -> torch.Tensor:

@@ -14,75 +14,17 @@ the fused buffer all read each flattened leaf in sorted name order:
   `Conv_1` and `Conv_2` (blocks 3 and 6); elsewhere they are `Conv_0` and
   `Conv_1`.
 
-Two flax semantics that torch's own layers do not have are written out:
-- `SAME` padding is asymmetric at stride 2 on an even input: a 3x3 stride-2
-  convolution pads (0, 1), not (1, 1);
-- BatchNorm normalizes with the biased "fast" variance
-  max(0, E[x^2] - E[x]^2) in float32 and moves its running statistics by
-  1% per step (momentum 0.99, epsilon 1e-5), the variance included (torch's
-  `BatchNorm2d` keeps the unbiased one). In training mode the running
-  statistics are updated in place in the `mean` / `var` buffers.
+flax's asymmetric `SAME` padding and its BatchNorm are written out in
+`models/common.py`.
 """
 
 from __future__ import annotations
-
-import math
-from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from deepreduce_tpu_torch.models.common import Dense, FlaxNamed, _normal
-
-
-def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
-    """(low, high) padding of flax's `SAME` along one spatial axis."""
-    total = max((math.ceil(size / stride) - 1) * stride + kernel - size, 0)
-    return total // 2, total - total // 2
-
-
-class Conv(nn.Module):
-    """flax Conv without bias and with `SAME` padding; kernel HWIO, input
-    and output NCHW."""
-
-    def __init__(self, c_in: int, c_out: int, size: int, stride: int, gen: torch.Generator):
-        super().__init__()
-        self.stride = stride
-        # flax's default lecun-normal scale, 1/sqrt(fan_in)
-        self.kernel = _normal((size, size, c_in, c_out), 1.0 / math.sqrt(size * size * c_in), gen)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        kh, kw = self.kernel.shape[:2]
-        (top, bottom), (left, right) = same_pads(x.shape[2], kh, self.stride), same_pads(x.shape[3], kw, self.stride)
-        if top or bottom or left or right:
-            x = F.pad(x, (left, right, top, bottom))
-        return F.conv2d(x, self.kernel.permute(3, 2, 0, 1), stride=self.stride)
-
-
-class BatchNorm(nn.Module):
-    """flax BatchNorm over the channels of an NCHW input."""
-
-    def __init__(self, channels: int, *, momentum: float = 0.99, epsilon: float = 1e-5):
-        super().__init__()
-        self.momentum = momentum
-        self.epsilon = epsilon
-        self.scale = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-        self.register_buffer("mean", torch.zeros(channels))
-        self.register_buffer("var", torch.ones(channels))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-            with torch.no_grad():
-                self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)
-                self.var.copy_(self.momentum * self.var + (1 - self.momentum) * var)
-        else:
-            mean, var = self.mean, self.var
-        mul = torch.rsqrt(var + self.epsilon) * self.scale
-        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+from deepreduce_tpu_torch.models.common import BatchNorm, Conv, Dense, FlaxNamed
 
 
 class BasicBlockV2(nn.Module):

@@ -46,7 +46,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import re
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -58,6 +58,8 @@ from deepreduce_tpu_torch.device import DeviceLike, check_on, resolve_device
 from deepreduce_tpu_torch.metrics import WireStats
 from deepreduce_tpu_torch.ops import EncodeSegment, qsgd_encode_rows
 from deepreduce_tpu_torch.sparse import SparseGrad
+
+EncodeUnit = Tuple[Any, "TensorCodec", torch.Tensor, int]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,16 +213,12 @@ class TensorCodec:
         'value' and 'both' mode: a one-segment fused QSGD encode, or
         `encode_values`. `uniforms` (CPU only) replaces the QSGD Philox
         draws; see `codecs.qsgd.encode`."""
-        ipay = self.encode_index(tensor, step=step, worker=worker)
-        if self.val_codec is None:
-            return ipay
-        if self.rows_leaf is None:
-            return self.encode_values(ipay)
-        data = torch.empty(self.val_codec.meta.payload_len, dtype=torch.int8, device=tensor.device)
-        seg = self.value_segment(ipay, 0, step=step, worker=worker, uniforms=uniforms)
-        meta = self.val_codec.meta
-        qsgd_encode_rows([seg], data, quantum_num=meta.quantum_num, bucket_size=meta.bucket_size, device=self.device)
-        return self.rows_payload(ipay, data)
+        rows = None
+        if self.rows_leaf is not None:
+            rows = torch.empty(self.val_codec.meta.payload_len, dtype=torch.int8, device=tensor.device)
+        payloads, _ = encode_group([(0, self, tensor, 0)], rows, step=step, worker=worker,
+                                   uniforms=None if uniforms is None else {0: uniforms})
+        return payloads[0]
 
     def encode_index(self, tensor: torch.Tensor, *, step: int = 0, worker: int = 0) -> Any:
         """The index stage. A compressed leaf gives its index codec's payload
@@ -417,3 +415,43 @@ class TensorCodec:
             return None
         ipay = payload.index_payload if isinstance(payload, BothPayload) else payload
         return self.idx_codec.fp_stats(ipay)
+
+
+def encode_group(
+    units: Sequence[EncodeUnit],
+    rows: Optional[torch.Tensor],
+    *,
+    step: int,
+    worker: int,
+    uniforms: Optional[Dict[Any, torch.Tensor]] = None,
+) -> Tuple[Dict[Any, Any], List[EncodeSegment]]:
+    """Encode several codec units with one launch of the grouped QSGD
+    kernel: every unit's index stage (and its value stage where the value
+    codec is not QSGD), then the QSGD wire rows of every unit that has them
+    in one `qsgd_encode_rows` launch, each on its unit's own stream at
+    (step, worker).
+
+    `units` holds `(key, codec, tensor, rows_lo)`: `rows_lo` is the byte
+    offset of the unit's rows in `rows` (unused where it has none).
+    `uniforms` (key -> f32, CPU only) replaces the QSGD draws of the named
+    units. Returns the payloads by key, a QSGD unit's rows a view of
+    `rows`, and the launch's segment table (empty: no launch)."""
+    payloads: Dict[Any, Any] = {}
+    segments: List[EncodeSegment] = []
+    geometry = None
+    for key, codec, tensor, rows_lo in units:
+        payload = codec.encode_index(tensor, step=step, worker=worker)
+        if codec.rows_leaf is not None:
+            meta = codec.val_codec.meta
+            if geometry not in (None, (meta.quantum_num, meta.bucket_size)):
+                raise ValueError("one grouped QSGD launch takes one quantum_num and one bucket_size")
+            geometry = (meta.quantum_num, meta.bucket_size)
+            u = None if uniforms is None else uniforms.get(key)
+            segments.append(codec.value_segment(payload, rows_lo, step=step, worker=worker, uniforms=u))
+            payload = codec.rows_payload(payload, rows[rows_lo : rows_lo + meta.payload_len].view(torch.int8))
+        elif codec.val_codec is not None:
+            payload = codec.encode_values(payload)
+        payloads[key] = payload
+    if segments:
+        qsgd_encode_rows(segments, rows, quantum_num=geometry[0], bucket_size=geometry[1], device=rows.device)
+    return payloads, segments

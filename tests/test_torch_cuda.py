@@ -347,3 +347,55 @@ def test_count_sketch_agrees_with_the_cpu_on_the_card(cuda):
     got = countsketch.sketch_from_sparse(vals.to(cuda), idx.to(cuda), 5, cols, seed=1)
     ref = countsketch.sketch_from_sparse(vals, idx, 5, cols, seed=1)
     torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-6 * float(vals.abs().max()))
+
+
+def _narrow_mobilenet_tree(device, seed):
+    """A narrow MobileNetV1's parameters as a gradient-sized tree (normal
+    times 1e-3, 30% exact zeros), on `device`."""
+    from deepreduce_tpu_torch.models import MobileNetV1
+
+    gen = torch.Generator().manual_seed(seed)
+    tree = {}
+    for n, p in MobileNetV1(width_mult=0.5).flax_params().items():
+        v = torch.randn(p.shape, generator=gen) * 1e-3
+        v[torch.rand(p.shape, generator=gen) < 0.3] = 0.0
+        tree[n] = v.to(device)
+    return tree
+
+
+@pytest.mark.parametrize("direction,with_residual", [("s2c", False), ("c2s", True)])
+def test_tree_encode_is_one_launch_and_card_equals_cpu(cuda, direction, with_residual):
+    """`TreeCodec.compress_tree` on the card: every QSGD leaf's rows in one
+    grouped launch, bitwise the plain rows of that table, and the decoded
+    tree and residual bitwise the CPU's."""
+    import dataclasses
+
+    from deepreduce_tpu_torch import DeepReduceConfig, TreeCodec
+    from deepreduce_tpu_torch.wrappers import encode_group
+
+    cfg = DeepReduceConfig(compressor="topk", compress_ratio=0.1, deepreduce="both", index="bloom", value="qsgd",
+                           policy="p0", fpr=0.02, bloom_blocked="mod", min_compress_size=500)
+    tree = _narrow_mobilenet_tree(cuda, 5)
+    res = _narrow_mobilenet_tree(cuda, 6) if with_residual else None
+    tc = TreeCodec(direction, cfg, device=cuda)
+    before = qsgd_encode_rows.launches
+    tc.encode_tree(tree, res, step=2, worker=1)
+    torch.cuda.synchronize()
+    assert qsgd_encode_rows.launches == before + 1
+    # the tree's grouped encode, its rows against the plain version's on
+    # the launch's own segment table
+    _, _, units, nbytes = tc.group(tree, res)
+    rows = torch.zeros(nbytes, dtype=torch.uint8, device=cuda)
+    _, segs = encode_group(units, rows, step=2, worker=1)
+    assert len(segs) > 1
+    ref = torch.zeros(nbytes, dtype=torch.uint8)
+    qsgd_encode_rows_plain([dataclasses.replace(s, values=s.values.cpu()) for s in segs], cfg.quantum_num,
+                           cfg.bucket_size, ref)
+    assert torch.equal(rows.cpu(), ref)
+    cpu = lambda t: None if t is None else {n: x.cpu() for n, x in t.items()}
+    card = tc.compress_tree(tree, res, step=2, worker=1)
+    host = TreeCodec(direction, cfg, device="cpu").compress_tree(cpu(tree), cpu(res), step=2, worker=1)
+    for n in tree:
+        assert torch.equal(card[0][n].cpu(), host[0][n]), n
+        if with_residual:
+            assert torch.equal(card[1][n].cpu(), host[1][n]), n

@@ -33,7 +33,7 @@ from deepreduce_tpu.train import classification_loss as jclassification_loss
 import deepreduce_tpu_torch as port
 from deepreduce_tpu_torch import memory as tmemory
 from deepreduce_tpu_torch.models import ResNet20
-from deepreduce_tpu_torch.models.resnet import Conv, same_pads
+from deepreduce_tpu_torch.models.common import Conv, same_pads
 from deepreduce_tpu_torch.train import classification_loss
 from deepreduce_tpu_torch.weights import batch_stats_from_jax, params_from_jax
 

@@ -269,7 +269,9 @@ def test_port_imports_no_jax():
         "import sys, deepreduce_tpu_torch, deepreduce_tpu_torch.models, deepreduce_tpu_torch.weights,"
         " deepreduce_tpu_torch.qar, deepreduce_tpu_torch.sparse_rs, deepreduce_tpu_torch.costmodel,"
         " deepreduce_tpu_torch.collectives, deepreduce_tpu_torch.comm_bucket, deepreduce_tpu_torch.comm_stream,"
-        " deepreduce_tpu_torch.exchange, deepreduce_tpu_torch.numerics;"
+        " deepreduce_tpu_torch.exchange, deepreduce_tpu_torch.numerics, deepreduce_tpu_torch.fedavg,"
+        " deepreduce_tpu_torch.fedsim, deepreduce_tpu_torch.fedsim.round, deepreduce_tpu_torch.fedsim.codec_tree,"
+        " deepreduce_tpu_torch.models.mobilenet, deepreduce_tpu_torch.models.ncf;"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'flax', 'optax'))"
         " or m == 'deepreduce_tpu' or m.startswith('deepreduce_tpu.')];"
         "print(bad); sys.exit(1 if bad else 0)"
@@ -293,6 +295,10 @@ def test_cuda_default_entry_points_raise_without_cuda():
             port.GradientExchanger({"w": (2000,)}, port.DeepReduceConfig(**knobs))
     with pytest.raises(RuntimeError, match="CUDA"):
         port.Trainer(WordLSTM(16, 4, 8), cfg, lr=0.1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port.FedAvg(lambda p, b: p["w"].sum(), cfg, port.FedConfig(4, 2), 0.1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port.TreeCodec("c2s", cfg)
     v = torch.zeros(16)
     with pytest.raises(RuntimeError, match="CUDA"):
         quantize_levels(v, v, 0, 0)
