@@ -2,6 +2,12 @@
 """Drive the PyTorch/CUDA port (deepreduce_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--steps 5]
+    python3 chip_smoke.py --compare-encode OLD/qsgd_encode.cu
+
+With --compare-encode only phases 1-2, phase 3's qsgd_encode_rows checks
+and phase 6's sweep run, the sweep in turns earlier, this, this, earlier
+for an earlier source of csrc/qsgd_encode.cu and this checkout's (which is
+also held bitwise to its plain version on every sweep table).
 
 Phases, one line each; any failure raises and exits non-zero:
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
@@ -26,8 +32,13 @@ Phases, one line each; any failure raises and exits non-zero:
   6. device times (torch.profiler) and host times of each kernel and its
      plain version at its path's shapes (qsgd_encode_rows on phase 5's table,
      beside the per-leaf QSGD composition it replaced; qsgd_quantize at the
-     qar path's 4,050,944 elements from phase 9), then the `kernels` JSON
-     line, whose launches sum every path's counted run;
+     qar path's 4,050,944 elements from phase 9), and qsgd_encode_rows's
+     sweep: its launch floor (an empty kernel with its parameter block and
+     grid), one bucket, the flagship's 12 segments, resnet20_drqsgd's 19,
+     the fedavg_mobilenet_drqsgd S2C tree's 57 and one 4,050,944-element
+     segment warm and with the L2 flushed, each bitwise its plain version,
+     with device us, bytes, bound and share; then the `kernels` JSON line,
+     whose launches sum every path's counted run;
   7. the other Table-4 arms of `bench.py` (dense allreduce, Top-r,
      DRQSGD with the delta-bitpacked integer index, with sampled top-k,
      with the sparsifier-free direct bloom encode, and bloom index-only),
@@ -592,6 +603,12 @@ def _check_encode(ex) -> float:
     cases = [(1, 512, 0, 0), (5, 512, 0, 0), (513, 512, 0, 0), (1_000_003, 512, 0, 0),
              (5, 100, 0, 0), (513, 100, 0, 0), (1_000_003, 100, 0, 0), (3001, 1024, 0, 0),
              (114_688, 512, 1, 0), (53_760, 512, 0, 1), (513, 512, 3, 2)]
+    # bucket sizes 100, 1000, 1024 and 2048 at every value / row shift (the
+    # vector kernel, with scalar loads off a 16-byte boundary), and the
+    # generic kernel: one above 4,096 (8 elements a thread) and one that is
+    # not a multiple of 4
+    cases += [(10_007, cbs, vs, os) for cbs in (100, 1000, 1024, 2048) for vs, os in ((0, 0), (1, 0), (0, 1), (3, 2))]
+    cases += [(20_001, 8192, 0, 0), (1001, 3, 0, 0)]
     gen = torch.Generator().manual_seed(12)
     for i, (k, cbs, vshift, oshift) in enumerate(cases):
         v = torch.randn(k + vshift, generator=gen)
@@ -599,6 +616,14 @@ def _check_encode(ex) -> float:
         seg = [EncodeSegment(v.cuda()[vshift:], oshift, (0xFEED << 32) | i, (i << 32) | 1)]
         got1, ref1 = _encode_on_card_and_cpu(seg, oshift + rows_nbytes(k, cbs), q, cbs)
         max_err = max(max_err, _check_rows(got1, ref1, seg, cbs, q, f"k={k} bucket {cbs} shifts {vshift}/{oshift}"))
+    # one launch over segments whose values lie on and off a 16-byte boundary
+    mixed, off = [], 0
+    for i, (k, vshift) in enumerate(((3001, 0), (2049, 1), (10_007, 0), (700, 3))):
+        v = torch.randn(k + vshift, generator=gen)
+        mixed.append(EncodeSegment(v.cuda()[vshift:], off, (0xBEEF << 32) | i, i))
+        off += rows_nbytes(k, bs)
+    got1, ref1 = _encode_on_card_and_cpu(mixed, off, q, bs)
+    max_err = max(max_err, _check_rows(got1, ref1, mixed, bs, q, "a table of aligned and shifted values"))
     # unbiasedness: the decoded mean over many offsets matches the values
     k, draws = 8192, 256
     v = torch.randn(k, generator=gen).cuda()
@@ -613,7 +638,8 @@ def _check_encode(ex) -> float:
     bound = 6 * float(norms.double().max()) / q / 2 / math.sqrt(draws)
     _check(dev_max < bound, f"biased encode: max |mean - v| {dev_max} >= {bound}")
     print(f"phase 3 ok: qsgd_encode_rows bitwise equal to plain (levels and norm bytes) on the main path's "
-          f"{len(segs)}-segment table and at (k, bucket, value shift, row shift) {cases}, max_abs_err {max_err}, "
+          f"{len(segs)}-segment table, at (k, bucket, value shift, row shift) {cases} and on a 4-segment table of "
+          f"aligned and shifted values, max_abs_err {max_err}, "
           f"repeatable, unbiased (max |mean-v| {dev_max:.3g} < {bound:.3g})", flush=True)
     return max_err
 
@@ -1825,31 +1851,133 @@ def _quantize_entry(quantize: dict, launches: int, max_err: float) -> dict:
     }
 
 
-def _time_encode(ex, launches: int, max_err: float) -> dict:
-    """qsgd_encode_rows on the main path's 12-segment table (one launch per
-    worker-step) beside its plain version and the per-leaf composition it
-    replaced."""
+SWEEP_N = 4_050_944  # one segment of the qar path's size: where bytes do bound the kernel
+L2_FLUSH_BYTES = 64 << 20  # written between launches of the cold rows: more than the 50 MB L2
+
+
+def _table_bytes(segs, bs: int) -> tuple:
+    """(live values, padded elements, buckets, bytes) of one table: each
+    live value read once (4 B), each row byte written once."""
+    from deepreduce_tpu_torch.ops.qsgd_encode import num_buckets
+
+    live = sum(s.values.shape[0] for s in segs)
+    buckets = sum(num_buckets(s.values.shape[0], bs) for s in segs)
+    return live, buckets * bs, buckets, 4 * live + buckets * bs + 4 * buckets
+
+
+def _sweep_tables(ex, seed: int) -> list:
+    """The phase-6 sweep's tables, (name, segments, bucket size, bytes of
+    out, cold): one bucket, the flagship's 12 segments, `resnet20_drqsgd`'s
+    19, `fedavg_mobilenet_drqsgd`'s S2C tree (57 segments, one launch), and
+    one 4,050,944-element segment warm and with the L2 flushed."""
     import dataclasses
 
+    import torch
+
+    from deepreduce_tpu_torch import DeepReduceConfig, GradientExchanger, TreeCodec
+    from deepreduce_tpu_torch.models import MobileNetV1, ResNet20
+    from deepreduce_tpu_torch.ops import EncodeSegment
+    from deepreduce_tpu_torch.ops.qsgd_encode import rows_nbytes
+    from deepreduce_tpu_torch.sparse import per_tensor_stream
+
+    bs = ex.cfg.bucket_size
+    flagship = _main_path_table(ex, seed)
+    one = [dataclasses.replace(flagship[0], values=flagship[0].values[:bs], out_offset=0)]
+    shapes = {n: tuple(p.shape) for n, p in ResNet20().flax_params().items()}
+    ex_r = GradientExchanger(shapes, DeepReduceConfig(**{**QUICKSTART, "value": "qsgd"}, seed=seed), device="cuda")
+    tree = {n: torch.zeros(p.shape, device="cuda") for n, p in MobileNetV1().flax_params().items()}
+    _, _, units, tree_nbytes = TreeCodec("s2c", DeepReduceConfig(**FED_DRQSGD, seed=seed), device="cuda").group(tree, None)
+    gen = torch.Generator().manual_seed(seed)
+    s2c = []
+    for path, codec, _, rows_lo in units:
+        if codec.rows_leaf is not None:
+            v = torch.randn(codec.val_codec.meta.k, generator=gen) * 1e-3
+            v[torch.rand(v.shape[0], generator=gen) < 0.3] = 0.0
+            s2c.append(EncodeSegment(v.cuda(), rows_lo, *per_tensor_stream(seed, f"s2c/{path}", TABLE_STEP, 0)))
+    v = torch.randn(SWEEP_N, generator=gen) * 1e-3
+    big = [EncodeSegment(v.cuda(), 0, *per_tensor_stream(seed, "big", TABLE_STEP, 0))]
+    return [
+        ("one bucket", one, bs, rows_nbytes(bs, bs), False),
+        ("flagship, 12 segments", flagship, bs, ex.fused_nbytes, False),
+        ("resnet20_drqsgd, 19 segments", _main_path_table(ex_r, seed), bs, ex_r.fused_nbytes, False),
+        ("fedavg_mobilenet_drqsgd S2C, 57 segments", s2c, bs, tree_nbytes, False),
+        ("4,050,944 elements, warm", big, bs, rows_nbytes(SWEEP_N, bs), False),
+        ("4,050,944 elements, L2 flushed", big, bs, rows_nbytes(SWEEP_N, bs), True),
+    ]
+
+
+def _encode_sweep(tables, q: int, lib=None, floor: bool = True) -> list:
+    """Device us per launch (torch.profiler over 200 launches, per launch it
+    saw) of the encode on each sweep table beside its bytes bound at 3.35
+    TB/s, and first, with `floor`, the launch floor (`qsgd_encode_floor`:
+    the flagship's parameter block and grid, empty body, and the same on
+    one block). `lib` is a loaded build of csrc/qsgd_encode.cu (an earlier
+    one, to compare), else the package's."""
+    import torch
+
+    from deepreduce_tpu_torch.ops import qsgd_encode
+
+    lib = qsgd_encode.bind(lib) if lib is not None else qsgd_encode.kernel_lib()
+    rows = []
+
+    def row(name, segs, bs, fn, kernel):
+        ms, per_call = _device_ms(fn, 200, kernel)
+        _check(ms > 0 and per_call > 0, f"the profiler saw no {kernel} launch on {name}")
+        # per launch the profiler saw: it can drop events of a window (189 of
+        # 200 after the profiled phases), and then time and count lack them
+        us = ms * 1e3 / per_call
+        _, _, buckets, nbytes = _table_bytes(segs, bs)
+        bound_us = nbytes / HBM_BYTES_PER_S * 1e6
+        rows.append({"table": name, "segments": len(segs), "buckets": buckets, "bytes": nbytes,
+                     "device_us": us, "kernels_per_call": per_call, "bound_us": bound_us, "share": bound_us / us})
+
+    if floor:
+        name, segs, bs, nbytes, _ = tables[1]
+        out = torch.zeros(nbytes, dtype=torch.uint8, device="cuda")
+        for label, ss in (("", segs), (", one block", tables[0][1])):
+            row(f"floor ({name}{label})", ss, bs,
+                lambda ss=ss: qsgd_encode.launch(lib, ss, out, q, bs, floor=True), "qsgd_encode_floor_kernel")
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    for name, segs, bs, nbytes, cold in tables:
+        out = torch.zeros(nbytes, dtype=torch.uint8, device="cuda")
+        enc = lambda segs=segs, out=out, bs=bs: qsgd_encode.launch(lib, segs, out, q, bs)
+        row(name, segs, bs, (lambda enc=enc: (flush.zero_(), enc())) if cold else enc, "qsgd_encode_rows_kernel")
+    return rows
+
+
+def _check_sweep_tables(tables, q: int) -> None:
+    """The kernel's rows bitwise the plain version's on every sweep table."""
+    for name, segs, bs, nbytes, cold in tables:
+        if cold:  # the same table as a warm row
+            continue
+        got, ref = _encode_on_card_and_cpu(segs, nbytes, q, bs)
+        _check_rows(got, ref, segs, bs, q, name)
+
+
+def _time_encode(ex, launches: int, max_err: float) -> dict:
+    """qsgd_encode_rows on the sweep's tables (the main path's 12-segment
+    table, one launch per worker-step, among them) and its launch floor,
+    beside its plain version and the per-leaf composition it replaced."""
     import torch
 
     from deepreduce_tpu_torch.ops import qsgd_encode_rows, qsgd_encode_rows_plain
     from deepreduce_tpu_torch.ops.qsgd_encode import num_buckets
 
     q, bs = ex.cfg.quantum_num, ex.cfg.bucket_size
-    segs = _main_path_table(ex, seed=13)
+    tables = _sweep_tables(ex, seed=13)
+    _check_sweep_tables(tables, q)
+    sweep = _encode_sweep(tables, q)
+    print("phase 6 ok: qsgd_encode_rows sweep " + json.dumps(sweep), flush=True)
+    main = next(r for r in sweep if r["table"] == tables[1][0])
+    ms = main["device_us"] / 1e3
+    segs = tables[1][1]
     out = torch.zeros(ex.fused_nbytes, dtype=torch.uint8, device="cuda")
     kernel = lambda: qsgd_encode_rows(segs, out, quantum_num=q, bucket_size=bs, device="cuda")
     plain = lambda: qsgd_encode_rows_plain(segs, q, bs, out)
     before = lambda: _per_leaf_composition(segs, q, bs)
-    ms, per_call = _device_ms(kernel, 200, "qsgd_encode_rows_kernel")
-    # the launch floor at this table's parameter size: one bucket of work
-    one = [dataclasses.replace(segs[0], values=segs[0].values[:bs])]
-    floor_ms, _ = _device_ms(lambda: qsgd_encode_rows(one, out, quantum_num=q, bucket_size=bs, device="cuda"),
-                             200, "qsgd_encode_rows_kernel")
     plain_ms, plain_launches = _device_ms(plain, 10)
     before_ms, before_launches = _device_ms(before, 20)
-    _check(ms > 0 and plain_ms > 0 and before_ms > 0, "the profiler saw no device time")
+    _check(plain_ms > 0 and before_ms > 0, "the profiler saw no device time")
     # launches per call from the wrapper's own count: the profiler can miss
     # an event of a window (it saw 199 of 200 once, after phase 7's profiled steps)
     counted = qsgd_encode_rows.launches
@@ -1862,15 +1990,12 @@ def _time_encode(ex, launches: int, max_err: float) -> dict:
     fused = torch.cat([out[s.out_offset : s.out_offset + num_buckets(s.values.shape[0], bs) * (bs + 4)]
                        for s in segs]).view(torch.int8)
     equal_rows = int((fused.view(-1, bs + 4) == composed.view(-1, bs + 4)).all(dim=1).sum())
-    live = sum(s.values.shape[0] for s in segs)
-    padded = sum(num_buckets(s.values.shape[0], bs) * bs for s in segs)
-    buckets = padded // bs
-    nbytes = 4 * live + padded + 4 * buckets  # read each live value, write each row byte
+    live, padded, buckets, nbytes = _table_bytes(segs, bs)
     bytes_bound = nbytes / HBM_BYTES_PER_S
     ops_bound = QSGD_F32_OPS_PER_ELEM * padded / F32_OPS_PER_S + ENCODE_F64_OPS_PER_ELEM * padded / F64_OPS_PER_S
     detail = {
         "segments": len(segs), "live_values": live, "padded_elements": padded, "buckets": buckets,
-        "bytes": nbytes, "device_ms": ms, "profiled_kernels_per_call": per_call, "one_bucket_device_ms": floor_ms, "host_ms": _host_ms(kernel, 200),
+        "bytes": nbytes, "device_ms": ms, "host_ms": _host_ms(kernel, 200),
         "plain_ms": plain_ms, "plain_launches": plain_launches, "plain_host_ms": _host_ms(plain, 10),
         "before_device_ms": before_ms, "before_launches": before_launches, "before_host_ms": _host_ms(before, 20),
         "rows_equal_to_before": f"{equal_rows}/{buckets}",
@@ -1889,6 +2014,46 @@ def _time_encode(ex, launches: int, max_err: float) -> dict:
         "bound_by": "bytes" if bytes_bound >= ops_bound else "operations",
         "library_ms": None,  # no single PyTorch call computes this function
     }
+
+
+def compare_encode(old_source: str, seed: int) -> None:
+    """The sweep of this checkout's kernel and of an earlier source of
+    csrc/qsgd_encode.cu (built beside it), in turns old, new, new, old in
+    one process; this checkout's rows first held bitwise against its plain
+    version on every sweep table and phase 3's."""
+    import ctypes
+
+    from deepreduce_tpu_torch import GradientExchanger
+    from deepreduce_tpu_torch.models import WordLSTM
+    from deepreduce_tpu_torch.ops import build
+
+    out = build.BUILD_DIR / "qsgd_encode_earlier.so"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", str(out), old_source],
+                          capture_output=True, text=True, timeout=300)
+    _check(proc.returncode == 0, f"nvcc failed for {old_source}:\n{proc.stdout}{proc.stderr}")
+    log = proc.stdout + proc.stderr
+    print("  earlier qsgd_encode: " + " | ".join(l.strip() for l in log.splitlines() if "ptxas info" in l and "Used" in l),
+          flush=True)
+    print("  this qsgd_encode: " + " | ".join(l.strip() for l in build.build_logs.get("qsgd_encode", "").splitlines()
+                                              if "Function properties" in l or "spill" in l or "Used" in l), flush=True)
+    old = ctypes.CDLL(str(out))
+    shapes = {n: tuple(p.shape) for n, p in WordLSTM(embed_dim=96, hidden_dim=670).flax_params().items()}
+    ex = GradientExchanger(shapes, _flagship_cfg(seed), device="cuda")
+    _check_encode(ex)
+    q = ex.cfg.quantum_num
+    tables = _sweep_tables(ex, seed=13)
+    _check_sweep_tables(tables, q)
+    print("compare: rows bitwise the plain version's on every sweep table", flush=True)
+    turns = []
+    for which in ("earlier", "this", "this", "earlier"):
+        this = which == "this"
+        sweep = _encode_sweep(tables, q, lib=None if this else old, floor=this)
+        print(f"compare {which}: " + json.dumps(sweep), flush=True)
+        turns.append((which, {r["table"]: r["device_us"] for r in sweep}))
+    summary = {name: {w: [t[name] for ww, t in turns if ww == w] for w in ("earlier", "this")}
+               for name, _, _, _, _ in tables}
+    print("compare summary (device us per launch, two turns each): " + json.dumps(summary), flush=True)
 
 
 def phase_timing(ex, errs: dict, by_arm: dict, quantize: dict) -> None:
@@ -1911,6 +2076,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seq", type=int, default=20)
     ap.add_argument("--profile", action="store_true",
                     help="profile one extra training step: device busy share and top kernels")
+    ap.add_argument("--compare-encode", metavar="SOURCE",
+                    help="only build, check and time qsgd_encode_rows against an earlier qsgd_encode.cu, in turns")
     args = ap.parse_args(argv)
 
     import torch
@@ -1927,6 +2094,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase_device()
     phase_build()
+    if args.compare_encode:
+        compare_encode(args.compare_encode, args.seed)
+        print(f"chip_smoke total {time.perf_counter() - t0:.1f} s", flush=True)
+        return 0
     # the main path's QSGD sizes, from the codec geometry (no card work)
     from deepreduce_tpu_torch import GradientExchanger
     from deepreduce_tpu_torch.models import WordLSTM

@@ -5,6 +5,8 @@ from typing import Dict
 from deepreduce_tpu_torch.ops.qsgd_encode import (
     EncodeSegment,
     bucket_norms_ordered,
+    bucket_sq_sums_ordered,
+    qsgd_encode_floor,
     qsgd_encode_rows,
     qsgd_encode_rows_plain,
     scale_from_norms,
@@ -32,8 +34,10 @@ __all__ = [
     "EncodeSegment",
     "KERNELS",
     "bucket_norms_ordered",
+    "bucket_sq_sums_ordered",
     "launch_counts",
     "philox_uniforms_plain",
+    "qsgd_encode_floor",
     "qsgd_encode_rows",
     "qsgd_encode_rows_plain",
     "quantize_levels",

@@ -31,7 +31,6 @@ from deepreduce_tpu_torch.device import DeviceLike, check_on, resolve_device
 from deepreduce_tpu_torch.ops.qsgd_kernel import philox_uniforms_plain, quantize_levels_plain
 
 MAX_SEGMENTS = 64  # the kernel's segment table (csrc/qsgd_encode.cu kMaxSegments)
-_LANES, _CHUNK = 32, 4  # the kernel's warp: lane l owns the elements e with (e // 4) % 32 == l
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,28 +55,34 @@ def rows_nbytes(k: int, bucket_size: int) -> int:
     return num_buckets(k, bucket_size) * (bucket_size + 4)
 
 
-def bucket_norms_ordered(padded: torch.Tensor, bucket_size: int) -> torch.Tensor:
-    """f32[B] L2 norms of the buckets of `padded` (length a multiple of
-    `bucket_size`), summed in float64 in the kernel's fixed order and
-    rounded once: each bucket zero-padded to a multiple of 128 and viewed
-    as [B, J, 32, 4] (element e = 128 j + 4 l + c belongs to lane l); every
-    lane adds its squares sequentially over (j, c); then the 32 lanes fold
-    in halves, 16, 8, 4, 2, 1. Zero padding adds exactly +0.0, so any bucket
-    size gives the kernel's sum bit for bit."""
+def bucket_sq_sums_ordered(padded: torch.Tensor, bucket_size: int) -> torch.Tensor:
+    """f64[B] sums of squares of the buckets of `padded` (length a multiple
+    of `bucket_size`) in the kernel's fixed log-depth order: each bucket
+    zero-padded to 128 * J elements (J a power of two) and read as [J, 32,
+    4], element 128 j + 4 l + i; the four squares of each (j, l) fold in
+    pairs, then the J of each l in adjacent pairs, then the 32 l in
+    adjacent pairs. Padding further adds exact zeros, so every J large
+    enough gives the same bits."""
     bs = bucket_size
     b = padded.shape[0] // bs
-    per_lane = -(-bs // (_LANES * _CHUNK)) * _CHUNK  # J * 4
-    sq = torch.zeros(b, per_lane * _LANES, dtype=torch.float64, device=padded.device)
+    width = max(128, 1 << (bs - 1).bit_length())
+    sq = torch.zeros(b, width, dtype=torch.float64, device=padded.device)
     sq[:, :bs] = padded.reshape(b, bs).double().square()
-    sq = sq.view(b, per_lane // _CHUNK, _LANES, _CHUNK).permute(0, 2, 1, 3).reshape(b, _LANES, per_lane)
-    acc = sq[:, :, 0]
-    for t in range(1, per_lane):
-        acc = acc + sq[:, :, t]
-    width = _LANES
-    while width > 1:
-        width //= 2
-        acc = acc[:, :width] + acc[:, width : 2 * width]
-    return acc[:, 0].sqrt().float()
+    x = sq.view(b, width // 128, 32, 4)
+    x = (x[..., 0] + x[..., 1]) + (x[..., 2] + x[..., 3])
+    while x.shape[1] > 1:
+        x = x[:, 0::2] + x[:, 1::2]
+    x = x[:, 0]
+    while x.shape[1] > 1:
+        x = x[:, 0::2] + x[:, 1::2]
+    return x[:, 0]
+
+
+def bucket_norms_ordered(padded: torch.Tensor, bucket_size: int) -> torch.Tensor:
+    """f32[B] L2 norms of the buckets of `padded`: `bucket_sq_sums_ordered`,
+    its square root in float64, rounded once to float32. The one norm of
+    the port: the kernel, the codec, qar and sparse_rs all take it."""
+    return bucket_sq_sums_ordered(padded, bucket_size).sqrt().float()
 
 
 def scale_from_norms(norms: torch.Tensor, quantum_num: int) -> torch.Tensor:
@@ -125,10 +130,10 @@ class _SegmentDesc(ctypes.Structure):
     ]
 
 
-def _kernel_lib() -> ctypes.CDLL:
-    from deepreduce_tpu_torch.ops.build import library
-
-    lib = library("qsgd_encode")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a loaded `csrc/qsgd_encode.cu` library
+    (`qsgd_encode_floor` where the library has it: an earlier build may
+    not) and return it."""
     fn = lib.qsgd_encode_rows
     if fn.argtypes is None:
         fn.argtypes = [ctypes.POINTER(_SegmentDesc), ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -139,7 +144,17 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.qsgd_encode_error_string.restype = ctypes.c_char_p
         if lib.qsgd_encode_max_segments() != MAX_SEGMENTS:
             raise RuntimeError("csrc/qsgd_encode.cu and ops/qsgd_encode.py disagree on the segment table size")
+        if hasattr(lib, "qsgd_encode_floor"):
+            lib.qsgd_encode_floor.argtypes = fn.argtypes
+            lib.qsgd_encode_floor.restype = ctypes.c_int
     return lib
+
+
+def kernel_lib() -> ctypes.CDLL:
+    """The built and bound `csrc/qsgd_encode.cu` of this checkout."""
+    from deepreduce_tpu_torch.ops.build import library
+
+    return bind(library("qsgd_encode"))
 
 
 def _check_args(
@@ -170,6 +185,36 @@ def _check_args(
                 raise ValueError(f"segment {i}: uniforms must have shape ({want},), got {tuple(seg.uniforms.shape)}")
 
 
+def launch(lib: ctypes.CDLL, segments: Sequence[EncodeSegment], out: torch.Tensor, quantum_num: int,
+           bucket_size: int, *, floor: bool = False) -> int:
+    """Launch the kernel of `lib` (a `bind`-declared build of
+    `csrc/qsgd_encode.cu`) once per `MAX_SEGMENTS` segments with at least
+    one bucket, on the current stream, without checks or counting; with
+    `floor`, its empty floor kernel instead. Returns the number of
+    launches; raises on a failed launch. `qsgd_encode_rows` is the entry
+    point; chip_smoke.py times the floor and an earlier build of the source
+    through this."""
+    live: List[EncodeSegment] = [s for s in segments if s.values.shape[0] > 0]
+    base = out.data_ptr()
+    launches = 0
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        for lo in range(0, len(live), MAX_SEGMENTS):
+            chunk = live[lo : lo + MAX_SEGMENTS]
+            table = (_SegmentDesc * len(chunk))(
+                *(_SegmentDesc(s.values.data_ptr(), base + s.out_offset, s.seed, s.offset, s.values.shape[0])
+                  for s in chunk)
+            )
+            fn = lib.qsgd_encode_floor if floor else lib.qsgd_encode_rows
+            code = fn(table, len(chunk), bucket_size, quantum_num, stream)
+            if code != 0:
+                raise RuntimeError(
+                    f"qsgd_encode launch failed: {lib.qsgd_encode_error_string(code).decode()} (cudaError {code})"
+                )
+            launches += 1
+    return launches
+
+
 def qsgd_encode_rows(
     segments: Sequence[EncodeSegment],
     out: torch.Tensor,
@@ -188,25 +233,19 @@ def qsgd_encode_rows(
     if dev.type == "cpu":
         qsgd_encode_rows_plain(segments, quantum_num, bucket_size, out)
         return
-    live: List[EncodeSegment] = [s for s in segments if s.values.shape[0] > 0]
-    if not live:
-        return
-    lib = _kernel_lib()
-    base = out.data_ptr()
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        for lo in range(0, len(live), MAX_SEGMENTS):
-            chunk = live[lo : lo + MAX_SEGMENTS]
-            table = (_SegmentDesc * len(chunk))(
-                *(_SegmentDesc(s.values.data_ptr(), base + s.out_offset, s.seed, s.offset, s.values.shape[0])
-                  for s in chunk)
-            )
-            code = lib.qsgd_encode_rows(table, len(chunk), bucket_size, quantum_num, stream)
-            if code != 0:
-                raise RuntimeError(
-                    f"qsgd_encode_rows launch failed: {lib.qsgd_encode_error_string(code).decode()} (cudaError {code})"
-                )
-            qsgd_encode_rows.launches += 1
+    if any(s.values.shape[0] > 0 for s in segments):
+        qsgd_encode_rows.launches += launch(kernel_lib(), segments, out, quantum_num, bucket_size)
 
 
 qsgd_encode_rows.launches = 0
+
+
+def qsgd_encode_floor(segments: Sequence[EncodeSegment], out: torch.Tensor, *, quantum_num: int,
+                      bucket_size: int) -> None:
+    """The launch floor of `qsgd_encode_rows` on the same table: an empty
+    kernel with its parameter block and grid, on the card only. A
+    measurement, not a path: it writes nothing and is not counted."""
+    _check_args(segments, out, quantum_num, bucket_size, resolve_device(out.device))
+    if out.device.type != "cuda":
+        raise ValueError("qsgd_encode_floor times the card's launch; out must lie on CUDA")
+    launch(kernel_lib(), segments, out, quantum_num, bucket_size, floor=True)

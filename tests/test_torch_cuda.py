@@ -58,7 +58,7 @@ def _values(k, seed):
     return v
 
 
-@pytest.mark.parametrize("bs", [512, 100, 1024])
+@pytest.mark.parametrize("bs", [512, 100, 1024, 1000, 2048])
 @pytest.mark.parametrize("k", [1, 5, 513, 114_688, 1_000_003])
 def test_qsgd_encode_rows_bitwise_equals_plain(cuda, k, bs):
     v = _values(k, k + bs)
@@ -96,6 +96,72 @@ def test_qsgd_encode_rows_table_and_alignment(cuda, values_shift, out_shift):
     torch.cuda.synchronize()
     assert qsgd_encode_rows.launches == before + 2
     assert torch.equal(out.cpu(), ref)
+
+
+def _card_vs_plain(cuda, ks, bs, values_shift=0, out_shift=0, seed=0):
+    """(rows from the kernel, rows from the plain version, launches) of one
+    table of segments of sizes `ks`, values starting `values_shift` floats
+    past an allocation (one shift, or one per segment), rows `out_shift`
+    bytes into the buffer."""
+    shifts = values_shift if isinstance(values_shift, (list, tuple)) else [values_shift] * len(ks)
+    segs_cpu, segs_dev, off = [], [], out_shift
+    for i, (k, vs) in enumerate(zip(ks, shifts)):
+        v = _values(k + vs, seed + i)
+        segs_cpu.append(EncodeSegment(v[vs:].contiguous(), off, (seed << 32) | i, (i << 32) | 3))
+        segs_dev.append(EncodeSegment(v.to(cuda)[vs:], off, (seed << 32) | i, (i << 32) | 3))
+        off += rows_nbytes(k, bs)
+    ref = torch.zeros(off, dtype=torch.uint8)
+    qsgd_encode_rows_plain(segs_cpu, 127, bs, ref)
+    out = torch.zeros(off, dtype=torch.uint8, device=cuda)
+    before = qsgd_encode_rows.launches
+    qsgd_encode_rows(segs_dev, out, quantum_num=127, bucket_size=bs, device=cuda)
+    torch.cuda.synchronize()
+    return out.cpu(), ref, qsgd_encode_rows.launches - before
+
+
+@pytest.mark.parametrize("values_shift,out_shift", [(0, 0), (1, 0), (0, 1), (3, 2), ((0, 1, 3), 0)])
+@pytest.mark.parametrize("bs", [100, 1000, 1024, 2048, 3, 514, 8192])
+def test_qsgd_encode_rows_bucket_sizes_and_shifts(cuda, bs, values_shift, out_shift):
+    """Bucket sizes below, between and above 512 (padded to 128 * J, a
+    bucket over one or several warps) and ones that are not a multiple of 4
+    or lie above 4,096 (the generic kernel), with values off a 16-byte
+    boundary (scalar loads; in one launch, some segments on it and some
+    off) and rows off a 4-byte one: bitwise the plain version."""
+    got, ref, launches = _card_vs_plain(cuda, [1, 3 * bs - 5, 10_007], bs, values_shift, out_shift, seed=bs)
+    assert launches == 1
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("count,launches", [(57, 1), (65, 2)])
+def test_qsgd_encode_rows_segment_tables(cuda, count, launches):
+    """A 57-segment table (the FedAvg MobileNet S2C tree's count) and a
+    65-segment one (two launches, both counted), with a size mix from one
+    value to many buckets."""
+    ks = [1 + (7919 * i) % 9000 for i in range(count)]
+    got, ref, n = _card_vs_plain(cuda, ks, 512, seed=count)
+    assert n == launches
+    assert torch.equal(got, ref)
+
+
+def test_qsgd_encode_rows_one_large_segment(cuda):
+    """One 4,050,944-element segment (7,912 buckets): bitwise the plain version."""
+    got, ref, launches = _card_vs_plain(cuda, [4_050_944], 512, seed=4)
+    assert launches == 1
+    assert torch.equal(got, ref)
+
+
+def test_qsgd_encode_floor_writes_nothing_and_is_not_counted(cuda):
+    """The launch floor's empty kernel takes the same table and leaves the
+    buffer and the launch count alone."""
+    from deepreduce_tpu_torch.ops import qsgd_encode_floor
+
+    segs = [EncodeSegment(_values(1000, i).to(cuda), 1032 * i, i, 0) for i in range(3)]
+    out = torch.full((3 * 1032,), 7, dtype=torch.uint8, device=cuda)
+    before = qsgd_encode_rows.launches
+    qsgd_encode_floor(segs, out, quantum_num=127, bucket_size=512)
+    torch.cuda.synchronize()
+    assert qsgd_encode_rows.launches == before
+    assert bool((out == 7).all())
 
 
 def test_qsgd_encode_rows_refuses_uniforms_and_cpu_tensors(cuda):

@@ -15,6 +15,7 @@ from deepreduce_tpu_torch.codecs import qsgd as tqsgd
 from deepreduce_tpu_torch.ops import (
     EncodeSegment,
     bucket_norms_ordered,
+    bucket_sq_sums_ordered,
     philox_uniforms_plain,
     qsgd_encode_rows,
     qsgd_encode_rows_plain,
@@ -215,7 +216,9 @@ def test_encode_rows_grouped_table_equals_each_leaf(bs):
     assert torch.equal(plain, out)
 
 
-@pytest.mark.parametrize("bs,seed", [(512, 0), (512, 1), (100, 2), (1000, 3), (128, 4)])
+@pytest.mark.parametrize(
+    "bs,seed", [(512, 0), (512, 1), (100, 2), (1000, 3), (128, 4), (1024, 5), (2048, 6), (100, 7), (1000, 8)]
+)
 def test_bucket_norms_ordered_match_jax(bs, seed):
     rng = np.random.default_rng(seed)
     b = 9
@@ -229,6 +232,63 @@ def test_bucket_norms_ordered_match_jax(bs, seed):
     # the float64 sum rounded once is the correctly rounded norm here
     exact = np.sqrt((x.astype(np.float64).reshape(b, bs) ** 2).sum(axis=1)).astype(np.float32)
     np.testing.assert_array_equal(got.numpy(), exact)
+
+
+def _pair_tree(values):
+    """Adjacent pairs folded, x[2i] + x[2i+1], until one value is left."""
+    while len(values) > 1:
+        values = [values[2 * i] + values[2 * i + 1] for i in range(len(values) // 2)]
+    return values[0]
+
+
+def _kernel_tree(squares):
+    """The sum of `squares` (Python floats) in the kernel's order, one IEEE
+    double add at a time: zero-padded to 128 * J (J a power of two), element
+    128 j + 4 l + i; each (j, l)'s four in pairs, then the J of each l, then
+    the 32 l, in adjacent pairs."""
+    n = max(128, 1 << (len(squares) - 1).bit_length())
+    x = list(squares) + [0.0] * (n - len(squares))
+    lanes = []
+    for lane in range(32):
+        chunks = []
+        for j in range(n // 128):
+            e = 128 * j + 4 * lane
+            chunks.append((x[e] + x[e + 1]) + (x[e + 2] + x[e + 3]))
+        lanes.append(_pair_tree(chunks))
+    return _pair_tree(lanes)
+
+
+def _lane_order_sum(squares):
+    """The same sum in the kernel's earlier order: lane l of a warp adds the
+    elements e with (e // 4) % 32 == l in increasing e, then the 32 lanes
+    fold at 16, 8, 4, 2, 1."""
+    acc = [0.0] * 32
+    for e, x in enumerate(squares):
+        acc[(e // 4) % 32] += x
+    width = 32
+    while width > 1:
+        width //= 2
+        acc = [acc[i] + acc[i + width] for i in range(width)]
+    return acc[0]
+
+
+@pytest.mark.parametrize("bs", [512, 100, 1000, 2048, 3])
+def test_bucket_sum_follows_the_kernel_tree(bs):
+    """On buckets whose float64 sum depends on the order (magnitudes 1e-30
+    to 1e30 in one bucket), the sum before rounding is the kernel's
+    log-depth tree's bit for bit, and the earlier lane order gives another
+    sum."""
+    rng = np.random.default_rng(bs)
+    b = 8
+    x = (rng.choice([-1.0, 1.0], size=b * bs) * 10.0 ** rng.uniform(-30, 30, size=b * bs)).astype(np.float32)
+    got = bucket_sq_sums_ordered(_t(x), bs)
+    assert got.dtype == torch.float64 and got.shape == (b,)
+    squares = [[float(v) * float(v) for v in row] for row in x.reshape(b, bs)]
+    want = [_kernel_tree(row) for row in squares]
+    assert got.tolist() == want
+    if bs > 4:
+        assert any(w != _lane_order_sum(row) for w, row in zip(want, squares))
+    np.testing.assert_array_equal(bucket_norms_ordered(_t(x), bs).numpy(), np.sqrt(np.array(want)).astype(np.float32))
 
 
 def test_scale_from_norms_is_jax_divide():
