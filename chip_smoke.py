@@ -135,8 +135,28 @@ Phases, one line each; any failure raises and exits non-zero:
      leaf's rows from the main path's encode bitwise the plain version's,
      every leaf's decode on the card bitwise the CPU's encode and decode of
      the same gradient, encode and decode times of the two user tables.
+ 14. the paper's remaining models at full width through the same NCCL
+     group, 3 steps an arm (SGD lr 0.1 momentum 0.9, batches drawn from
+     --seed as benchmarks/train.py's make_batch draws them) with the counts
+     zeroed just before and read just after: ResNet-50 in bfloat16 (batch
+     128 x 224x224x3, 1000 classes; bench.py's dense allreduce and top-k 1%
+     bloom-index arms, its DRQSGD-BF-P0 codec arm at ratio 0.01, and the
+     quick start's knobs), DenseNet-40 (64 x 32x32x3) with the quick start's
+     knobs and QSGD, VGG16 (64 x 32x32x3) with PolySeg on its 13 convs, and
+     BERT-base (64 x 128 tokens, the next-token loss) with top-k 0.001 and
+     DRQSGD-BF-P0. Before the first step the card's forward on 8 examples
+     (a copy of the model) against the CPU's (1e-4 of the largest logit in
+     float32, 1e-2 in bfloat16); finite losses and parameters, the payload
+     bytes, no host sync, one qsgd_encode_rows launch per step in the three
+     QSGD arms (76, 39 and 88 segments, each table bitwise the plain
+     version's, its device time beside its bytes bound) and none elsewhere,
+     running statistics finite and moved, step median, images or tokens per
+     second and peak memory; and resnet50_topk1_bloom checkpointed after its
+     second step, restored into a fresh Trainer (every parameter,
+     statistic, momentum buffer and residual and the step bitwise the saved
+     ones), and stepped once more.
 `--profile` adds one profiled training step after phase 5, after each arm
-of phases 7, 8, 9, 10 and 11, and one profiled round after each arm of
+of phases 7, 8, 9, 10, 11 and 14, and one profiled round after each arm of
 phase 12: the device's busy and idle share over the step or round, its
 device launches and its largest kernels.
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without
@@ -152,6 +172,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -1806,6 +1827,263 @@ def phase_table6(seed: int) -> dict:
     return {"ncf_table6": res}
 
 
+# phase 14: the paper's remaining models at full width on one card. Each
+# model's batch as benchmarks/train.py's `make_batch` draws it (numpy normal
+# images and integer labels, or integer tokens, from --seed); SGD lr 0.1
+# momentum 0.9 (benchmarks/train.py:402-404), exact top-k (the port rejects
+# the tpu_defaults' approx_topk). model -> (constructor keyword arguments,
+# batch, input: ("image", hw, classes) or ("lm", seq + 1, vocab), loss,
+# forward tolerance over max |logit|, parameters, BatchNorm statistics)
+MODELS14 = {
+    # bench.py:272 (bf16, batch 128 on 224x224, 1000 classes). The card's
+    # bf16 forward on 8 examples is held within 1e-2 of the largest logit
+    # of the CPU's (an H100 read 1.7e-3, PERF.md): a bf16 output keeps 8
+    # bits (a rounding moves it by up to 0.4%), cuDNN and the CPU sum in
+    # other orders, and a last-bit difference compounds over 53
+    # convolutions and norms
+    "resnet50": (dict(dtype="bfloat16"), 128, ("image", 224, 1000), "classification", 1e-2, 25_557_032, 106),
+    # benchmarks/train.py:53-56 and :67-70, batch 64 (:402)
+    "densenet40": ({}, 64, ("image", 32, 10), "classification", 1e-4, 1_019_722, 78),
+    "vgg16": ({}, 64, ("image", 32, 10), "classification", 1e-4, 14_986_698, 26),
+    # benchmarks/train.py:112-116: sequence 128, the lm loss; batch 64
+    "bert": ({}, 64, ("lm", 128, 30_522), "next_token", 1e-4, 132_363_066, 0),
+}
+# DRQSGD-BF-P0 (phase 5's flagship knobs) at another ratio
+DRQSGD_BF_P0 = dict(
+    compressor="topk", approx_topk=False, memory="residual", communicator="allgather", deepreduce="both",
+    index="bloom", value="qsgd", fpr=0.02, policy="p0", bloom_blocked="mod", quantum_num=127, bucket_size=512,
+)
+# arm -> (model, knobs, qsgd_encode_rows launches per step, payload bytes: the
+# JAX package's GradientExchanger.payload_bytes, pinned by
+# tests/test_torch_models_zoo.py and tests/test_torch_bert.py, QSGD segments)
+PHASE14 = {
+    # bench.py:283-285
+    "resnet50_dense": ("resnet50", dict(compressor="none", deepreduce=None, communicator="allreduce", memory="none"),
+                       0, 102_228_128, 0),
+    # bench.py:286-289: the north star, top-k 1% with the bloom index
+    "resnet50_topk1_bloom": ("resnet50", dict(compressor="topk", compress_ratio=0.01, memory="residual",
+                                              deepreduce="index", index="bloom", bloom_blocked="mod", fpr=0.001),
+                             0, 2_335_272, 0),
+    # bench.py:2599-2602 on the model's own leaves
+    "resnet50_drqsgd_bloom": ("resnet50", dict(DRQSGD_BF_P0, compress_ratio=0.01, memory="none", fpr=0.001),
+                              1, 1_622_736, 76),
+    # BASELINE.json config 3 (top-k 1%, 'both'), phase 8's quick-start knobs
+    "resnet50_quickstart": ("resnet50", QUICKSTART, 0, 943_248, 0),
+    # phase 8's resnet20_drqsgd knobs
+    "densenet40_drqsgd": ("densenet40", dict(QUICKSTART, value="qsgd"), 1, 40_860, 39),
+    # phase 11's resnet20_polyseg knobs: PolySeg on the 13 convs
+    "vgg16_polyseg": ("vgg16", dict(QUICKSTART, deepreduce="value", value="polyseg"), 0, 1_694_552, 0),
+    # BASELINE.json config 5: top-k 0.1%, DRQSGD-BF-P0, residual memory
+    "bert_drqsgd_bloom": ("bert", dict(DRQSGD_BF_P0, compress_ratio=0.001), 1, 3_193_592, 88),
+}
+CHECKPOINT_ARM = "resnet50_topk1_bloom"  # checkpointed after its second step
+MODEL14_STEPS = 3
+
+
+def _model14(name: str, seed: int):
+    import torch
+
+    from deepreduce_tpu_torch import models
+
+    kwargs = {k: getattr(torch, v) if k == "dtype" else v for k, v in MODELS14[name][0].items()}
+    ctor = {"resnet50": models.ResNet50, "densenet40": models.DenseNet40, "vgg16": models.VGG16,
+            "bert": models.BertEncoder}[name]
+    return ctor(seed=seed, **kwargs)
+
+
+def _model14_batches(name: str, seed: int):
+    """MODEL14_STEPS batches of `name` as benchmarks/train.py's `make_batch`
+    draws them from `seed`, on the CPU."""
+    import numpy as np
+    import torch
+
+    _, batch, (kind, size, classes), *_ = MODELS14[name]
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(MODEL14_STEPS):
+        if kind == "image":
+            x = torch.from_numpy(rng.normal(size=(batch, size, size, 3)).astype(np.float32))
+            out.append((x, torch.from_numpy(rng.integers(0, classes, size=batch))))
+        else:
+            out.append((torch.from_numpy(rng.integers(0, classes, size=(batch, size))),))
+    return out
+
+
+def _loss14(name: str, model):
+    from deepreduce_tpu_torch.train import classification_loss, next_token_loss
+
+    return next_token_loss(model) if MODELS14[name][3] == "next_token" else classification_loss(model)
+
+
+def _forward_card_vs_cpu(name: str, model, batch) -> dict:
+    """The forward of copies of `model` (so no running statistic moves) on
+    the batch's first 8 examples, on the card and on the CPU: the largest
+    logit difference over the largest logit, held to the model's tolerance."""
+    import copy
+
+    import torch
+
+    x = batch[0][:8]
+    if MODELS14[name][2][0] == "lm":
+        x = x[:, :-1]
+    with torch.no_grad():
+        ref = copy.deepcopy(model)(x)
+        got = copy.deepcopy(model).cuda()(x.cuda()).cpu()
+    _check(got.shape == ref.shape and bool(torch.isfinite(got).all()), f"{name}: forward on the card {tuple(got.shape)}")
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max()) / scale
+    tol = MODELS14[name][4]
+    _check(err <= tol, f"{name}: the card's forward differs from the CPU's by {err} of max |logit| (> {tol})")
+    return {"max_abs_err_over_max": err, "tolerance": tol, "logit_max": scale}
+
+
+def _table_bound(segs, bs: int) -> dict:
+    """The bytes of one QSGD segment table (each live value read once, each
+    row byte written once) and their time at the HBM rate."""
+    live, padded, buckets, nbytes = _table_bytes(segs, bs)
+    return {"segments": len(segs), "live_values": live, "buckets": buckets, "bytes": nbytes,
+            "bound_us": nbytes / HBM_BYTES_PER_S * 1e6}
+
+
+def _state_snapshot(state) -> dict:
+    """Clones of every tensor of a TrainState, by kind and name."""
+    snap = {f"param/{n}": p.detach().clone() for n, p in state.params.items()}
+    snap.update({f"stat/{n}": s.clone() for n, s in state.batch_stats.items()})
+    snap.update({f"residual/{n}": r.clone() for n, r in (state.residuals or {}).items()})
+    for i, p in enumerate(state.params.values()):
+        buf = state.optimizer.state.get(p, {}).get("momentum_buffer")
+        if buf is not None:
+            snap[f"momentum/{i}"] = buf.clone()
+    return snap
+
+
+def _save_checkpoint(trainer, state, directory: str) -> dict:
+    """`checkpoint.save` of `state` into `directory`, with clones of every
+    saved tensor to hold the restore against."""
+    from deepreduce_tpu_torch import checkpoint
+
+    path = os.path.join(directory, "state.pt")
+    t0 = time.perf_counter()
+    checkpoint.save(path, state, config=trainer.cfg)
+    return {"path": path, "saved": _state_snapshot(state), "step": state.step,
+            "save_s": time.perf_counter() - t0, "file_bytes": os.path.getsize(path)}
+
+
+def _restore_checkpoint(ckpt: dict, cfg, name: str, seed: int, group, batch) -> dict:
+    """Restore `ckpt` into a fresh Trainer (other initial weights) on the
+    card: every tensor and the step bitwise the saved ones; then one step
+    with a finite loss."""
+    import torch
+
+    from deepreduce_tpu_torch import Trainer, checkpoint
+
+    model = _model14(name, seed + 1)
+    fresh = Trainer(model, cfg, lr=0.1, momentum=0.9, device="cuda", group=group, loss_fn=_loss14(name, model))
+    t0 = time.perf_counter()
+    restored = checkpoint.restore(ckpt["path"], fresh, config=cfg)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    saved, got = ckpt["saved"], _state_snapshot(restored)
+    _check(got.keys() == saved.keys(), f"checkpoint: restored {len(got)} tensors, saved {len(saved)}")
+    differ = [k for k in saved if not (got[k].is_cuda and torch.equal(got[k], saved[k]))]
+    _check(not differ, f"checkpoint: {len(differ)} restored tensors differ from the saved ones: {differ[:5]}")
+    _check(restored.step == ckpt["step"], f"checkpoint: step {restored.step}, saved {ckpt['step']}")
+    restored, loss, _, syncs = _step_counting_syncs(fresh, restored, batch)
+    _check(math.isfinite(float(loss)), f"checkpoint: the step after the restore has loss {float(loss)}")
+    return {"tensors_bitwise": len(saved), "kinds": sorted({k.split("/")[0] for k in saved}), "step": ckpt["step"],
+            "file_bytes": ckpt["file_bytes"], "save_s": ckpt["save_s"], "restore_s": restore_s,
+            "loss_after_restore": float(loss), "syncs_after_restore": len(syncs)}
+
+
+def phase_models(seed: int, group, profile: bool = False) -> dict:
+    """Phase 14: ResNet-50 (bf16), DenseNet-40, VGG16 and BERT-base at full
+    width through `Trainer.step`, MODEL14_STEPS steps per arm."""
+    import torch
+
+    from deepreduce_tpu_torch import DeepReduceConfig, Trainer
+    from deepreduce_tpu_torch.ops import launch_counts, qsgd_encode_rows, reset_launch_counts
+    from deepreduce_tpu_torch.sparse import host_branch
+
+    results, cpu_batches = {}, {}
+    # the checkpoint file lives only as long as the phase
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        for arm, (name, knobs, per_step, payload, n_segs) in PHASE14.items():
+            _, batch_size, inputs, _, _, n_params, n_stats = MODELS14[name]
+            model = _model14(name, seed)
+            _check(sum(p.numel() for p in model.parameters()) == n_params, f"{name}: parameter count")
+            if name not in cpu_batches:  # the same weights and batches in every arm of the model
+                cpu_batches = {name: _model14_batches(name, seed)}
+                forward = _forward_card_vs_cpu(name, model, cpu_batches[name][0])
+                print(f"phase 14 ok: {name} forward card vs CPU " + json.dumps(forward), flush=True)
+            batches = [tuple(t.cuda() for t in b) for b in cpu_batches[name]]
+            cfg = DeepReduceConfig(**knobs, seed=seed)
+            trainer = Trainer(model, cfg, lr=0.1, momentum=0.9, device="cuda", group=group, loss_fn=_loss14(name, model))
+            state = trainer.init_state()
+            init_stats = {n: s.clone() for n, s in state.batch_stats.items()}
+            ex = trainer.exchanger
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            host_branch.syncs = 0
+            if arm == CHECKPOINT_ARM:
+                state, losses, dev_ms, host_ms, _, syncs = _run_steps(trainer, state, lambda i: batches[i], 2)
+                ckpt = _save_checkpoint(trainer, state, ckpt_dir)
+                state, more, dev3, host3, wire, syncs3 = _run_steps(trainer, state, lambda i: batches[2 + i], 1)
+                losses, dev_ms, host_ms, syncs = losses + more, dev_ms + dev3, host_ms + host3, syncs + syncs3
+            else:
+                state, losses, dev_ms, host_ms, wire, syncs = _run_steps(trainer, state, lambda i: batches[i], MODEL14_STEPS)
+            launches = launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            expected = {"qsgd_quantize": 0, "qsgd_encode_rows": per_step * MODEL14_STEPS}
+            _check(launches == expected, f"{arm}: kernel launches {launches}, expected {expected}")
+            _check(all(math.isfinite(l) for l in losses), f"{arm}: non-finite loss {losses}")
+            _check(all(bool(torch.isfinite(p).all()) for p in state.params.values()), f"{arm}: non-finite parameters")
+            _check(not any(syncs) and host_branch.syncs == 0, f"{arm}: host syncs in the steps: {syncs}")
+            stats_ok = all(bool(torch.isfinite(s).all()) for s in state.batch_stats.values())
+            moved = sum(not torch.equal(s, init_stats[n]) for n, s in state.batch_stats.items())
+            _check(stats_ok and moved == len(init_stats) == n_stats,
+                   f"{arm}: running statistics finite {stats_ok}, moved {moved} of {len(init_stats)} (expected {n_stats})")
+            _check(ex.payload_bytes() == payload, f"{arm}: payload_bytes {ex.payload_bytes()}, expected {payload}")
+            rel_volume = float(wire.rel_volume())
+            _check(rel_volume == 1.0 if ex.dense else 0.0 < rel_volume < 1.0, f"{arm}: rel_volume {rel_volume}")
+            median = statistics.median(dev_ms)
+            per_example = batch_size * (inputs[1] - 1 if inputs[0] == "lm" else 1)
+            res = {
+                "losses": losses, "step_ms_median": median, "step_ms_all": dev_ms, "host_step_ms_all": host_ms,
+                ("tokens_per_sec" if inputs[0] == "lm" else "images_per_sec"): per_example / (median / 1e3),
+                "rel_volume": rel_volume, "payload_bytes": ex.payload_bytes(), "launches": launches,
+                "qsgd_encode_rows_per_step": per_step, "host_syncs_per_step": [len(x) for x in syncs],
+                "compressed_leaves": sum(c.compressed for c in ex.codecs.values()), "stats_moved": moved,
+                "peak_mem_bytes": peak, "params": n_params,
+            }
+            if arm == CHECKPOINT_ARM:
+                res["checkpoint"] = _restore_checkpoint(ckpt, cfg, name, seed, group, batches[2])
+            if per_step:
+                # the kernel against its plain version on this arm's own table,
+                # and its device time there beside the table's bytes bound
+                segs = _main_path_table(ex, seed=37)
+                _check(len(segs) == n_segs, f"{arm}: {len(segs)} QSGD segments, expected {n_segs}")
+                got, ref_rows = _encode_on_card_and_cpu(segs, ex.fused_nbytes, cfg.quantum_num, cfg.bucket_size)
+                res["qsgd_table_max_abs_err"] = _check_rows(got, ref_rows, segs, cfg.bucket_size, cfg.quantum_num,
+                                                            f"the {arm} table")
+                out = torch.zeros(ex.fused_nbytes, dtype=torch.uint8, device="cuda")
+                counted = qsgd_encode_rows.launches
+                device_ms, _ = _device_ms(lambda: qsgd_encode_rows(segs, out, quantum_num=cfg.quantum_num,
+                                                                   bucket_size=cfg.bucket_size, device="cuda"),
+                                          200, "qsgd_encode_rows_kernel")
+                _check(qsgd_encode_rows.launches - counted == 201, f"{arm}: {len(segs)} segments took more than one launch")
+                res["qsgd_table"] = dict(_table_bound(segs, cfg.bucket_size), device_us=device_ms * 1e3)
+            if profile:
+                prof = _profile_step(lambda: trainer.step(state, batches[0]))
+                res["profile"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share", "kernel_launches",
+                                                       "top_device_ms")}
+            print(f"phase 14 ok: {arm} " + json.dumps(res), flush=True)
+            results[arm] = res
+            del trainer, state, model, batches, ex
+            torch.cuda.empty_cache()
+    return results
+
+
 def _per_leaf_composition(segs, q: int, bs: int):
     """The QSGD encode of a worker-step as the port's first slice composed
     it, leaf by leaf: zero padding, the bucket norm (a float64 `sum`) and
@@ -2057,7 +2335,7 @@ def compare_encode(old_source: str, seed: int) -> None:
 
 
 def phase_timing(ex, errs: dict, by_arm: dict, quantize: dict) -> None:
-    # each path's run, counted from 0 just before it (phases 5 and 7-13)
+    # each path's run, counted from 0 just before it (phases 5 and 7-14)
     total = lambda name: sum(counts[name] for counts in by_arm.values())
     kernels = [
         _quantize_entry(quantize, total("qsgd_quantize"), errs["qsgd_quantize"]),
@@ -2121,12 +2399,13 @@ def main(argv=None) -> int:
                                                 args.profile)
         bucketed = phase_bucketed(args.seed, tokens, dist.group.WORLD, res["cpu_ref_loss0"], args.profile)
         zoo = phase_zoo(args.seed, tokens, dist.group.WORLD, res["cpu_ref_loss0"], args.profile)
+        models14 = phase_models(args.seed, dist.group.WORLD, args.profile)
     finally:
         dist.destroy_process_group()
     fed = phase_fedavg(args.seed, args.profile)
     table6 = phase_table6(args.seed)
     by_arm = {"drqsgd_bloom": res["launches"]}
-    for phase in (arms, resnet, in_coll, bucketed, zoo, fed, table6):
+    for phase in (arms, resnet, in_coll, bucketed, zoo, models14, fed, table6):
         by_arm.update({a: r["launches"] for a, r in phase.items()})
     phase_timing(ex, errs, by_arm, quantize)
     print(f"chip_smoke total {time.perf_counter() - t0:.1f} s", flush=True)

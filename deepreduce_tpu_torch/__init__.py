@@ -36,7 +36,11 @@ deployment: compressed FedAvg (`fedavg.FedAvg`, the round body of
 `fedsim.round`, the per-leaf codec bank `fedsim.TreeCodec`, whose every
 direction's QSGD rows are one grouped launch) on MobileNetV1
 (`models.MobileNetV1`) and the WordLSTM, and NeuMF (`models.NeuMF`) for the
-Table-6 natural-sparsity encode. Collectives
+Table-6 natural-sparsity encode; and the paper's remaining models at their
+published widths, ResNet-50 (in bfloat16 as `bench.py` trains it),
+DenseNet-40, VGG16 and BERT-base with dense attention and its next-token
+loss (`train.next_token_loss`), with a checkpoint that carries the
+residuals (`checkpoint.py`). Collectives
 run through `collectives.Collectives`: a `torch.distributed` group, or an
 `InProcessGroup` of W lockstep workers in one process.
 """

@@ -12,23 +12,13 @@ natural sparsity the Table-6 codecs (threshold 0.0) read.
 
 from __future__ import annotations
 
-import math
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from deepreduce_tpu_torch.models.common import Dense, FlaxNamed, _normal
-
-
-class Embed(nn.Module):
-    def __init__(self, num: int, dim: int, gen: torch.Generator):
-        super().__init__()
-        self.embedding = _normal((num, dim), 1.0 / math.sqrt(dim), gen)
-
-    def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids, self.embedding)
+from deepreduce_tpu_torch.models.common import Dense, Embed, FlaxNamed
 
 
 class NeuMF(FlaxNamed, nn.Module):

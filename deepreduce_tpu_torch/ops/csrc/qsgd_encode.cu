@@ -78,7 +78,11 @@
 
 namespace {
 
-constexpr int kMaxSegments = 64;  // the wrapper's table (ops/qsgd_encode.py MAX_SEGMENTS)
+// The wrapper's table (ops/qsgd_encode.py MAX_SEGMENTS): room for every
+// compressed leaf of the paper's models in one launch (BERT-base's 88,
+// ResNet-50's 76). The block, 5,632 B, is past the 4 KB that CUDA before
+// 12.1 allowed a kernel's parameters.
+constexpr int kMaxSegments = 128;
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxRegChunks = 4;  // float4 chunks a lane holds in registers
 constexpr unsigned kFullMask = 0xffffffffu;

@@ -30,7 +30,7 @@ import torch
 from deepreduce_tpu_torch.device import DeviceLike, check_on, resolve_device
 from deepreduce_tpu_torch.ops.qsgd_kernel import philox_uniforms_plain, quantize_levels_plain
 
-MAX_SEGMENTS = 64  # the kernel's segment table (csrc/qsgd_encode.cu kMaxSegments)
+MAX_SEGMENTS = 128  # the kernel's segment table (csrc/qsgd_encode.cu kMaxSegments)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,7 +133,8 @@ class _SegmentDesc(ctypes.Structure):
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a loaded `csrc/qsgd_encode.cu` library
     (`qsgd_encode_floor` where the library has it: an earlier build may
-    not) and return it."""
+    not), note its segment table size in `lib.max_segments` (an earlier
+    build's may be smaller) and return it."""
     fn = lib.qsgd_encode_rows
     if fn.argtypes is None:
         fn.argtypes = [ctypes.POINTER(_SegmentDesc), ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -142,8 +143,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.qsgd_encode_max_segments.restype = ctypes.c_int
         lib.qsgd_encode_error_string.argtypes = [ctypes.c_int]
         lib.qsgd_encode_error_string.restype = ctypes.c_char_p
-        if lib.qsgd_encode_max_segments() != MAX_SEGMENTS:
-            raise RuntimeError("csrc/qsgd_encode.cu and ops/qsgd_encode.py disagree on the segment table size")
+        lib.max_segments = lib.qsgd_encode_max_segments()
         if hasattr(lib, "qsgd_encode_floor"):
             lib.qsgd_encode_floor.argtypes = fn.argtypes
             lib.qsgd_encode_floor.restype = ctypes.c_int
@@ -154,7 +154,10 @@ def kernel_lib() -> ctypes.CDLL:
     """The built and bound `csrc/qsgd_encode.cu` of this checkout."""
     from deepreduce_tpu_torch.ops.build import library
 
-    return bind(library("qsgd_encode"))
+    lib = bind(library("qsgd_encode"))
+    if lib.max_segments != MAX_SEGMENTS:
+        raise RuntimeError("csrc/qsgd_encode.cu and ops/qsgd_encode.py disagree on the segment table size")
+    return lib
 
 
 def _check_args(
@@ -188,8 +191,8 @@ def _check_args(
 def launch(lib: ctypes.CDLL, segments: Sequence[EncodeSegment], out: torch.Tensor, quantum_num: int,
            bucket_size: int, *, floor: bool = False) -> int:
     """Launch the kernel of `lib` (a `bind`-declared build of
-    `csrc/qsgd_encode.cu`) once per `MAX_SEGMENTS` segments with at least
-    one bucket, on the current stream, without checks or counting; with
+    `csrc/qsgd_encode.cu`) once per `lib.max_segments` segments with at
+    least one bucket, on the current stream, without checks or counting; with
     `floor`, its empty floor kernel instead. Returns the number of
     launches; raises on a failed launch. `qsgd_encode_rows` is the entry
     point; chip_smoke.py times the floor and an earlier build of the source
@@ -199,8 +202,8 @@ def launch(lib: ctypes.CDLL, segments: Sequence[EncodeSegment], out: torch.Tenso
     launches = 0
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
-        for lo in range(0, len(live), MAX_SEGMENTS):
-            chunk = live[lo : lo + MAX_SEGMENTS]
+        for lo in range(0, len(live), lib.max_segments):
+            chunk = live[lo : lo + lib.max_segments]
             table = (_SegmentDesc * len(chunk))(
                 *(_SegmentDesc(s.values.data_ptr(), base + s.out_offset, s.seed, s.offset, s.values.shape[0])
                   for s in chunk)

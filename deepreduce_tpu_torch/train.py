@@ -58,6 +58,20 @@ def classification_loss(model: nn.Module) -> Callable:
     return loss_fn
 
 
+def next_token_loss(model: nn.Module) -> Callable:
+    """batch = (int tokens [batch, seq + 1],) -> the mean softmax
+    cross-entropy of the model's logits on `tokens[:, :-1]` against
+    `tokens[:, 1:]`: the `lm` loss BERT trains under in
+    `benchmarks/train.py` (`make_loss`)."""
+
+    def loss_fn(batch) -> torch.Tensor:
+        (tokens,) = batch
+        logits = model(tokens[:, :-1])
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), tokens[:, 1:].reshape(-1).long())
+
+    return loss_fn
+
+
 class Trainer:
     """Synchronous data-parallel trainer over a process group."""
 

@@ -5,10 +5,13 @@ The JAX package's parameters and `batch_stats`, flattened with its
 "BasicBlockV2_0/BatchNorm_0/mean", ...), map one to one onto the port's
 flax-named parameters and buffers, in the same layout: convolution kernels
 stay HWIO (MobileNetV1's depthwise kernels `[3, 3, 1, C]` too) and the
-port's models permute them inside `forward`, so nothing is transposed on
-the way. `params_from_flax` takes the nested flax dict itself (MobileNetV1,
-NeuMF). Tests use this so that both packages compute the same function;
-a model's `load_flax_params` checks the name set and every shape.
+port's models permute them inside `forward`; BERT's `DenseGeneral` kernels
+stay 3-D (`[hidden, heads, head_dim]`, `[heads, head_dim, hidden]`) and are
+contracted as they are, so nothing is transposed on the way.
+`params_from_flax` takes the nested flax dict itself (MobileNetV1, NeuMF,
+ResNet-50, DenseNet-40, VGG16, BERT). Tests use this so that both packages
+compute the same function; a model's `load_flax_params` checks the name
+set and every shape.
 """
 
 from __future__ import annotations

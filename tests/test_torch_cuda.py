@@ -132,11 +132,12 @@ def test_qsgd_encode_rows_bucket_sizes_and_shifts(cuda, bs, values_shift, out_sh
     assert torch.equal(got, ref)
 
 
-@pytest.mark.parametrize("count,launches", [(57, 1), (65, 2)])
+@pytest.mark.parametrize("count,launches", [(57, 1), (76, 1), (88, 1), (MAX_SEGMENTS + 1, 2)])
 def test_qsgd_encode_rows_segment_tables(cuda, count, launches):
-    """A 57-segment table (the FedAvg MobileNet S2C tree's count) and a
-    65-segment one (two launches, both counted), with a size mix from one
-    value to many buckets."""
+    """Tables of 57 segments (the FedAvg MobileNet S2C tree's count), 76
+    (ResNet-50's QSGD arm), 88 (BERT-base's) and one past the table (two
+    launches, both counted), with a size mix from one value to many
+    buckets."""
     ks = [1 + (7919 * i) % 9000 for i in range(count)]
     got, ref, n = _card_vs_plain(cuda, ks, 512, seed=count)
     assert n == launches
@@ -465,3 +466,69 @@ def test_tree_encode_is_one_launch_and_card_equals_cpu(cuda, direction, with_res
         assert torch.equal(card[0][n].cpu(), host[0][n]), n
         if with_residual:
             assert torch.equal(card[1][n].cpu(), host[1][n]), n
+
+
+def _small_model(name, dtype=None):
+    from deepreduce_tpu_torch.models import VGG16, BertEncoder, DenseNet40, ResNet50
+
+    ctor = {
+        "resnet50": lambda: ResNet50(num_classes=10, stage_sizes=(1, 1, 1, 1), dtype=dtype),
+        "densenet40": lambda: DenseNet40(growth=4, layers_per_block=2),
+        "vgg16": lambda: VGG16(stages=((8, 1), (16, 2), (16, 1))),
+        "bert": lambda: BertEncoder(vocab_size=50, hidden=32, layers=2, heads=4, mlp_dim=64, max_len=16),
+    }[name]
+    return ctor()
+
+
+@pytest.mark.parametrize("name,dtype,tol", [("resnet50", torch.bfloat16, 5e-2), ("resnet50", None, 1e-4),
+                                            ("densenet40", None, 1e-4), ("vgg16", None, 1e-4), ("bert", None, 1e-4)])
+def test_model_forward_card_equals_cpu(cuda, name, dtype, tol):
+    """A small copy of each phase-14 model in training mode: the card's
+    logits within `tol` of the largest of the CPU's (bfloat16: 8-bit outputs
+    whose last-bit differences compound over the layers)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = _small_model(name, dtype)
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randint(0, 50, (4, 9), generator=gen) if name == "bert" else torch.randn(4, 32, 32, 3, generator=gen)
+    import copy
+
+    with torch.no_grad():
+        ref = copy.deepcopy(model)(x)
+        got = model.to(cuda)(x.to(cuda)).cpu()
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+def test_checkpoint_restores_bitwise_on_the_card(cuda, tmp_path):
+    """Two DRQSGD-BF-P0 steps of a small ResNet-50 on the card, a save, a
+    restore into a fresh Trainer: every parameter, statistic, momentum
+    buffer and residual bitwise the saved one, the restored tensors on the
+    card, one qsgd_encode_rows launch a step, and a finite next step."""
+    import deepreduce_tpu_torch as port
+    from deepreduce_tpu_torch import checkpoint
+
+    cfg = port.DeepReduceConfig(compressor="topk", compress_ratio=0.1, memory="residual", deepreduce="both",
+                                index="bloom", value="qsgd", fpr=0.02, policy="p0", bloom_blocked="mod")
+    gen = torch.Generator().manual_seed(5)
+    batches = [(torch.randn(4, 32, 32, 3, generator=gen).to(cuda), torch.randint(0, 10, (4,), generator=gen).to(cuda))
+               for _ in range(3)]
+    tr = port.Trainer(_small_model("resnet50"), cfg, lr=0.1, momentum=0.9, device=cuda)
+    state = tr.init_state()
+    before = qsgd_encode_rows.launches
+    for b in batches[:2]:
+        state, _, _ = tr.step(state, b)
+    assert qsgd_encode_rows.launches == before + 2
+    path = str(tmp_path / "state.pt")
+    checkpoint.save(path, state, config=cfg)
+    fresh = port.Trainer(_small_model("resnet50"), cfg, lr=0.1, momentum=0.9, device=cuda)
+    restored = checkpoint.restore(path, fresh, config=cfg)
+    assert restored.step == 2
+    pairs = [(state.params[n], restored.params[n]) for n in state.params]
+    pairs += [(state.batch_stats[n], restored.batch_stats[n]) for n in state.batch_stats]
+    pairs += [(state.residuals[n], restored.residuals[n]) for n in state.residuals]
+    pairs += [(state.optimizer.state[p]["momentum_buffer"], restored.optimizer.state[q]["momentum_buffer"])
+              for p, q in zip(state.params.values(), restored.params.values())]
+    assert all(b.is_cuda and torch.equal(a, b) for a, b in pairs)
+    restored, loss, _ = fresh.step(restored, batches[2])
+    assert torch.isfinite(loss).item()

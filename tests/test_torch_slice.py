@@ -271,7 +271,8 @@ def test_port_imports_no_jax():
         " deepreduce_tpu_torch.collectives, deepreduce_tpu_torch.comm_bucket, deepreduce_tpu_torch.comm_stream,"
         " deepreduce_tpu_torch.exchange, deepreduce_tpu_torch.numerics, deepreduce_tpu_torch.fedavg,"
         " deepreduce_tpu_torch.fedsim, deepreduce_tpu_torch.fedsim.round, deepreduce_tpu_torch.fedsim.codec_tree,"
-        " deepreduce_tpu_torch.models.mobilenet, deepreduce_tpu_torch.models.ncf;"
+        " deepreduce_tpu_torch.models.mobilenet, deepreduce_tpu_torch.models.ncf, deepreduce_tpu_torch.models.bert,"
+        " deepreduce_tpu_torch.checkpoint, deepreduce_tpu_torch.resilience.retry;"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'flax', 'optax'))"
         " or m == 'deepreduce_tpu' or m.startswith('deepreduce_tpu.')];"
         "print(bad); sys.exit(1 if bad else 0)"
