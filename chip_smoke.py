@@ -11,7 +11,8 @@ also held bitwise to its plain version on every sweep table).
 
 Phases, one line each; any failure raises and exits non-zero:
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
-  2. build every kernel from the sources in the checkout (nvcc, sm_90a);
+  2. build every kernel from the sources in the checkout (nvcc, sm_90a) and
+     the C++ host codec library (g++), all at once;
   3. each kernel against its plain PyTorch version on the card's inputs:
      qsgd_quantize at every size the per-leaf encode launched it with and at
      an odd size; qsgd_encode_rows on the main path's own 12-segment table and
@@ -155,10 +156,28 @@ Phases, one line each; any failure raises and exits non-zero:
      second step, restored into a fresh Trainer (every parameter,
      statistic, momentum buffer and residual and the step bitwise the saved
      ones), and stepped once more.
+ 15. the host half of the codec family on the full-width WordLSTM through
+     the same NCCL group, 3 steps an arm on phase 7's weights and batches
+     with the counts zeroed just before and read just after: the flagship
+     with the Huffman index (`drqsgd_huffman`) and the C++ library's varint
+     and pfor indices (`drqsgd_varint`, `drqsgd_pfor`), the library's bloom
+     index under the exact P2 policy (`bloom_native_p2`), Deflate and the
+     searched-knot PolyFit on Top-r (`topr_gzip`, `topr_polyfit_host`).
+     Finite losses, the first within 1e-4 of phase 5's CPU forward; the
+     payload bytes; rel_volume below the static budgets' (the live
+     lengths); one qsgd_encode_rows launch a step in the three QSGD arms,
+     each table bitwise its plain version, none elsewhere; the host syncs
+     of every step equal to the copies the code makes (each host leaf's
+     encode copies the tensors the JAX package's callback receives, the
+     decode each gathered row once), with the file:line of each; one
+     step's exchange card = CPU bitwise; `micro_benchmark` on Embed_0 for
+     `drqsgd_huffman`; then each host codec's encode and decode at d =
+     4,053,428 (ratio 0.1), wall ms from a synchronised start to a
+     synchronised end, copies included.
 `--profile` adds one profiled training step after phase 5, after each arm
-of phases 7, 8, 9, 10, 11 and 14, and one profiled round after each arm of
-phase 12: the device's busy and idle share over the step or round, its
-device launches and its largest kernels.
+of phases 7, 8, 9, 10, 11, 14 and 15, and one profiled round after each arm
+of phase 12: the device's busy and idle share over the step or round, its
+device launches and its largest kernels, and the host codecs' host spans.
 The last line is {"ok": true, "device": {...}}. Without CUDA, or without
 the package beside it, the script exits non-zero and prints no result.
 """
@@ -399,18 +418,18 @@ def _device_ms(fn, reps: int, name_part: str = "") -> tuple:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    rows = [(cnt, us) for key, cnt, us in _kernel_rows(prof) if name_part in key]
+    rows = [(cnt, us) for key, cnt, us in _kernel_rows(prof.key_averages()) if name_part in key]
     return sum(us for _, us in rows) / 1e3 / reps, sum(cnt for cnt, _ in rows) / reps
 
 
-def _kernel_rows(prof):
-    """(name, count, device us) of the device-side kernel events only: the
-    CPU-side operator rows also carry their kernels' device time, and
-    summing both would count it twice."""
+def _kernel_rows(averages):
+    """(name, count, device us) of the device-side kernel events of a
+    profile's `key_averages()` only: the CPU-side operator rows also carry
+    their kernels' device time, and summing both would count it twice."""
     from torch.autograd import DeviceType
 
     rows = []
-    for evt in prof.key_averages():
+    for evt in averages:
         # a `record_function` range (FedAvg's "fedavg/s2c", "fedavg/clients")
         # shows as a device row spanning its kernels: not a kernel
         if evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
@@ -424,6 +443,7 @@ def _profile_step(step_fn) -> dict:
     """Device busy time of one step and its largest kernels, from
     torch.profiler; the wall time comes from CUDA events around the step."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -434,14 +454,20 @@ def _profile_step(step_fn) -> dict:
         end.record()
         end.synchronize()
     wall_ms = start.elapsed_time(end)
-    rows = sorted(((us / 1e3, cnt, key[:70]) for key, cnt, us in _kernel_rows(prof)), reverse=True)
+    averages = prof.key_averages()  # one pass: it walks every event of the trace
+    rows = sorted(((us / 1e3, cnt, key[:70]) for key, cnt, us in _kernel_rows(averages)), reverse=True)
     busy_ms = sum(r[0] for r in rows)
+    # the host codecs' `record_function` ranges ("host/<codec>.<stage>"):
+    # host ms and calls of each
+    spans = {evt.key: [evt.cpu_time_total / 1e3, evt.count] for evt in averages
+             if evt.key.startswith("host/") and evt.device_type != DeviceType.CUDA}
     return {
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms) if wall_ms else None,
         "kernel_launches": sum(r[1] for r in rows),
         "top_device_ms": [[round(ms, 4), cnt, key] for ms, cnt, key in rows[:15]],
+        "host_spans_ms": spans,
     }
 
 
@@ -858,18 +884,24 @@ def _events_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _codec_table_input():
+    """The codec table's flat gradient on the card: d = 4,053,428 normal
+    times uniform squared, from a fixed seed."""
+    import torch
+
+    gen = torch.Generator().manual_seed(0)
+    return (torch.randn(CODEC_TABLE_D, generator=gen) * torch.rand(CODEC_TABLE_D, generator=gen) ** 2).cuda()
+
+
 def _codec_times(cfg, reps: int = 10) -> dict:
     """bench.py's codec table on the card: encode and decode of one flat
     gradient of d = 4,053,428 (normal times uniform squared, from a fixed
     seed) at the arm's config, ms per call from CUDA events around `reps`
     calls after a warm-up. The events span the host's gaps too (the sampled
     threshold's host sync), so this is the call's time on the card's clock."""
-    import torch
-
     from deepreduce_tpu_torch import TensorCodec
 
-    gen = torch.Generator().manual_seed(0)
-    g = (torch.randn(CODEC_TABLE_D, generator=gen) * torch.rand(CODEC_TABLE_D, generator=gen) ** 2).cuda()
+    g = _codec_table_input()
     codec = TensorCodec((CODEC_TABLE_D,), cfg, name="bench", device="cuda")
     payload = codec.encode(g)
     stats = codec.wire_stats(payload)
@@ -2084,6 +2116,149 @@ def phase_models(seed: int, group, profile: bool = False) -> dict:
     return results
 
 
+# phase 15: the host half of the codec family on the full-width WordLSTM:
+# knobs over the flagship's, the JAX package's GradientExchanger.payload_bytes,
+# qsgd_encode_rows launches per step, and the blocking copies to the host one
+# host leaf's encode makes (the tensors the JAX package's pure_callback
+# receives: the indices; the indices, values and nnz; the dense tensor,
+# indices and nnz; the values; the sorted values)
+HOST15 = {
+    "drqsgd_huffman": (dict(index="huffman"), 3_651_208, 1, 1),
+    "drqsgd_varint": (dict(index="integer_native", code="varint"), 3_677_136, 1, 3),
+    "drqsgd_pfor": (dict(index="integer_native", code="pfor"), 3_677_136, 1, 3),
+    "bloom_native_p2": (dict(deepreduce="index", index="bloom_native", policy="conflict_sets"), 3_652_916, 0, 3),
+    "topr_gzip": (dict(deepreduce="value", value="gzip"), 3_241_983, 0, 1),
+    "topr_polyfit_host": (dict(deepreduce="value", value="polyfit_host"), 1_625_548, 0, 1),
+}
+HOST15_STEPS = 3
+# the codec table's host codecs (bench.py's geometry): the six arms' and fbp
+HOST15_CODEC_TABLE = {**{arm: knobs for arm, (knobs, *_) in HOST15.items()},
+                      "drqsgd_fbp": dict(index="integer_native", code="fbp")}
+
+
+def _wall_ms(fn, reps: int) -> float:
+    """ms per call on the host's clock from a synchronised start to a
+    synchronised end over `reps` calls after a warm-up: a host codec's
+    copies, host work and launches all fall inside."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _host_codec_times(cfg, reps: int = 3) -> dict:
+    """The codec table's flat gradient (`_codec_table_input`) through a host
+    codec: encode and decode wall ms (`_wall_ms`), the host syncs of each
+    (their copies), rel_volume and the live payload bits."""
+    from deepreduce_tpu_torch import TensorCodec
+
+    g = _codec_table_input()
+    codec = TensorCodec((CODEC_TABLE_D,), cfg, name="bench", device="cuda")
+    payload, enc_syncs = _counting_syncs(lambda: codec.encode(g))
+    _, dec_syncs = _counting_syncs(lambda: codec.decode(payload))
+    stats = codec.wire_stats(payload)
+    return {
+        "encode_ms": _wall_ms(lambda: codec.encode(g), reps), "decode_ms": _wall_ms(lambda: codec.decode(payload), reps),
+        "encode_syncs": len(enc_syncs), "decode_syncs": len(dec_syncs),
+        "rel_volume": float(stats.rel_volume()), "payload_bits": float(stats.total_bits),
+    }
+
+
+def phase_host_codecs(seed: int, tokens, group, ref_loss: float, profile: bool = False) -> dict:
+    """Phase 15: the host codecs through `Trainer.step`, HOST15_STEPS steps
+    per arm on phase 7's weights and batches."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    tokens = tokens[:HOST15_STEPS].cuda()
+    batch = lambda i: (tokens[i, :, :-1], tokens[i, :, 1:])
+    results = {}
+    with warnings.catch_warnings():
+        # np.polyfit's conditioning warning on the host PolyFit's long
+        # segments (the JAX package's fit warns alike); the coefficients
+        # are what the tests hold
+        warnings.simplefilter("ignore", getattr(np, "exceptions", np).RankWarning)
+        for arm, (knobs, payload, per_step, copies) in HOST15.items():
+            results[arm] = _host_arm(arm, knobs, payload, per_step, copies, seed, batch, group, ref_loss, profile)
+            torch.cuda.empty_cache()
+        table = {name: _host_codec_times(_flagship_cfg(seed, **knobs)) for name, knobs in HOST15_CODEC_TABLE.items()}
+    print("phase 15 ok: host codec table " + json.dumps(table), flush=True)
+    return results
+
+
+def _host_arm(arm: str, knobs: dict, payload: int, per_step: int, copies: int, seed: int, batch, group,
+              ref_loss: float, profile: bool) -> dict:
+    """One arm of phase 15: HOST15_STEPS steps from fresh weights, each
+    checked for its launches and host syncs, then its exchange card = CPU,
+    its QSGD table and (with `profile`) one profiled step."""
+    import torch
+
+    from deepreduce_tpu_torch import Trainer, TensorCodec
+    from deepreduce_tpu_torch.models import WordLSTM
+    from deepreduce_tpu_torch.ops import launch_counts, reset_launch_counts
+    from deepreduce_tpu_torch.sparse import host_branch
+
+    cfg = _flagship_cfg(seed, **knobs)
+    trainer = Trainer(WordLSTM(seed=seed), cfg, lr=0.1, momentum=0.9, device="cuda", group=group)
+    state = trainer.init_state()
+    ex = trainer.exchanger
+    host_leaves = len(ex.fused.host_units)
+    _check(host_leaves == sum(c.compressed for c in ex.codecs.values()) == 12, f"{arm}: {host_leaves} host leaves")
+    # each host leaf's encode copies `copies` tensors to the host; the
+    # decode copies each gathered row once
+    syncs_per_step = copies * host_leaves + ex.num_workers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    host_branch.syncs = 0
+    state, losses, dev_ms, host_ms, wire, sync_calls = _run_steps(trainer, state, batch, HOST15_STEPS)
+    launches = launch_counts()
+    expected = {"qsgd_quantize": 0, "qsgd_encode_rows": per_step * HOST15_STEPS}
+    _check(launches == expected, f"{arm}: kernel launches {launches}, expected {expected}")
+    _check_trained(state, losses, ref_loss, arm)
+    sites = sorted({m for x in sync_calls for m in x})
+    _check(all(len(x) == syncs_per_step for x in sync_calls) and host_branch.syncs == 0,
+           f"{arm}: host syncs per step {[len(x) for x in sync_calls]}, expected {syncs_per_step}, at {sites}")
+    _check(ex.payload_bytes() == payload, f"{arm}: payload_bytes {ex.payload_bytes()}, expected {payload}")
+    # rel_volume reads the live lengths: below what the static budgets
+    # would give
+    rel_volume = float(wire.rel_volume())
+    budget_volume = ex.payload_bytes() * 8 / float(wire.dense_bits)
+    _check(0.0 < rel_volume < budget_volume, f"{arm}: rel_volume {rel_volume}, budgets {budget_volume}")
+    res = {
+        "losses": losses, "step_ms_all": dev_ms, "step_ms_median": statistics.median(dev_ms),
+        "host_step_ms_all": host_ms, "rel_volume": rel_volume, "budget_volume": budget_volume,
+        "payload_bytes": ex.payload_bytes(), "launches": launches, "qsgd_encode_rows_per_step": per_step,
+        "host_syncs_per_step": [len(x) for x in sync_calls], "expected_syncs_per_step": syncs_per_step,
+        "sync_call_sites": sites, "host_leaves": host_leaves, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+    }
+    res["card_vs_cpu"] = _exchange_card_vs_cpu(trainer, state, batch(0), exact=True)
+    if per_step:
+        segs = _main_path_table(ex, seed=41)
+        got, ref_rows = _encode_on_card_and_cpu(segs, ex.fused_nbytes, cfg.quantum_num, cfg.bucket_size)
+        res["qsgd_table_max_abs_err"] = _check_rows(got, ref_rows, segs, cfg.bucket_size, cfg.quantum_num,
+                                                    f"the {arm} table")
+        res["qsgd_segments"] = len(segs)
+    if arm == "drqsgd_huffman":
+        # the reference's 'micro-benchmark' mode on Embed_0's gradient
+        mcfg = _flagship_cfg(seed, **knobs, micro_benchmark=True)
+        codec = TensorCodec(EMBED_SHAPE, mcfg, name="Embed_0/embedding", device="cuda")
+        res["micro_benchmark"] = codec.micro_benchmark(_embed_grad(seed).cuda())
+    if profile:
+        prof = _profile_step(lambda: trainer.step(state, batch(0)))
+        res["profile"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share", "kernel_launches",
+                                               "host_spans_ms")}
+    print(f"phase 15 ok: {arm} " + json.dumps(res), flush=True)
+    return res
+
+
 def _per_leaf_composition(segs, q: int, bs: int):
     """The QSGD encode of a worker-step as the port's first slice composed
     it, leaf by leaf: zero padding, the bucket norm (a float64 `sum`) and
@@ -2400,12 +2575,13 @@ def main(argv=None) -> int:
         bucketed = phase_bucketed(args.seed, tokens, dist.group.WORLD, res["cpu_ref_loss0"], args.profile)
         zoo = phase_zoo(args.seed, tokens, dist.group.WORLD, res["cpu_ref_loss0"], args.profile)
         models14 = phase_models(args.seed, dist.group.WORLD, args.profile)
+        host15 = phase_host_codecs(args.seed, tokens, dist.group.WORLD, res["cpu_ref_loss0"], args.profile)
     finally:
         dist.destroy_process_group()
     fed = phase_fedavg(args.seed, args.profile)
     table6 = phase_table6(args.seed)
     by_arm = {"drqsgd_bloom": res["launches"]}
-    for phase in (arms, resnet, in_coll, bucketed, zoo, models14, fed, table6):
+    for phase in (arms, resnet, in_coll, bucketed, zoo, models14, fed, table6, host15):
         by_arm.update({a: r["launches"] for a, r in phase.items()})
     phase_timing(ex, errs, by_arm, quantize)
     print(f"chip_smoke total {time.perf_counter() - t0:.1f} s", flush=True)

@@ -38,9 +38,9 @@ The hashes are wrapping uint32 arithmetic, done here in int64 with
 masking (`u32`); filter words, `nsel` and positions are bitwise equal to
 the JAX package's, and so are the random policies' selections given the
 JAX package's uniforms (the tests' hook). Words travel as int32 tensors
-holding the uint32 bit pattern. The exact conflict_sets policy runs on the
-host in the JAX package and is not ported; `BloomMeta.create` raises for
-it.
+holding the uint32 bit pattern. The exact conflict_sets policy is the C++
+host library's alone, as in the reference (`codecs.bloom_native`);
+`BloomMeta.create` raises for it.
 """
 
 from __future__ import annotations
@@ -217,8 +217,8 @@ class BloomMeta:
             raise ValueError(f"bloom_blocked={blocked!r}: threshold_insert requires the 'mod' blocked layout")
         if policy == "conflict_sets":
             raise ValueError(
-                "bloom policy 'conflict_sets' (exact P2) runs on the host in the JAX package and is not "
-                "ported: use policy='conflict_sets_approx'"
+                "exact conflict_sets (P2) is native-only, as in the reference (policies.hpp:43-146): use "
+                "index='bloom_native', or policy='conflict_sets_approx' for the in-graph parallel redesign"
             )
         if policy not in POLICIES:
             raise ValueError(f"unknown bloom policy {policy!r}; have {list(POLICIES)}")

@@ -1,5 +1,6 @@
 """Bit-packing at a data-dependent width into a static word budget, ported
-from `deepreduce_tpu/codecs/packing.py`.
+from `deepreduce_tpu/codecs/packing.py`, with the reference's 3 x 21-bit
+mapping layout (`pack3x21`) and the bitmap packers.
 
 The caller fixes the word budget (the worst case, `budget_words(n,
 max_width)`); the packed stream carries `(words, count, width)` and the
@@ -102,3 +103,62 @@ def wire_bits(packed: PackedInts) -> torch.Tensor:
     """Meaningful bits on the wire: a 40-bit header (count word and width
     byte) plus count * width."""
     return 40 + packed.count.to(torch.int64) * packed.width.to(torch.int64)
+
+
+def pack3x21(values: torch.Tensor) -> torch.Tensor:
+    """3 x 21-bit values per 64-bit word, the reference's 'both'-mode
+    mapping packer for k < 2**21 (pytorch/deepreduce.py:165-180), bit-exact
+    with the JAX package's `pack3x21`: the values padded by `3 - n % 3`
+    zeros (always at least one), so `nw = n // 3 + 1` data words; word j
+    holds the strided thirds (j, j + nw, j + 2 nw) as `v0 << 42 | v1 << 21 |
+    v2`; a trailing word carries n. Each 64-bit word is its little-endian
+    uint32 halves: int32[nw + 1, 2] bit patterns, column 0 the low half.
+    A wire-format parity shim: the wrapper packs mappings with `pack`."""
+    n = values.shape[0]
+    dev = values.device
+    nw = n // 3 + 1
+    v = torch.zeros(nw * 3, dtype=torch.int64, device=dev)
+    v[:n] = (values.to(torch.int64) & u32.MASK32) & ((1 << 21) - 1)
+    v0, v1, v2 = v.reshape(3, nw)
+    lo = (v2 | (v1 << 21)) & u32.MASK32
+    hi = ((v1 >> 11) | (v0 << 10)) & u32.MASK32
+    # filled on the device: a tensor copied from the host would wait for it
+    full = lambda x: torch.full((1,), x, dtype=torch.int64, device=dev)
+    trailer = torch.stack([full(n & u32.MASK32), full((n >> 32) & u32.MASK32)], dim=1)
+    return u32.to_bits(torch.cat([torch.stack([lo, hi], dim=1), trailer], dim=0))
+
+
+def unpack3x21(words: torch.Tensor, n: int) -> torch.Tensor:
+    """int64[n]: the inverse of `pack3x21` (the reference's `unpack_`);
+    `n` is the static value count (`packed_count3x21` reads the payload's)."""
+    w = u32.from_bits(words[:-1])
+    lo, hi = w[:, 0], w[:, 1]
+    m21 = (1 << 21) - 1
+    v2 = lo & m21
+    v1 = ((lo >> 21) | (hi << 11)) & m21
+    v0 = (hi >> 10) & m21
+    return torch.cat([v0, v1, v2])[:n]
+
+
+def packed_count3x21(words: torch.Tensor) -> torch.Tensor:
+    """i32[]: the trailing count of a `pack3x21` payload (its low half)."""
+    return words[-1, 0].to(torch.int32)
+
+
+def pack_bitmap(bits_u8: torch.Tensor) -> torch.Tensor:
+    """uint8 0/1 [m] -> int32[ceil(m / 32)] uint32 words, LSB first (the
+    CuPy `packbits` role, pytorch/deepreduce.py:446-450)."""
+    m = bits_u8.shape[0]
+    nw = (m + 31) // 32
+    padded = torch.zeros(nw * 32, dtype=torch.int64, device=bits_u8.device)
+    padded[:m] = bits_u8.to(torch.int64)
+    shifts = torch.arange(32, dtype=torch.int64, device=bits_u8.device)
+    # disjoint bits: the sum is an OR
+    return u32.to_bits((padded.reshape(nw, 32) << shifts).sum(dim=1))
+
+
+def unpack_bitmap(words: torch.Tensor, m: int) -> torch.Tensor:
+    """uint32 words (int32 bit patterns) -> uint8 0/1 [m]."""
+    shifts = torch.arange(32, dtype=torch.int64, device=words.device)
+    bits = (u32.from_bits(words)[:, None] >> shifts) & 1
+    return bits.reshape(-1)[:m].to(torch.uint8)

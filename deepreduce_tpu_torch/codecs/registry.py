@@ -1,7 +1,11 @@
 """Codec adapters binding static geometry, ported from
-`deepreduce_tpu/codecs/registry.py` for the on-device codecs: the bloom,
-the delta-bitpacked integer and the run-length index codecs, and the
-QSGD, PolyFit, Fit-DExp, PolySeg and count-sketch value codecs.
+`deepreduce_tpu/codecs/registry.py`: the on-device codecs (the bloom, the
+delta-bitpacked integer and the run-length index codecs, and the QSGD,
+PolyFit, Fit-DExp, PolySeg and count-sketch value codecs) and the host
+codecs (the Huffman index, the C++ library's bloom and integer-family
+indices, and the Deflate and searched-knot PolyFit value codecs; their
+`host` flag is set, and their decode takes the payload's leaves already
+copied to the host, `host_payload`, where the caller has them).
 
 An index codec's payload carries a value table (`value_slots` long) that
 the wrapper's 'both' mode hands to the value codec, and a selected count
@@ -25,9 +29,25 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
-from deepreduce_tpu_torch.codecs import bloom, countsketch, doubleexp, integer, polyfit, polyseg, qsgd, rle
+from deepreduce_tpu_torch import native
+from deepreduce_tpu_torch.codecs import (
+    bloom,
+    bloom_native,
+    countsketch,
+    doubleexp,
+    gzip_codec,
+    host,
+    huffman,
+    integer,
+    polyfit,
+    polyfit_host,
+    polyseg,
+    qsgd,
+    rle,
+)
 from deepreduce_tpu_torch.sparse import SparseGrad
 
 Specs = List[Tuple[Tuple[int, ...], torch.dtype]]
@@ -38,7 +58,11 @@ class Codec:
     split index/value wire accounting."""
 
     order_preserving: bool = False
+    # False marks a codec whose meaningful size varies per worker (the
+    # reference's tensors_size_are_same contract); every payload is static
+    fixed_size: bool = True
     decodes_dense: bool = True  # index codecs: has `decode_dense`
+    host: bool = False  # encodes and decodes on the host (`codecs.host`)
 
     def __init__(self, k: int, d: int, params: Optional[Dict[str, Any]] = None):
         self.k = k
@@ -132,6 +156,8 @@ class BloomCodec(Codec):
 
 
 class IntegerCodec(Codec):
+    fixed_size = False
+
     def __init__(self, k, d, params=None):
         super().__init__(k, d, params)
         self.meta = integer.IntegerMeta(k=k, d=d)
@@ -169,6 +195,7 @@ class IntegerCodec(Codec):
 
 class RLECodec(Codec):
     decodes_dense = False
+    fixed_size = False
 
     def __init__(self, k, d, params=None):
         super().__init__(k, d, params)
@@ -199,6 +226,186 @@ class RLECodec(Codec):
 
     def index_wire_bits(self, payload) -> torch.Tensor:
         return rle.wire_bits(payload, self.meta)
+
+    def value_wire_bits(self, payload) -> torch.Tensor:
+        return payload.nnz.to(torch.float32) * 32
+
+
+class HuffmanCodec(Codec):
+    """The canonical Huffman index over the indices' int32 bytes (host)."""
+
+    order_preserving = True
+    fixed_size = False
+    decodes_dense = False
+    host = True
+
+    def __init__(self, k, d, params=None):
+        super().__init__(k, d, params)
+        self.meta = huffman.HuffmanMeta(k=k, d=d)
+
+    @property
+    def value_slots(self) -> int:
+        return self.k
+
+    def encode(self, sp: SparseGrad, dense: torch.Tensor, *, step: int = 0) -> huffman.HuffmanPayload:
+        return huffman.encode(sp, self.meta)
+
+    def decode(self, payload, shape, *, step: int = 0, host_payload=None) -> SparseGrad:
+        return huffman.decode(payload, self.meta, shape, host_payload)
+
+    def selected(self, payload) -> torch.Tensor:
+        return payload.nnz
+
+    def saturated(self, payload) -> torch.Tensor:
+        return torch.zeros((), dtype=torch.bool, device=payload.nnz.device)
+
+    def payload_specs(self, n_values: int) -> Specs:
+        i32 = torch.int32
+        return [((n_values,), torch.float32), ((self.meta.budget_bytes,), torch.uint8), ((), i32), ((), i32)]
+
+    def payload_from_leaves(self, leaves) -> huffman.HuffmanPayload:
+        return huffman.HuffmanPayload(*leaves)
+
+    def index_wire_bits(self, payload) -> torch.Tensor:
+        return huffman.wire_bits(payload, self.meta)
+
+    def value_wire_bits(self, payload) -> torch.Tensor:
+        return payload.nnz.to(torch.float32) * 32
+
+
+class BloomNativeCodec(Codec):
+    """The C++ library's bloom index (`codecs.bloom_native`, host), the only
+    route to the exact P2 policy `conflict_sets`. Index-only: its wire
+    carries the values in band, so a value codec on top would send them
+    twice."""
+
+    fixed_size = False  # the live wire length rides the in-band nbytes word
+    decodes_dense = False
+    host = True
+
+    def __init__(self, k, d, params=None):
+        super().__init__(k, d, params)
+        self.meta = bloom_native.BloomNativeMeta.create(
+            k, d, fpr=self.params.get("fpr"), policy=self.params.get("policy", "leftmost")
+        )
+
+    @property
+    def value_slots(self) -> int:
+        return self.meta.budget
+
+    def encode(self, sp: SparseGrad, dense: torch.Tensor, *, step: int = 0) -> bloom_native.BloomNativePayload:
+        return bloom_native.encode(sp, dense, self.meta, step=step)
+
+    def decode(self, payload, shape, *, step: int = 0, host_payload=None) -> SparseGrad:
+        return bloom_native.decode(payload, self.meta, shape, step=step, host_payload=host_payload)
+
+    def selected(self, payload) -> torch.Tensor:
+        return payload.nsel
+
+    def saturated(self, payload) -> torch.Tensor:
+        return payload.nsel >= self.meta.budget
+
+    def payload_specs(self, n_values: int) -> Specs:
+        i32 = torch.int32
+        return [((self.meta.wire_budget,), torch.int8), ((), i32), ((n_values,), torch.float32), ((), i32)]
+
+    def payload_from_leaves(self, leaves) -> bloom_native.BloomNativePayload:
+        return bloom_native.BloomNativePayload(*leaves)
+
+    def index_wire_bits(self, payload) -> torch.Tensor:
+        # the wire minus its embedded values: header and bit-array
+        return bloom_native.wire_bits(payload, self.meta) - self.value_wire_bits(payload)
+
+    def value_wire_bits(self, payload) -> torch.Tensor:
+        return payload.nsel.to(torch.float32) * 32
+
+    def strip_for_both(self, payload):
+        raise NotImplementedError(
+            "bloom_native is index-mode only: its C++ wire format already carries the values in band"
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class IntegerNativePayload:
+    values: torch.Tensor  # f32[k] in ascending-index order; f32[0] in 'both' mode
+    wire: torch.Tensor  # int32[budget_words]: the named codec's uint32 words, zero-padded
+    nwords: torch.Tensor  # i32[]: the live wire words
+    nnz: torch.Tensor  # i32[]
+
+    def leaves(self) -> Tuple[torch.Tensor, ...]:
+        return (self.values, self.wire, self.nwords, self.nnz)
+
+
+class IntegerNativeCodec(Codec):
+    """The C++ FastPFor-role integer family behind name-keyed selection (the
+    reference's IntegerCompressorOp with its string attr `code`,
+    integer_compression.cc:20-42,62): `fbp` (frame bit packing), `varint`
+    (VByte) or `pfor` (PFor128 with patched exceptions), over the indices
+    sorted ascending on the host (host), into the family's worst-case word
+    budget with the live word count in band."""
+
+    fixed_size = False
+    decodes_dense = False
+    host = True
+
+    def __init__(self, k, d, params=None):
+        super().__init__(k, d, params)
+        self.code = str(self.params.get("code", "fbp"))
+        if self.code not in native.INT_CODEC_NAMES:
+            raise KeyError(f"unknown integer codec {self.code!r}; have {native.INT_CODEC_NAMES}")
+        self.budget_words = native.int_cap_words(k)
+
+    @property
+    def value_slots(self) -> int:
+        return self.k
+
+    def encode(self, sp: SparseGrad, dense: torch.Tensor, *, step: int = 0) -> IntegerNativePayload:
+        dev = sp.values.device
+        with host.span(f"integer_native.{self.code}.encode"):
+            idx, vals = host.to_host(sp.indices), host.to_host(sp.values)
+            n = int(host.to_host(sp.nnz))
+            enc, _ = native.int_codec_from_name(self.code)
+            order = np.argsort(idx[:n], kind="stable")
+            words = enc(idx[:n][order])
+            out_w = np.zeros(self.budget_words, np.uint32)
+            out_w[: len(words)] = words
+            out_v = np.zeros(self.k, np.float32)
+            out_v[:n] = vals[:n][order]
+        return IntegerNativePayload(values=host.to_device(out_v, dev), wire=host.to_device(out_w, dev),
+                                    nwords=host.scalar(len(words), dev), nnz=sp.nnz)
+
+    def decode(self, payload, shape, *, step: int = 0, host_payload=None) -> SparseGrad:
+        dev = payload.wire.device
+        with host.span(f"integer_native.{self.code}.decode"):
+            src = payload if host_payload is None else host_payload
+            wire, nwords, nnz = (host.to_host(t) for t in (src.wire, src.nwords, src.nnz))
+            _, dec = native.int_codec_from_name(self.code)
+            idx = dec(wire.view(np.uint32)[: int(nwords)], int(nnz))
+            out = np.zeros(self.k, np.int32)
+            out[: len(idx)] = idx.astype(np.int32)
+        live = torch.arange(self.k, device=dev) < payload.nnz
+        return SparseGrad(
+            values=torch.where(live, payload.values, 0.0),
+            indices=torch.where(live, host.to_device(out, dev), 0),
+            nnz=payload.nnz,
+            shape=shape,
+        )
+
+    def selected(self, payload) -> torch.Tensor:
+        return payload.nnz
+
+    def saturated(self, payload) -> torch.Tensor:
+        return torch.zeros((), dtype=torch.bool, device=payload.nnz.device)
+
+    def payload_specs(self, n_values: int) -> Specs:
+        i32 = torch.int32
+        return [((n_values,), torch.float32), ((self.budget_words,), i32), ((), i32), ((), i32)]
+
+    def payload_from_leaves(self, leaves) -> IntegerNativePayload:
+        return IntegerNativePayload(*leaves)
+
+    def index_wire_bits(self, payload) -> torch.Tensor:
+        return payload.nwords.to(torch.float32) * 32
 
     def value_wire_bits(self, payload) -> torch.Tensor:
         return payload.nnz.to(torch.float32) * 32
@@ -359,12 +566,82 @@ class CountSketchCodec(Codec):
         return countsketch.CountSketchPayload(*leaves)
 
 
-INDEX_CODECS: Dict[str, type] = {"bloom": BloomCodec, "integer": IntegerCodec, "rle": RLECodec}
+class GzipCodec(Codec):
+    """Deflate over the float32 values (host); order-preserving, so 'both'
+    mode elides the mapping."""
+
+    order_preserving = True
+    fixed_size = False
+    host = True
+
+    def __init__(self, k, d, params=None):
+        super().__init__(k, d, params)
+        self.meta = gzip_codec.GzipMeta(k=k)
+
+    def both_mapping_max(self) -> int:
+        return 0
+
+    def encode(self, sp: SparseGrad) -> gzip_codec.GzipPayload:
+        return gzip_codec.encode(sp, self.meta)
+
+    def decode(self, payload, shape, host_payload=None) -> SparseGrad:
+        return gzip_codec.decode(payload, self.meta, shape, host_payload)
+
+    def value_wire_bits(self, payload) -> torch.Tensor:
+        return gzip_codec.wire_bits(payload, self.meta)
+
+    def payload_specs(self, n_indices: int) -> Specs:
+        i32 = torch.int32
+        return [((self.meta.budget_bytes,), torch.uint8), ((), i32), ((n_indices,), i32), ((), i32)]
+
+    def payload_from_leaves(self, leaves) -> gzip_codec.GzipPayload:
+        return gzip_codec.GzipPayload(*leaves)
+
+
+class PolyFitHostCodec(Codec):
+    """The reference's PolyFitCPU (host): searched knots, transmitted
+    breaks; in 'both' mode its value-sorted order is the mapping."""
+
+    fixed_size = False  # the break count varies (the reference returns a tuple)
+    host = True
+
+    def __init__(self, k, d, params=None):
+        super().__init__(k, d, params)
+        self.meta = polyfit_host.PolyFitHostMeta(k=k, degree=int(self.params.get("poly_degree", 5)))
+
+    def encode(self, sp: SparseGrad) -> polyfit_host.PolyFitHostPayload:
+        return polyfit_host.encode(sp, self.meta)
+
+    def decode(self, payload, shape, host_payload=None) -> SparseGrad:
+        return polyfit_host.decode(payload, self.meta, shape, host_payload)
+
+    def value_wire_bits(self, payload) -> torch.Tensor:
+        return polyfit_host.wire_bits(payload, self.meta)
+
+    def payload_specs(self, n_indices: int) -> Specs:
+        i32 = torch.int32
+        s = self.meta.max_segments
+        return [((s, self.meta.degree + 1), torch.float32), ((s + 1,), i32), ((), i32), ((n_indices,), i32)]
+
+    def payload_from_leaves(self, leaves) -> polyfit_host.PolyFitHostPayload:
+        return polyfit_host.PolyFitHostPayload(*leaves)
+
+
+INDEX_CODECS: Dict[str, type] = {
+    "bloom": BloomCodec,
+    "bloom_native": BloomNativeCodec,
+    "integer_native": IntegerNativeCodec,
+    "rle": RLECodec,
+    "integer": IntegerCodec,
+    "huffman": HuffmanCodec,
+}
 VALUE_CODECS: Dict[str, type] = {
-    "qsgd": QSGDCodec,
     "polyfit": PolyFitCodec,
-    "doubleexp": DoubleExpCodec,
+    "polyfit_host": PolyFitHostCodec,
     "polyseg": PolySegCodec,
+    "doubleexp": DoubleExpCodec,
+    "qsgd": QSGDCodec,
+    "gzip": GzipCodec,
     "countsketch": CountSketchCodec,
 }
 
@@ -372,5 +649,5 @@ VALUE_CODECS: Dict[str, type] = {
 def get_codec(name: str, kind: str) -> type:
     table = INDEX_CODECS if kind == "index" else VALUE_CODECS
     if name not in table:
-        raise KeyError(f"unknown or unported {kind} codec {name!r}; have {sorted(table)}")
+        raise KeyError(f"unknown {kind} codec {name!r}; have {sorted(table)}")
     return table[name]

@@ -24,7 +24,10 @@ The exchange is split into three parts so that each can be driven alone:
 3. `decode_aggregate`: decode every row in worker order into one running
    sum per tensor, keep this worker's own row for the residual, and take
    the mean as XLA computes `/ W`: times the float32 reciprocal of W
-   (`numerics.mean_of_sum`).
+   (`numerics.mean_of_sum`). Where a tensor's codec runs on the host
+   (`codecs.host`), each gathered row is copied to the host once and
+   every host codec reads its leaves and in-band lengths there: one host
+   sync per row, besides the copies each host codec's encode makes.
 
 Tests drive 1 and 3 for W virtual workers in one process.
 
@@ -159,23 +162,43 @@ class FusedBuffer:
             stats[u] = codec.wire_stats(payloads[u])
         return stats
 
-    def decode(self, unit: str, seg: torch.Tensor, *, step: int = 0) -> torch.Tensor:
+    @property
+    def host_units(self) -> List[str]:
+        """The units whose codec runs on the host."""
+        return [u for u in self.units if self.codecs[u].host]
+
+    def decode(
+        self, unit: str, seg: torch.Tensor, *, step: int = 0, host_seg: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
         """One worker's bytes of `unit` -> its dense float32 tensor (`step`
-        keys the bloom codec's random policies)."""
-        codec = self.codecs[unit]
-        payload = codec.payload_from_leaves(self.layouts[unit].unpack(seg))
-        return codec.decode(payload, step=step).to(torch.float32)
+        keys the bloom codec's random policies). `host_seg`: the same bytes
+        on the host, which a host codec reads (copied here when None)."""
+        codec, layout = self.codecs[unit], self.layouts[unit]
+        payload = codec.payload_from_leaves(layout.unpack(seg))
+        host_payload = None
+        if codec.host:
+            # one copy of the unit's bytes; the codec reads its leaves there
+            host_seg = seg.cpu() if host_seg is None else host_seg
+            host_payload = codec.payload_from_leaves(layout.unpack(host_seg))
+        return codec.decode(payload, step=step, host_payload=host_payload).to(torch.float32)
 
     def decode_sum(
-        self, unit: str, rows: torch.Tensor, own: Optional[int] = None, *, step: int = 0
+        self,
+        unit: str,
+        rows: torch.Tensor,
+        own: Optional[int] = None,
+        *,
+        step: int = 0,
+        host_rows: Optional[List[torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """(sum over the W rows of `unit`'s bytes [W, nbytes], the decode of
         row `own` or None). Rows are summed in worker order from zeros, as
-        the JAX loop does."""
+        the JAX loop does. `host_rows`: the W rows' bytes on the host, for a
+        host codec (each row copied here when None)."""
         total = torch.zeros(self.codecs[unit].shape, dtype=torch.float32, device=rows.device)
         own_dec = None
         for w in range(rows.shape[0]):
-            dec = self.decode(unit, rows[w], step=step)
+            dec = self.decode(unit, rows[w], step=step, host_seg=None if host_rows is None else host_rows[w])
             total = total + dec
             if w == own:
                 own_dec = dec
@@ -314,8 +337,12 @@ class GradientExchanger:
         """(mean over the W rows, the decode of row `own` or None), by
         tensor name."""
         totals, owns = {}, {}
+        # a host codec reads its leaves from one host copy of each row
+        rows = [gathered[w].cpu() for w in range(gathered.shape[0])] if self.fused.host_units else None
         for u in self.fused.units:
-            totals[u], owns[u] = self.fused.decode_sum(u, gathered[:, self.fused.span(u)], own, step=step)
+            span = self.fused.span(u)
+            host_rows = None if rows is None or not self.codecs[u].host else [r[span] for r in rows]
+            totals[u], owns[u] = self.fused.decode_sum(u, gathered[:, span], own, step=step, host_rows=host_rows)
         return self.mean_and_own(totals, owns if own is not None else None, gathered.shape[0])
 
     def mean_and_own(self, totals: Tree, owns: Optional[Tree], num_workers: int) -> Tuple[Tree, Optional[Tree]]:

@@ -11,8 +11,10 @@ pipelined, barrier and backprop-streamed schedules; and every on-device
 codec, policy, layout, wrapper mode and sparsifier: random-k and the
 magnitude threshold, the value-only mode, the RLE index, the Fit-DExp,
 PolySeg and count-sketch value codecs, the bloom P1 (random) and
-approximate P2 policies and its hash-blocked layout), with the same names
-and defaults.
+approximate P2 policies and its hash-blocked layout; and the host codecs:
+the Huffman index, the C++ library's bloom index with the exact P2 policy
+`conflict_sets` and its integer family under `code`, the Deflate and the
+searched-knot PolyFit value codecs), with the same names and defaults.
 A value the port does not implement raises `ConfigError` naming
 the knob, so that no run quietly takes another path than the one it asked
 for (for instance `approx_topk=True`: torch has no `approx_max_k`, and
@@ -47,18 +49,19 @@ _SUPPORTED = {
     "decode_strategy": ("loop",),
 }
 BUCKET_ORDERS = ("trace", "reverse")
-# codec knobs, read only when a codec runs (deepreduce is not None). The
-# JAX package's other values run on the host (huffman, gzip, polyfit_host,
-# the *_native codecs through its C++ library, the exact conflict_sets
-# policy) and are not ported
+# codec knobs, read only when a codec runs (deepreduce is not None): every
+# codec of the JAX package. huffman, gzip, polyfit_host and the *_native
+# codecs (through the C++ host library, `native/`) run on the host, and
+# the exact conflict_sets policy only under index='bloom_native', as there
 _SUPPORTED_CODEC = {
-    "index": ("bloom", "integer", "rle"),
-    "value": ("qsgd", "polyfit", "doubleexp", "polyseg", "countsketch"),
-    "policy": ("p0", "leftmost", "random", "conflict_sets_approx"),
+    "index": ("bloom", "integer", "rle", "huffman", "bloom_native", "integer_native"),
+    "value": ("qsgd", "polyfit", "doubleexp", "polyseg", "countsketch", "gzip", "polyfit_host"),
+    "policy": ("p0", "leftmost", "random", "conflict_sets_approx", "conflict_sets"),
     "bloom_blocked": ("mod", "hash", True, False),
+    "code": ("fbp", "varint", "pfor"),
 }
 # reference-style aliases of `from_params` (the JAX package's _KEY_MAP)
-_KEY_MAP = {"threshold": "threshold_val"}
+_KEY_MAP = {"threshold": "threshold_val", "micro-benchmark": "micro_benchmark"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +84,9 @@ class DeepReduceConfig:
     policy: str = "leftmost"
     bloom_blocked: Any = False
     bloom_threshold_insert: bool = False
+    # the C++ integer family member of index='integer_native' (the
+    # reference op's string attr `code`, integer_compression.cc:62)
+    code: str = "fbp"
     poly_degree: int = 5
     quantum_num: int = 127
     bucket_size: int = 512
@@ -115,6 +121,9 @@ class DeepReduceConfig:
     bucket_pipeline: bool = True
     bucket_order: str = "trace"
     stream_exchange: bool = False
+    # the reference's 'micro-benchmark' mode: `TensorCodec.micro_benchmark`
+    # prints its per-stage times and relative volumes (observability only)
+    micro_benchmark: bool = False
 
     def __post_init__(self):
         checked = dict(_SUPPORTED, **(_SUPPORTED_CODEC if self.deepreduce is not None else {}))
@@ -145,9 +154,30 @@ class DeepReduceConfig:
             raise ConfigError("sort", "sort must be a bool")
         if self.poly_degree < 0:
             raise ConfigError("poly_degree", "poly_degree must be non-negative")
+        if not isinstance(self.micro_benchmark, bool):
+            raise ConfigError("micro_benchmark", "micro_benchmark must be a bool")
+        if self.deepreduce is not None:
+            self._check_host_codecs()
 
         self._check_in_collective()
         self._check_buckets()
+
+    def _check_host_codecs(self) -> None:
+        """The pairings the JAX package refuses: the exact P2 policy off the
+        C++ library (`codecs/bloom.py`'s BloomMeta) and bloom_native in
+        'both' mode (`wrappers.py`'s TensorCodec)."""
+        if self.policy == "conflict_sets" and self.index != "bloom_native" and self.deepreduce in ("index", "both"):
+            raise ConfigError(
+                "policy",
+                "exact conflict_sets (P2) is native-only, as in the reference (policies.hpp:43-146): use "
+                "index='bloom_native', or policy='conflict_sets_approx' for the in-graph parallel redesign",
+            )
+        if self.deepreduce == "both" and self.index == "bloom_native":
+            raise ConfigError(
+                "index",
+                "bloom_native is index-mode only: its C++ wire format carries values in-band, so a value codec "
+                "on top would transmit them twice — use index='bloom' for 'both' mode",
+            )
 
     def _check_in_collective(self) -> None:
         """The sparse_rs knobs' ranges and the fences of the in-collective
@@ -220,6 +250,7 @@ class DeepReduceConfig:
             "policy": self.policy,
             "bloom_blocked": self.bloom_blocked,
             "bloom_threshold_insert": self.bloom_threshold_insert,
+            "code": self.code,
             "poly_degree": self.poly_degree,
             "quantum_num": self.quantum_num,
             "bucket_size": self.bucket_size,

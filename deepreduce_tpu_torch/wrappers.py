@@ -39,6 +39,15 @@ from `deepreduce_tpu/wrappers.py`.
 
 The bloom codec's random policies are keyed by `step` (encode and decode
 alike), the stochastic sparsifier and QSGD by (step, worker).
+
+The host codecs (Huffman, the C++ library's bloom and integer family,
+Deflate, the searched-knot PolyFit; `codecs.host`) take the same place in
+these modes: the selection stays on the device, the codec copies to the
+host the tensors the JAX package's `pure_callback` receives, and its
+static-shape payload returns to the device. `decode` takes the payload's
+leaves already on the host (`host_payload`, the exchange's one copy of a
+gathered row); without them a host codec copies what it reads.
+`micro_benchmark` is the reference's 'micro-benchmark' mode.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import re
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -299,29 +309,43 @@ class TensorCodec:
             nsel=nsel,
         )
 
-    def decode(self, payload: Any, *, step: int = 0) -> torch.Tensor:
-        """payload -> dense tensor."""
+    @property
+    def host(self) -> bool:
+        """True when a codec of this tensor runs on the host."""
+        return any(c is not None and c.host for c in (self.idx_codec, self.val_codec))
+
+    def decode(self, payload: Any, *, step: int = 0, host_payload: Any = None) -> torch.Tensor:
+        """payload -> dense tensor. `host_payload`: the same payload with its
+        leaves on the host, read by a host codec's decode (None: it copies
+        what it reads)."""
         if self.dense_fallback:
             return payload.tensor.reshape(self.shape)
         if not self.compressed:
             return payload.to_dense()
+
+        def host_kw(codec, part):
+            return {"host_payload": part} if codec.host else {}
+
         if self.idx_codec is None:
-            return self.val_codec.decode(payload, self.shape).to_dense()
+            return self.val_codec.decode(payload, self.shape, **host_kw(self.val_codec, host_payload)).to_dense()
         if self.val_codec is None:
             if self.idx_codec.decodes_dense:
                 return self.idx_codec.decode_dense(payload, self.shape, step=step)
-            return self.idx_codec.decode(payload, self.shape, step=step).to_dense()
+            kw = host_kw(self.idx_codec, host_payload)
+            return self.idx_codec.decode(payload, self.shape, step=step, **kw).to_dense()
         vk = self.val_codec.k
         mapping = None if payload.mapping is None else packing.unpack(payload.mapping, vk)
         vpay = self.val_codec.restore_for_both(payload.value_payload, mapping)
-        vsp = self.val_codec.decode(vpay, self.shape)  # values in the codec's order
+        host_parts = (None, None) if host_payload is None else (host_payload.index_payload, host_payload.value_payload)
+        # values in the codec's order
+        vsp = self.val_codec.decode(vpay, self.shape, **host_kw(self.val_codec, host_parts[1]))
         if not self.idx_codec.decodes_dense:
             # the selection list in slot order, paired with the codec's order
             # through its indices (the JAX package's generic 'both' decode)
             ipay = dataclasses.replace(
                 payload.index_payload, values=torch.zeros(vk, dtype=torch.float32, device=vsp.values.device)
             )
-            isp = self.idx_codec.decode(ipay, self.shape, step=step)
+            isp = self.idx_codec.decode(ipay, self.shape, step=step, **host_kw(self.idx_codec, host_parts[0]))
             idxs = isp.indices[torch.clamp(vsp.indices.long(), 0, vk - 1)]
             return SparseGrad(values=vsp.values, indices=idxs, nnz=payload.nsel, shape=self.shape).to_dense()
         table = vsp.values
@@ -366,10 +390,11 @@ class TensorCodec:
         if self.val_codec is None:
             return self.idx_codec.payload_from_leaves(leaves)
         r = len(self.idx_codec.payload_specs(0))
+        v = r + len(self.val_codec.payload_specs(0))
         return BothPayload(
             index_payload=self.idx_codec.payload_from_leaves(leaves[:r]),
-            value_payload=self.val_codec.payload_from_leaves(leaves[r : r + 3]),
-            mapping=None if self.map_width is None else packing.PackedInts(*leaves[r + 3 : r + 6]),
+            value_payload=self.val_codec.payload_from_leaves(leaves[r:v]),
+            mapping=None if self.map_width is None else packing.PackedInts(*leaves[v : v + 3]),
             nsel=leaves[-1],
         )
 
@@ -406,6 +431,42 @@ class TensorCodec:
         return WireStats(
             index_bits=idx_bits, value_bits=val_bits, dense_bits=dense_bits, saturated=saturated
         )
+
+    def micro_benchmark(self, tensor: torch.Tensor, *, iters: int = 5) -> dict:
+        """The reference's 'micro-benchmark' mode (pytorch/deepreduce.py:70-76,
+        255-257): the fastest of `iters` wall times (s) of encode and of
+        decode, each from a synchronised start to a synchronised end
+        (`torch.cuda.synchronize` on the card, nothing to wait for on the
+        CPU), and the payload's relative index, value and total volumes.
+        Printed as `key:value` lines when `cfg.micro_benchmark` is set."""
+
+        def sync() -> None:
+            if tensor.is_cuda:
+                torch.cuda.synchronize(tensor.device)
+
+        def timed(fn) -> float:
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            return time.perf_counter() - t0
+
+        payload = self.encode(tensor, step=0)
+        self.decode(payload, step=0)
+        t_enc = min(timed(lambda: self.encode(tensor, step=1)) for _ in range(iters))
+        t_dec = min(timed(lambda: self.decode(payload, step=1)) for _ in range(iters))
+        stats = self.wire_stats(payload)
+        out = {
+            "compression_time": t_enc,
+            "decompression_time": t_dec,
+            "idx_relative_volume": float(stats.idx_rel_volume()),
+            "val_relative_volume": float(stats.val_rel_volume()),
+            "relative_volume": float(stats.rel_volume()),
+        }
+        if self.cfg.micro_benchmark:
+            for key, val in out.items():
+                print(f"{key}:{val}")
+        return out
 
     def fp_stats(self, payload: Any) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
         """The index filter's measured false positives: (positives beyond

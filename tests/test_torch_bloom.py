@@ -55,7 +55,7 @@ def test_meta_geometry_matches(k, d, fpr, policy):
 def test_meta_rejects_unported_layouts():
     with pytest.raises(ValueError, match="bloom_blocked"):
         tbloom.BloomMeta.create(10, 100, blocked="diagonal")
-    # exact P2 runs on the host in the JAX package
+    # exact P2 is the C++ host library's alone (codecs.bloom_native)
     with pytest.raises(ValueError, match="policy"):
         tbloom.BloomMeta.create(10, 100, policy="conflict_sets", blocked="mod")
     with pytest.raises(ValueError, match="threshold_insert"):

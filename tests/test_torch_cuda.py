@@ -532,3 +532,60 @@ def test_checkpoint_restores_bitwise_on_the_card(cuda, tmp_path):
     assert all(b.is_cuda and torch.equal(a, b) for a, b in pairs)
     restored, loss, _ = fresh.step(restored, batches[2])
     assert torch.isfinite(loss).item()
+
+
+# the host codecs as `chip_smoke.py` phase 15 runs them: knobs over the
+# flagship's, and the blocking copies one host leaf's encode makes
+HOST_ARMS = {
+    "drqsgd_huffman": (dict(index="huffman"), 1),
+    "drqsgd_varint": (dict(index="integer_native", code="varint"), 3),
+    "drqsgd_pfor": (dict(index="integer_native", code="pfor"), 3),
+    "bloom_native_p2": (dict(deepreduce="index", index="bloom_native", policy="conflict_sets"), 3),
+    "topr_gzip": (dict(deepreduce="value", value="gzip"), 1),
+    "topr_polyfit_host": (dict(deepreduce="value", value="polyfit_host"), 1),
+}
+
+
+@pytest.mark.parametrize("arm", list(HOST_ARMS))
+def test_host_codec_exchange_card_equals_cpu_and_counts_its_syncs(cuda, arm):
+    """One exchange of a small three-leaf gradient (two host leaves) under a
+    host arm on the card and on the CPU: the aggregate and the residuals
+    bitwise equal; on the card the exchange's host syncs are exactly its
+    copies (the encode's per host leaf, one per gathered row) and the QSGD
+    arms make one qsgd_encode_rows launch."""
+    import warnings
+
+    from deepreduce_tpu_torch import DeepReduceConfig, GradientExchanger
+
+    knobs, copies = HOST_ARMS[arm]
+    cfg = DeepReduceConfig(**{**BUCKET_FLAGSHIP, **knobs})
+    shapes = {"a/kernel": (100, 100), "b": (9_000,), "c": (40,)}
+    gen = torch.Generator().manual_seed(12)
+    grads = {n: torch.randn(s, generator=gen) for n, s in shapes.items()}
+    res = {n: torch.randn(s, generator=gen) * 1e-2 for n, s in shapes.items()}
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        ex = GradientExchanger(shapes, cfg, device=dev)
+        assert ex.fused.host_units == ["a/kernel", "b"]
+        g = {n: t.to(dev) for n, t in grads.items()}
+        r = {n: t.to(dev) for n, t in res.items()}
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            before = qsgd_encode_rows.launches
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    agg, new_res, _ = ex.exchange(g, r, step=2)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs = [str(w.message) for w in caught if "called a synchronizing" in str(w.message)]
+            assert len(syncs) == copies * 2 + 1, syncs
+            assert qsgd_encode_rows.launches - before == (1 if cfg.value == "qsgd" and cfg.deepreduce == "both" else 0)
+        else:
+            agg, new_res, _ = ex.exchange(g, r, step=2)
+        out[dev.type] = (agg, new_res)
+    (gagg, gres), (cagg, cres) = out["cuda"], out["cpu"]
+    for n in shapes:
+        assert torch.equal(gagg[n].cpu(), cagg[n]), n
+        assert torch.equal(gres[n].cpu(), cres[n]), n

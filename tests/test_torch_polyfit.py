@@ -325,7 +325,9 @@ def test_config_accepts_the_quickstart():
     assert cfg == port.DeepReduceConfig(**QUICKSTART)
     assert (cfg.bloom_blocked, cfg.poly_degree, cfg.sort) == (JConfig().bloom_blocked, JConfig().poly_degree, JConfig().sort)
     assert cfg.codec_params()["poly_degree"] == 5
-    for knob, val in [("index", "hash"), ("value", "polyfit_host"), ("sort", 1), ("poly_degree", -1)]:
+    for knob, val in [("index", "hash"), ("value", "sketch"), ("sort", 1), ("poly_degree", -1)]:
         with pytest.raises(port.ConfigError) as e:
             port.DeepReduceConfig(**{**QUICKSTART, knob: val})
         assert e.value.knob == knob
+    # the host PolyFit composes with the quick start's bloom index, as in JAX
+    assert port.DeepReduceConfig(**{**QUICKSTART, "value": "polyfit_host"}).value == "polyfit_host"

@@ -272,7 +272,9 @@ def test_port_imports_no_jax():
         " deepreduce_tpu_torch.exchange, deepreduce_tpu_torch.numerics, deepreduce_tpu_torch.fedavg,"
         " deepreduce_tpu_torch.fedsim, deepreduce_tpu_torch.fedsim.round, deepreduce_tpu_torch.fedsim.codec_tree,"
         " deepreduce_tpu_torch.models.mobilenet, deepreduce_tpu_torch.models.ncf, deepreduce_tpu_torch.models.bert,"
-        " deepreduce_tpu_torch.checkpoint, deepreduce_tpu_torch.resilience.retry;"
+        " deepreduce_tpu_torch.checkpoint, deepreduce_tpu_torch.resilience.retry, deepreduce_tpu_torch.native,"
+        " deepreduce_tpu_torch.codecs.huffman, deepreduce_tpu_torch.codecs.gzip_codec,"
+        " deepreduce_tpu_torch.codecs.polyfit_host, deepreduce_tpu_torch.codecs.bloom_native;"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'flax', 'optax'))"
         " or m == 'deepreduce_tpu' or m.startswith('deepreduce_tpu.')];"
         "print(bad); sys.exit(1 if bad else 0)"
@@ -311,13 +313,16 @@ def test_config_rejects_unported_knobs_by_name():
     with pytest.raises(port.ConfigError, match="approx_topk") as e:
         port.DeepReduceConfig(**{**FLAGSHIP, "approx_topk": True})
     assert e.value.knob == "approx_topk"
-    # the JAX package's host-side values (its C++ library, pure_callback)
+    # the host codecs run, in the pairings the JAX package runs: not the
+    # exact P2 off its C++ library, nor bloom_native in 'both' mode (FLAGSHIP's)
     for knob, val in [("decode_strategy", "vmap"), ("policy", "conflict_sets"),
-                      ("index", "huffman"), ("index", "bloom_native"), ("index", "integer_native"),
-                      ("value", "gzip"), ("value", "polyfit_host")]:
+                      ("index", "bloom_native"), ("code", "simple16")]:
         with pytest.raises(port.ConfigError) as e:
             port.DeepReduceConfig(**{**FLAGSHIP, knob: val})
         assert e.value.knob == knob
+    for knob, val in [("index", "huffman"), ("index", "integer_native"), ("value", "gzip"),
+                      ("value", "polyfit_host"), ("code", "pfor")]:
+        assert getattr(port.DeepReduceConfig(**{**FLAGSHIP, knob: val}), knob) == val
     # sparse_rs runs, but not its count-sketch route
     with pytest.raises(port.ConfigError) as e:
         port.DeepReduceConfig(communicator="sparse_rs", compressor="topk", deepreduce=None, rs_mode="sketch")
@@ -331,10 +336,10 @@ def test_config_rejects_unported_knobs_by_name():
     assert e.value.knob == "use_pallas"
     assert port.from_params(FLAGSHIP) == port.DeepReduceConfig(**FLAGSHIP)
     # the codec knobs are read only when a codec runs, as in the JAX package:
-    # an unported value codec stands without one and is rejected with one
-    assert port.DeepReduceConfig(value="polyfit_host").deepreduce is None
+    # an unknown value codec stands without one and is rejected with one
+    assert port.DeepReduceConfig(value="sketch").deepreduce is None
     with pytest.raises(port.ConfigError) as e:
-        port.DeepReduceConfig(deepreduce="both", value="polyfit_host")
+        port.DeepReduceConfig(deepreduce="both", value="sketch")
     assert e.value.knob == "value"
     # every on-device value builds
     for knob, val in [("bloom_blocked", "hash"), ("policy", "random"), ("policy", "conflict_sets_approx"),

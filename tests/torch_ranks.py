@@ -26,20 +26,23 @@ def run_rank(rank: int, world: int, store_path: str, out_path: str, arms, shapes
         dist.destroy_process_group()
 
 
-def run_trainer_rank(rank: int, world: int, store_path: str, out_path: str, knobs, batches) -> None:
-    """One `Trainer.step` of a ResNet-20 (seed 0) on `batches[rank]` over a
-    gloo group. Saves this rank's gradient and running statistics from a
-    probe copy of the model (what the step computes locally before any
+def run_trainer_rank(rank: int, world: int, store_path: str, out_path: str, knobs, batches,
+                     model=("ResNet20", {"seed": 0})) -> None:
+    """One `Trainer.step` of `model` (a class of `deepreduce_tpu_torch.models`
+    and its keyword arguments; a ResNet-20 of seed 0 by default) on
+    `batches[rank]` over a gloo group. Saves this rank's gradient and
+    running statistics (none without BatchNorm) from a probe
+    copy of the model (what the step computes locally before any
     collective), then the step's aggregate (`p.grad` after the exchange),
     residuals, parameters, averaged statistics and loss."""
     import copy
 
-    from deepreduce_tpu_torch.models import ResNet20
+    from deepreduce_tpu_torch import models
     from deepreduce_tpu_torch.train import classification_loss
 
     dist.init_process_group("gloo", store=dist.FileStore(store_path, world), rank=rank, world_size=world)
     try:
-        model = ResNet20(seed=0)
+        model = getattr(models, model[0])(**model[1])
         trainer = port.Trainer(model, port.DeepReduceConfig(**knobs), lr=0.1, momentum=0.9, device="cpu",
                                group=dist.group.WORLD)
         state = trainer.init_state()
