@@ -174,6 +174,30 @@ Phases, one line each; any failure raises and exits non-zero:
      `drqsgd_huffman`; then each host codec's encode and decode at d =
      4,053,428 (ratio 0.1), wall ms from a synchronised start to a
      synchronised end, copies included.
+ 16. the resilient fused exchange on the full-width WordLSTM: at W = 1
+     through the same NCCL group, 3 steps an arm with the counts zeroed just
+     before and read just after (`PHASE16`): the flagship with payload
+     checksums and nothing firing (bitwise the flagship after every step;
+     the seal's and the verify's device ms and launches, and a whole step's
+     against the flagship's), with chaos (corrupt, truncate and drop rates;
+     each step's checksum failures equal to the units the same draws change
+     on the host, every failed unit's mean zero and its residual its
+     compensated gradient, bitwise), with the fault plan 0@1:2 (step 1's
+     aggregate zero, its residual the compensated gradient), with the vmap,
+     ring and unfused decodes (each bitwise the flagship), and the masked
+     sparse_rs routes quantized, sparse and oktopk under an all-ones mask
+     (each bitwise its mask-free route, the route card = CPU, qsgd_quantize
+     counted and bitwise its plain version); one qsgd_encode_rows launch a
+     step in the allgather arms on a table bitwise its plain version, no host
+     sync, the payload bytes, rel_volume; then four in-process workers on the
+     one card (`INPROC16`: worker 2 dropped, byte corruption, the checksum)
+     for 3 steps of each of loop, vmap and ring (launches, no host sync,
+     live count 3, failures) and one exchange of full-width gradients with
+     loop card = CPU bitwise (failures, the masked mean over 3 live), vmap
+     bitwise loop and ring within its reordering bound; and
+     `python -m deepreduce_tpu_torch.resilience check` (8 in-process
+     workers on the card) with its four checks true. No hop or gather
+     crosses between cards: one card.
 `--profile` adds one profiled training step after phase 5, after each arm
 of phases 7, 8, 9, 10, 11, 14 and 15, and one profiled round after each arm
 of phase 12: the device's busy and idle share over the step or round, its
@@ -1161,13 +1185,15 @@ def phase_resnet(seed: int, group, profile: bool = False) -> dict:
     return results
 
 
-def _route_card_vs_cpu(trainer, state, batch) -> dict:
+def _route_card_vs_cpu(trainer, state, batch, mask: bool = False) -> dict:
     """One step's compensated full-width gradient (a probe copy of the model
     at the trainer's state) through the arm's route on the card (the
     trainer's exchanger, over the NCCL group) and on the CPU (an exchanger
     without a group) under the same Philox streams: the mean, the
     own-transmitted tensor, the observables and the quantized levels bitwise
-    equal. Returns the comparison's summary and the qar path's padded input."""
+    equal. With `mask`, the route's participation-mask variant under an
+    all-ones mask. Returns the comparison's summary and the qar path's
+    padded input."""
     import copy
 
     import torch
@@ -1188,7 +1214,8 @@ def _route_card_vs_cpu(trainer, state, batch) -> dict:
     for dev, e in (("cuda", ex), ("cpu", cpu_ex)):
         x = flat.to(dev)
         collect = {}
-        mean, own, _ = e.route_flat(x, step=state.step, collect=collect)
+        m = torch.ones(e.num_workers, dtype=torch.bool, device=dev) if mask else None
+        mean, own, _ = e.route_flat(x, step=state.step, collect=collect, mask=m)
         out = {"mean": mean, **collect}
         if own is not None:
             out["own"] = own
@@ -2509,8 +2536,386 @@ def compare_encode(old_source: str, seed: int) -> None:
     print("compare summary (device us per launch, two turns each): " + json.dumps(summary), flush=True)
 
 
+# phase 16: the resilient fused exchange on the full-width WordLSTM, knobs
+# over the flagship's. W = 1 through the NCCL group: (knobs, the arm whose
+# parameters and residuals it must equal bitwise after every step, or None).
+# A fault_plan entry for worker 7 is past W and ignored, as in the JAX
+# package: the mask is all ones, so the masked route runs.
+RES16 = dict(resilience=True, payload_checksum=True)
+PHASE16 = {
+    "drqsgd_bloom_checksum": (RES16, "drqsgd_bloom"),
+    "drqsgd_bloom_chaos": (dict(RES16, chaos_corrupt_rate=0.5, chaos_truncate_rate=0.3, chaos_drop_rate=0.2), None),
+    "drqsgd_bloom_faultplan": (dict(resilience=True, fault_plan="0@1:2"), None),
+    "drqsgd_bloom_vmap": (dict(decode_strategy="vmap"), "drqsgd_bloom"),
+    "drqsgd_bloom_ring": (dict(decode_strategy="ring"), "drqsgd_bloom"),
+    "drqsgd_bloom_unfused": (dict(fused=False), "drqsgd_bloom"),
+    "rs_quantized_masked": (dict(RS, rs_mode="quantized", resilience=True, fault_plan="7@0:1000"), "rs_quantized"),
+    "rs_sparse_masked": (dict(RS, rs_mode="sparse", resilience=True, fault_plan="7@0:1000"), "rs_sparse"),
+    "rs_oktopk_masked": (dict(RS, rs_mode="oktopk", resilience=True, fault_plan="7@0:1000"), "rs_oktopk"),
+}
+# the references those arms are held to, run in phase 16 from the same weights
+REF16 = {"drqsgd_bloom": {}, "rs_quantized": dict(RS, rs_mode="quantized"), "rs_sparse": dict(RS, rs_mode="sparse"),
+         "rs_oktopk": dict(RS, rs_mode="oktopk")}
+PAYLOAD16 = {  # the JAX package's payload_bytes at W = 1 (test_phase16_wire_constants_match_jax), a
+    # 4-byte checksum word for each of the 17 tensors
+    "drqsgd_bloom_checksum": 1_189_616 + 4 * 17, "drqsgd_bloom_chaos": 1_189_616 + 4 * 17,
+    "drqsgd_bloom_faultplan": 1_189_616, "drqsgd_bloom_vmap": 1_189_616, "drqsgd_bloom_ring": 0,
+    "drqsgd_bloom_unfused": 1_189_616, "rs_quantized_masked": 7_354_832 + 4_050_944,  # + the shard all_gather
+    "rs_sparse_masked": 9_721_776, "rs_oktopk_masked": 9_738_160,
+}
+# W = 4 in-process workers on the one card: the flagship with worker 2
+# dropped, the checksum and byte corruption, in each decode strategy
+W16 = 4
+INPROC16 = dict(RES16, fault_plan="2@0:1000", chaos_corrupt_rate=0.6)
+STRATEGIES16 = {"loop": {}, "vmap": dict(decode_strategy="vmap"), "ring": dict(decode_strategy="ring")}
+EPS32 = 2.0 ** -24
+
+
+def _snapshot16(state) -> dict:
+    return {**{f"param/{n}": p.detach().clone() for n, p in state.params.items()},
+            **{f"res/{n}": r.clone() for n, r in (state.residuals or {}).items()}}
+
+
+def _steps16(trainer, state, batches, steps: int, spy: bool = False):
+    """`steps` counted training steps (CUDA events, host clock, host syncs
+    under the sync debug mode, each step's `collect`), with the parameters
+    and residuals snapshot after each step, outside the timed region. With
+    `spy`, the exchanger's wire boundary and its `finish` are recorded: the
+    buffer before and after chaos, the compensated gradient, the mean and
+    the new residuals of each step."""
+    import torch
+
+    ex = trainer.exchanger
+    records = {"perturb": [], "finish": []}
+    if spy:
+        perturb, finish = ex.perturb, ex.finish
+
+        def perturb_spy(buf, **kw):
+            out = perturb(buf, **kw)
+            records["perturb"].append((buf.clone(), out, kw))
+            return out
+
+        def finish_spy(grads, compensated, mean, own):
+            agg, new_res = finish(grads, compensated, mean, own)
+            records["finish"].append((compensated, mean, new_res))
+            return agg, new_res
+
+        ex.perturb, ex.finish = perturb_spy, finish_spy
+    out = {"losses": [], "dev_ms": [], "host_ms": [], "syncs": [], "collects": [], "snaps": []}
+    try:
+        for i in range(steps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            collect = {}
+            t0 = time.perf_counter()
+            start.record()
+            state, loss, wire, sync = _step_counting_syncs(trainer, state, batches(i), collect=collect)
+            end.record()
+            end.synchronize()
+            out["host_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["dev_ms"].append(start.elapsed_time(end))
+            out["losses"].append(float(loss))
+            out["syncs"].append(sync)
+            out["collects"].append(collect)
+            out["snaps"].append(_snapshot16(state))
+    finally:
+        if spy:
+            del ex.perturb, ex.finish
+    out["wire"], out["records"] = wire, records
+    return state, out
+
+
+def _same16(a: dict, b: dict, what: str) -> None:
+    import torch
+
+    for key, ref in b.items():
+        if not torch.equal(a[key], ref):
+            diff = float((a[key].double() - ref.double()).abs().max())
+            _check(False, f"{what}: {key} differs (max |diff| {diff})")
+
+
+def _chaos_expected16(ex, records) -> dict:
+    """The chaos arm's failures from the same draws on the host: each step's
+    clean buffer perturbed on the CPU from the host stream (bitwise the
+    card's perturbed buffer), and a unit fails where its bytes changed.
+    Checks that every failed unit's mean is zero and its residual the
+    compensated gradient, bitwise."""
+    import torch
+
+    per_step, events = [], []
+    for (clean, card_out, kw), (comp, mean, new_res) in zip(records["perturb"], records["finish"]):
+        host_out = ex.chaos.perturb(clean.cpu(), worker=ex.rank, **kw)
+        _check(torch.equal(host_out, card_out.cpu()), "the card's chaos differs from the host's draws")
+        events.append({k: bool(v) for k, v in ex.chaos.events(step=kw["step"], worker=ex.rank).items()})
+        failed = [u for u in ex.fused.units if not torch.equal(clean[ex.fused.span(u)].cpu(),
+                                                               host_out[ex.fused.span(u)])]
+        per_step.append(len(failed))
+        for u in failed:
+            _check(not bool(mean[u].any()), f"chaos: failed unit {u} has a nonzero mean")
+            _check(torch.equal(new_res[u], comp[u]), f"chaos: failed unit {u}'s residual is not its compensated "
+                                                     "gradient")
+    return {"failed_units_per_step": per_step, "events": events}
+
+
+def _inproc_exchange16(seed: int) -> dict:
+    """One W = 4 in-process exchange of full-width random gradients under
+    INPROC16 (worker 2 dropped, byte corruption, the checksum): loop on the
+    card and on the CPU bitwise equal (aggregates, residuals, the failure
+    count; the mean divides by the live count 3); vmap bitwise loop on the
+    card; ring with loop's residuals bitwise (the own decode is the same)
+    and its aggregate within the reordering bound 2 (W - 1) W eps32 M, M the
+    largest |compensated| + |new residual| (a bound on every decode)."""
+    import torch
+
+    from deepreduce_tpu_torch import GradientExchanger, InProcessGroup
+    from deepreduce_tpu_torch.models import WordLSTM
+    from deepreduce_tpu_torch.ops import launch_counts, reset_launch_counts
+    from deepreduce_tpu_torch.resilience.faults import participation_mask
+
+    shapes = {n: tuple(p.shape) for n, p in WordLSTM(embed_dim=96, hidden_dim=670).flax_params().items()}
+    gen = torch.Generator().manual_seed(seed + 16)
+    grads = [{n: torch.randn(s, generator=gen) * 1e-2 for n, s in shapes.items()} for _ in range(W16)]
+    res = [{n: torch.randn(s, generator=gen) * 1e-3 for n, s in shapes.items()} for _ in range(W16)]
+    out = {}
+    for key, dev, knobs in (("loop/cuda", "cuda", {}), ("loop/cpu", "cpu", {}),
+                            ("vmap/cuda", "cuda", STRATEGIES16["vmap"]), ("ring/cuda", "cuda", STRATEGIES16["ring"])):
+        cfg = _flagship_cfg(seed, **INPROC16, **knobs)
+
+        def work(coll, g, r, dev=dev, cfg=cfg):
+            ex = GradientExchanger(shapes, cfg, device=dev, group=coll)
+            mask = participation_mask(W16, 1, cfg.seed, fault_plan=cfg.fault_plan, device=dev)
+            collect = {}
+            agg, new_r, _ = ex.exchange({n: t.to(dev) for n, t in g.items()}, {n: t.to(dev) for n, t in r.items()},
+                                        step=1, collect=collect, mask=mask)
+            return ({n: t.cpu() for n, t in agg.items()}, {n: t.cpu() for n, t in new_r.items()},
+                    float(collect["checksum_failures"]), float(mask.sum()))
+
+        reset_launch_counts()
+        out[key] = InProcessGroup(W16).run(work, grads, res)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            _check(launch_counts()["qsgd_encode_rows"] == W16, f"{key}: launches {launch_counts()}")
+    fails, ring_err, ring_bound = [], 0.0, 0.0
+    for w in range(W16):
+        ref = out["loop/cpu"][w]
+        _check(ref[3] == 3.0, f"worker {w}: live count {ref[3]}")
+        fails.append(ref[2])
+        for key in ("loop/cuda", "vmap/cuda", "ring/cuda"):
+            got = out[key][w]
+            _check(got[2] == ref[2], f"{key} worker {w}: checksum failures {got[2]} vs {ref[2]}")
+            for n in shapes:
+                _check(torch.equal(got[1][n], ref[1][n]), f"{key} worker {w}: residual {n} differs from loop/cpu")
+                if key != "ring/cuda":
+                    _check(torch.equal(got[0][n], ref[0][n]), f"{key} worker {w}: aggregate {n} differs")
+        m = max(float((grads[v][n] + res[v][n]).abs().max() + out["loop/cpu"][v][1][n].abs().max())
+                for v in range(W16) for n in shapes)
+        bound = 2 * (W16 - 1) * W16 * EPS32 * m
+        err = max(float((out["ring/cuda"][w][0][n] - ref[0][n]).abs().max()) for n in shapes)
+        _check(err <= bound, f"ring worker {w}: aggregate differs from loop by {err} > {bound}")
+        ring_err, ring_bound = max(ring_err, err), max(ring_bound, bound)
+    for n in shapes:  # the dropped worker kept its compensated gradient
+        _check(torch.equal(out["loop/cpu"][2][1][n], grads[2][n] + res[2][n]), f"dropped worker's residual {n}")
+    _check(sum(fails) > 0, "no payload failed its checksum")
+    return {"bitwise": ["loop card = CPU", "vmap = loop", "ring residuals = loop"], "checksum_failures": fails,
+            "live_workers": 3, "ring_vs_loop_max_abs": ring_err, "ring_vs_loop_bound": ring_bound,
+            "ring_bitwise_loop": ring_err == 0.0, "tensors": len(shapes)}
+
+
+def _inproc16(seed: int, tokens) -> dict:
+    """The W = 4 in-process arms: 3 Trainer steps of each decode strategy
+    under INPROC16, one thread a worker, each on its quarter of the batch:
+    launches, host syncs, losses, failures, live counts and times."""
+    import warnings
+
+    import torch
+
+    from deepreduce_tpu_torch import InProcessGroup, Trainer
+    from deepreduce_tpu_torch.models import WordLSTM
+    from deepreduce_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    shard = tokens.shape[1] // W16
+    results = {}
+    for name, knobs in STRATEGIES16.items():
+        cfg = _flagship_cfg(seed, **INPROC16, **knobs)
+        # built before the counted run: moving a model to the card copies it
+        group = InProcessGroup(W16)
+        trainers = [Trainer(WordLSTM(seed=seed), cfg, lr=0.1, momentum=0.9, device="cuda", group=group.member(r))
+                    for r in range(W16)]
+        states = [t.init_state() for t in trainers]
+
+        def worker(coll, trainer, state):
+            lo = coll.rank * shard
+            steps = []
+            coll.all_reduce_sum(torch.zeros(1, device="cuda"))  # every worker built before the clock starts
+            for i in range(ARM_STEPS):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                collect = {}
+                start.record()
+                state, loss, wire = trainer.step(state, (tokens[i, lo : lo + shard, :-1],
+                                                         tokens[i, lo : lo + shard, 1:]), collect=collect)
+                end.record()
+                steps.append((start, end, loss, collect))
+            return state, steps, trainer.exchanger.payload_bytes(), wire
+
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                outs = group.run(worker, trainers, states)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = sorted({f"{w.filename}:{w.lineno}" for w in caught if "called a synchronizing" in str(w.message)})
+        launches = launch_counts()
+        expected = {"qsgd_quantize": 0, "qsgd_encode_rows": W16 * ARM_STEPS}
+        _check(launches == expected, f"inproc_{name}: kernel launches {launches}, expected {expected}")
+        _check(not syncs, f"inproc_{name}: host syncs at {syncs}")
+        state0, steps0, payload, wire = outs[0]
+        losses = [float(s[2]) for s in steps0]
+        _check(all(math.isfinite(l) for l in losses), f"inproc_{name}: losses {losses}")
+        for w, (st, _, _, _) in enumerate(outs):
+            _check(all(bool(torch.isfinite(p).all()) for p in st.params.values()), f"inproc_{name}: worker {w}")
+        live = [float(s[3]["live_workers"]) for s in steps0]
+        _check(live == [3.0] * ARM_STEPS, f"inproc_{name}: live workers {live}")
+        dev_ms = [s[0].elapsed_time(s[1]) for s in steps0]
+        results[f"inproc_{name}"] = {
+            "losses": losses, "worker0_step_ms_all": dev_ms, "step_ms_median": statistics.median(dev_ms),
+            "step_ms_spread": max(dev_ms) - min(dev_ms),
+            "wall_ms_all_steps": wall, "launches": launches, "host_syncs": 0,
+            "checksum_failures_per_step": [float(s[3]["checksum_failures"]) for s in steps0], "live_workers": live,
+            "payload_bytes": payload, "rel_volume": float(wire.rel_volume()),
+        }
+        print(f"phase 16 ok: inproc_{name} " + json.dumps(results[f"inproc_{name}"]), flush=True)
+        del outs, trainers, states
+        torch.cuda.empty_cache()
+    return results
+
+
+def _checksum_cost16(ex, buf) -> dict:
+    """Device ms and launches of what the checksum adds to a W = 1 step: the
+    seal of every payload (encode side) and the batched verify of the
+    gathered row (decode side)."""
+    def seal():
+        for u in ex.fused.units:
+            ex.layouts[u].seal(buf[ex.fused.span(u)])
+
+    rows = buf[None]
+    seal_ms, seal_launches = _device_ms(seal, 20)
+    verify_ms, verify_launches = _device_ms(lambda: ex.fused.verify(rows), 20)
+    return {"seal_ms": seal_ms, "seal_launches": seal_launches, "verify_ms": verify_ms,
+            "verify_launches": verify_launches, "ms": seal_ms + verify_ms, "launches": seal_launches + verify_launches}
+
+
+def phase_resilience(seed: int, tokens, group, ref_loss: float):
+    """Phase 16: the resilient fused exchange. Returns ({arm: result} of the
+    arms whose launches the kernels line counts, the other results)."""
+    import subprocess as sp
+
+    import torch
+
+    from deepreduce_tpu_torch import Trainer
+    from deepreduce_tpu_torch.models import WordLSTM
+    from deepreduce_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    tokens3 = tokens[:ARM_STEPS].cuda()
+    batches = lambda i: (tokens3[i, :, :-1], tokens3[i, :, 1:])
+    arms, extras, refs, timing = {}, {}, {}, {}
+    for ref, knobs in REF16.items():
+        trainer = Trainer(WordLSTM(seed=seed), _flagship_cfg(seed, **knobs), lr=0.1, momentum=0.9, device="cuda",
+                          group=group)
+        state, out = _steps16(trainer, trainer.init_state(), batches, ARM_STEPS)
+        refs[ref] = out["snaps"]
+        if ref == "drqsgd_bloom":
+            timing[ref] = _device_ms(lambda: trainer.step(state, batches(0)), 3)
+        del trainer, state
+    for arm, (knobs, ref) in PHASE16.items():
+        cfg = _flagship_cfg(seed, **knobs)
+        trainer = Trainer(WordLSTM(seed=seed), cfg, lr=0.1, momentum=0.9, device="cuda", group=group)
+        state = trainer.init_state()
+        ex = trainer.exchanger
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        spy = arm in ("drqsgd_bloom_chaos", "drqsgd_bloom_faultplan")
+        state, out = _steps16(trainer, state, batches, ARM_STEPS, spy=spy)
+        launches = launch_counts()
+        qsgd = cfg.communicator == "allgather"
+        expected = {"qsgd_quantize": ARM_STEPS if cfg.rs_mode == "quantized" else 0,
+                    "qsgd_encode_rows": ARM_STEPS if qsgd else 0}
+        _check(launches == expected, f"{arm}: kernel launches {launches}, expected {expected}")
+        _check_trained(state, out["losses"], ref_loss, arm)
+        _check(not any(out["syncs"]), f"{arm}: host syncs in the step: {out['syncs']}")
+        _check(ex.payload_bytes() == PAYLOAD16[arm], f"{arm}: payload_bytes {ex.payload_bytes()}, "
+                                                     f"expected {PAYLOAD16[arm]}")
+        if ref is not None:
+            for i in range(ARM_STEPS):
+                _same16(out["snaps"][i], refs[ref][i], f"{arm} vs {ref} after step {i}")
+        dev_ms = out["dev_ms"]
+        res = {
+            "losses": out["losses"], "step_ms_all": dev_ms, "step_ms_median": statistics.median(dev_ms),
+            "step_ms_spread": max(dev_ms) - min(dev_ms), "host_step_ms_all": out["host_ms"],
+            "rel_volume": float(out["wire"].rel_volume()), "payload_bytes": ex.payload_bytes(), "launches": launches,
+            "host_syncs_per_step": [len(x) for x in out["syncs"]], "bitwise_equal_to": ref,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        }
+        collects = out["collects"]
+        if cfg.payload_checksum:
+            res["checksum_failures_per_step"] = [float(c["checksum_failures"]) for c in collects]
+        if cfg.resilience:
+            res["live_workers_per_step"] = [float(c["live_workers"]) for c in collects]
+        if arm == "drqsgd_bloom_checksum":
+            _check(res["checksum_failures_per_step"] == [0.0] * ARM_STEPS, f"{arm}: failures with nothing firing")
+            buf = ex.encode_worker({n: torch.zeros(s, device="cuda") for n, s in ex.shapes.items()}, None, step=0,
+                                   worker=0)[0]
+            res["checksum_cost"] = _checksum_cost16(ex, buf)
+            res["step_device_ms_and_launches"] = _device_ms(lambda: trainer.step(state, batches(0)), 3)
+            res["flagship_step_device_ms_and_launches"] = timing["drqsgd_bloom"]
+        if arm == "drqsgd_bloom_chaos":
+            expect = _chaos_expected16(ex, out["records"])
+            _check(res["checksum_failures_per_step"] == [float(x) for x in expect["failed_units_per_step"]],
+                   f"{arm}: failures {res['checksum_failures_per_step']} vs the host's {expect}")
+            _check(sum(expect["failed_units_per_step"]) > 0, f"{arm}: no payload failed")
+            res["host_expected"] = expect
+        if arm == "drqsgd_bloom_faultplan":
+            _check(res["live_workers_per_step"] == [1.0, 0.0, 1.0], f"{arm}: live {res['live_workers_per_step']}")
+            comp, mean, new_res = out["records"]["finish"][1]
+            for n in comp:
+                _check(not bool(mean[n].any()), f"{arm}: step 1 aggregate {n} is not zero")
+                _check(torch.equal(new_res[n], comp[n]), f"{arm}: step 1 residual {n} is not the compensated one")
+        if qsgd:
+            segs = _main_path_table(ex, seed=61)
+            got, ref_rows = _encode_on_card_and_cpu(segs, ex.fused_nbytes, cfg.quantum_num, cfg.bucket_size)
+            res["qsgd_table_max_abs_err"] = _check_rows(got, ref_rows, segs, cfg.bucket_size, cfg.quantum_num,
+                                                        f"the {arm} table")
+        else:
+            res["card_vs_cpu"], _ = _route_card_vs_cpu(trainer, state, batches(0), mask=True)
+        print(f"phase 16 ok: {arm} " + json.dumps(res), flush=True)
+        arms[arm] = res
+        del trainer, state, out
+        torch.cuda.empty_cache()
+    arms.update(_inproc16(seed, tokens3))
+    extras["inproc_exchange"] = _inproc_exchange16(seed)
+    print("phase 16 ok: inproc_exchange " + json.dumps(extras["inproc_exchange"]), flush=True)
+    # the CLI, as a user runs it: 8 in-process workers on the card
+    t0 = time.perf_counter()
+    cli = sp.run([sys.executable, "-m", "deepreduce_tpu_torch.resilience", "check"], capture_output=True, text=True,
+                 timeout=900, cwd=os.path.dirname(os.path.abspath(__file__)))
+    _check(cli.returncode == 0, f"resilience check exited {cli.returncode}: {cli.stdout[-2000:]} {cli.stderr[-2000:]}")
+    report = json.loads(cli.stdout)
+    _check(report["ok"] and all(report["checks"].values()) and report["device"].startswith("cuda"),
+           f"resilience check: {report}")
+    extras["cli_check"] = dict(report, wall_s=time.perf_counter() - t0)
+    print("phase 16 ok: cli_check " + json.dumps(extras["cli_check"]), flush=True)
+    print("phase 16 note: W = 1 runs one rank of NCCL and W = 4 runs four threads on one card, so no hop or "
+          "all_gather crosses between cards here; the ring's hops over NCCL between cards are not measured",
+          flush=True)
+    return arms, extras
+
+
 def phase_timing(ex, errs: dict, by_arm: dict, quantize: dict) -> None:
-    # each path's run, counted from 0 just before it (phases 5 and 7-14)
+    # each path's run, counted from 0 just before it (phases 5 and 7-16)
     total = lambda name: sum(counts[name] for counts in by_arm.values())
     kernels = [
         _quantize_entry(quantize, total("qsgd_quantize"), errs["qsgd_quantize"]),
@@ -2576,12 +2981,13 @@ def main(argv=None) -> int:
         zoo = phase_zoo(args.seed, tokens, dist.group.WORLD, res["cpu_ref_loss0"], args.profile)
         models14 = phase_models(args.seed, dist.group.WORLD, args.profile)
         host15 = phase_host_codecs(args.seed, tokens, dist.group.WORLD, res["cpu_ref_loss0"], args.profile)
+        resil16, _ = phase_resilience(args.seed, tokens, dist.group.WORLD, res["cpu_ref_loss0"])
     finally:
         dist.destroy_process_group()
     fed = phase_fedavg(args.seed, args.profile)
     table6 = phase_table6(args.seed)
     by_arm = {"drqsgd_bloom": res["launches"]}
-    for phase in (arms, resnet, in_coll, bucketed, zoo, models14, fed, table6, host15):
+    for phase in (arms, resnet, in_coll, bucketed, zoo, models14, fed, table6, host15, resil16):
         by_arm.update({a: r["launches"] for a, r in phase.items()})
     phase_timing(ex, errs, by_arm, quantize)
     print(f"chip_smoke total {time.perf_counter() - t0:.1f} s", flush=True)

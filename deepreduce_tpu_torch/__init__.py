@@ -40,7 +40,10 @@ Table-6 natural-sparsity encode; and the paper's remaining models at their
 published widths, ResNet-50 (in bfloat16 as `bench.py` trains it),
 DenseNet-40, VGG16 and BERT-base with dense attention and its next-token
 loss (`train.next_token_loss`), with a checkpoint that carries the
-residuals (`checkpoint.py`). Collectives
+residuals (`checkpoint.py`); and the resilient fused exchange: the unfused
+exchange, the vmap and ring decodes (`comm_ring.py`), the payload checksum,
+chaos at the wire boundary and participation masks (`resilience/`), with
+the JAX package's reason codes on every rejection. Collectives
 run through `collectives.Collectives`: a `torch.distributed` group, or an
 `InProcessGroup` of W lockstep workers in one process.
 """

@@ -2,9 +2,11 @@
 
 The in-collective communicators (`qar.py`, `sparse_rs.py`) and the exchange
 are written against `Collectives`: five operations on one tensor each, in
-rank order, and an all_gather that returns before it completes
-(`all_gather_async`, for the bucketed exchange's schedules). Three
-implementations:
+rank order, an all_gather that returns before it completes
+(`all_gather_async`, for the bucketed exchange's schedules) and the ring
+hop `ring_shift` (send to rank + 1, receive from rank - 1, also returned
+before it completes: the ring decode's transfer overlaps its decode).
+Three implementations:
 
 - `ProcessGroupCollectives`: a `torch.distributed` group, NCCL on the card
   (int8 `reduce_scatter_tensor` and `all_to_all_single` are NCCL-native),
@@ -29,18 +31,19 @@ import torch.distributed as dist
 
 
 class Gathered:
-    """An all_gather in flight; `wait()` returns its [W, ...] result. On
-    NCCL the wait makes the current CUDA stream wait for the collective (the
-    host does not block); a gather that completed at once returns it."""
+    """A collective in flight (an all_gather or a ring hop); `wait()`
+    returns its result. On NCCL the wait makes the current CUDA stream wait
+    for the collective (the host does not block); a collective that
+    completed at once returns it."""
 
     def __init__(self, out: torch.Tensor, work=None):
         self._out = out
-        self._work = work
+        self._work = [] if work is None else list(work) if isinstance(work, (list, tuple)) else [work]
 
     def wait(self) -> torch.Tensor:
-        if self._work is not None:
-            self._work.wait()
-            self._work = None
+        for work in self._work:
+            work.wait()
+        self._work = []
         return self._out
 
 
@@ -56,6 +59,12 @@ class Collectives:
         """`all_gather(x)`, started now and read at `wait()`; `x` must not
         change before then. Here it completes at once."""
         return Gathered(self.all_gather(x))
+
+    def ring_shift(self, x: torch.Tensor) -> Gathered:
+        """Send `x` to worker rank + 1 and receive worker rank - 1's (mod
+        W), started now and read at `wait()`; `x` must not change before
+        then."""
+        raise NotImplementedError
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         """x[W, ...] -> [W, ...]: row j of every worker lands on worker j;
@@ -79,6 +88,9 @@ class Collectives:
 
 class Solo(Collectives):
     """One worker, no group: every collective is the identity."""
+
+    def ring_shift(self, x):
+        return Gathered(x)
 
     def all_to_all(self, x):
         return x
@@ -109,6 +121,16 @@ class ProcessGroupCollectives(Collectives):
         out = torch.empty_like(x)
         dist.all_to_all_single(out, x, group=self.group)
         return out
+
+    def ring_shift(self, x):
+        # the receive is posted with the send; the caller waits on both
+        # before reading (an early read would see stale bytes, no error)
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        W, r = self.world_size, self.rank
+        peer = lambda w: dist.get_global_rank(self.group, w % W)
+        ops = [dist.P2POp(dist.isend, x, peer(r + 1), self.group), dist.P2POp(dist.irecv, out, peer(r - 1), self.group)]
+        return Gathered(out, dist.batch_isend_irecv(ops))
 
     def all_gather(self, x):
         return self.all_gather_async(x).wait()
@@ -194,6 +216,9 @@ class InProcessMember(Collectives):
         for p in parts:  # worker order, from zero
             acc = acc + p
         return acc
+
+    def ring_shift(self, x):
+        return Gathered(self._group.exchange(self.rank, x)[(self.rank - 1) % self.world_size])
 
     def all_to_all(self, x):
         return torch.stack([p[self.rank] for p in self._group.exchange(self.rank, x)])

@@ -1,8 +1,13 @@
 """Gradient exchange: compress -> one fused uint8 allgather -> decode ->
-mean, ported from `deepreduce_tpu/comm.py` for `communicator='allgather'`,
-`fused=True` and `decode_strategy='loop'`; the bucketed exchange
-(`bucket_bytes`, `comm_bucket.py`); the dense baseline; and the
-in-collective communicators `qar` and `sparse_rs`.
+mean, ported from `deepreduce_tpu/comm.py` for `communicator='allgather'`
+with the 'loop', 'vmap' and 'ring' decodes (`comm_ring.py`) and unfused
+(`fused=False`: one all_gather per tensor); the bucketed exchange
+(`bucket_bytes`, `comm_bucket.py`); the dense baseline; the in-collective
+communicators `qar` and `sparse_rs`; and the resilience seams: a checksum
+word after every payload (`PayloadLayout.seal` / `verify`), the chaos
+injector at the wire boundary and the participation mask (`exchange`'s
+`mask`). Without them configured the exchange runs exactly the ops it
+runs without the subsystem.
 
 The dense baseline (`communicator='allreduce'`, or no codec and the
 `none` sparsifier) is the mean over workers through one `all_reduce` of
@@ -60,36 +65,73 @@ from typing import Dict, List, Optional, Tuple, Union
 import torch
 import torch.distributed as dist
 
-from deepreduce_tpu_torch import costmodel, memory, qar, sparse_rs
+from deepreduce_tpu_torch import costmodel, memory, qar, sparse_rs, u32
 from deepreduce_tpu_torch.collectives import Collectives, collectives_for
+from deepreduce_tpu_torch.comm_ring import ring_decode_exchange
 from deepreduce_tpu_torch.config import ConfigError, DeepReduceConfig
 from deepreduce_tpu_torch.device import DeviceLike, resolve_device
-from deepreduce_tpu_torch.metrics import WireStats, combine
+from deepreduce_tpu_torch.metrics import WireStats, combine, ring_wire_bytes
 from deepreduce_tpu_torch.numerics import mean_of_sum
+from deepreduce_tpu_torch.resilience.chaos import ChaosInjector
 from deepreduce_tpu_torch.sparse import per_tensor_stream
 from deepreduce_tpu_torch.wrappers import TensorCodec, encode_group
 
 Tree = Dict[str, torch.Tensor]
+
+CHECKSUM_WEIGHT = 2654435761  # the position weight's multiplier (Knuth's)
+CHECKSUM_SALT = 0xA5A5A5A5  # makes an all-zero payload fail its zeroed word
 
 
 def _itemsize(dtype: torch.dtype) -> int:
     return torch.empty((), dtype=dtype).element_size()
 
 
+def _checksum_weights(n: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 16-bit halves (int64 [n] each) of byte i's weight
+    `(i * 2654435761 + 1) mod 2**32`."""
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    w = (u32.mul_lo(i, CHECKSUM_WEIGHT) + 1) & u32.MASK32
+    return w & 0xFFFF, w >> 16
+
+
+def checksum_word(body: torch.Tensor, weights: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    """The payload checksum of uint8 [..., n] bodies: int64 [...] words
+    `(sum_i byte_i * (i * 2654435761 + 1)) mod 2**32 XOR 0xA5A5A5A5`, the
+    JAX package's uint32 word (`PayloadLayout._checksum_word`). The weight
+    is split into 16-bit halves so that each half-sum stays exact in int64
+    up to 2**39 bytes; `weights` are the cached halves."""
+    wl, wh = _checksum_weights(body.shape[-1], body.device) if weights is None else weights
+    b = body.to(torch.int64)
+    lo, hi = (b * wl).sum(-1), (b * wh).sum(-1)
+    return ((lo + ((hi & 0xFFFF) << 16)) & u32.MASK32) ^ CHECKSUM_SALT
+
+
 class PayloadLayout:
     """Static byte layout of one tensor's payload inside the fused buffer:
-    each leaf's little-endian bytes, back to back (no checksum word)."""
+    each leaf's little-endian bytes, back to back, then with `checksum` a
+    little-endian uint32 checksum word of those bytes (`checksum_word`)."""
 
-    def __init__(self, specs: List[Tuple[Tuple[int, ...], torch.dtype]]):
+    def __init__(self, specs: List[Tuple[Tuple[int, ...], torch.dtype]], *, checksum: bool = False):
         self.specs = [(tuple(s), dt) for s, dt in specs]
         self.leaf_bytes = [math.prod(s) * _itemsize(dt) for s, dt in self.specs]
         self.leaf_offsets = [sum(self.leaf_bytes[:i]) for i in range(len(self.leaf_bytes))]
-        self.nbytes = int(sum(self.leaf_bytes))
+        self.checksum = bool(checksum)
+        self.payload_nbytes = int(sum(self.leaf_bytes))
+        self.nbytes = self.payload_nbytes + (4 if self.checksum else 0)
+        self._weights: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def weights(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The checksum's weight halves on `device`, made once."""
+        device = torch.device(device)
+        if device not in self._weights:
+            self._weights[device] = _checksum_weights(self.payload_nbytes, device)
+        return self._weights[device]
 
     def pack(self, leaves) -> torch.Tensor:
         """payload leaves -> uint8[nbytes]."""
         buf = torch.empty(self.nbytes, dtype=torch.uint8, device=leaves[0].device)
         self.write_into(buf, leaves)
+        self.seal(buf)
         return buf
 
     def write_into(self, dst: torch.Tensor, leaves, skip=()) -> None:
@@ -99,8 +141,28 @@ class PayloadLayout:
             if nb and i not in skip:
                 dst[off : off + nb].copy_(leaf.reshape(-1).contiguous().view(torch.uint8))
 
+    def seal(self, dst: torch.Tensor) -> None:
+        """Write the checksum word of the payload bytes of `dst`
+        (uint8[nbytes]) after them; nothing without `checksum`."""
+        if self.checksum:
+            word = checksum_word(dst[: self.payload_nbytes], self.weights(dst.device))
+            dst[self.payload_nbytes :].copy_(u32.to_bits(word.reshape(1)).view(torch.uint8))
+
+    def verify(self, rows: torch.Tensor) -> torch.Tensor:
+        """f32 [...] gates of uint8 [..., nbytes] buffers: 1.0 where the
+        stored word matches the payload bytes (or without `checksum`), else
+        0.0. A caller selects the decode with the gate (`torch.where`),
+        never multiplies by it: corrupt bytes can decode to Inf or NaN."""
+        if not self.checksum:
+            return torch.ones(rows.shape[:-1], dtype=torch.float32, device=rows.device)
+        pn = self.payload_nbytes
+        tail = rows[..., pn : pn + 4].to(torch.int64)
+        stored = tail[..., 0] | (tail[..., 1] << 8) | (tail[..., 2] << 16) | (tail[..., 3] << 24)
+        return (stored == checksum_word(rows[..., :pn], self.weights(rows.device))).to(torch.float32)
+
     def unpack(self, buf: torch.Tensor) -> List[torch.Tensor]:
-        """uint8[nbytes] -> payload leaves (inverse of pack)."""
+        """uint8[nbytes] -> payload leaves (inverse of pack; the checksum
+        word is not read)."""
         leaves = []
         for (shape, dt), off, nb in zip(self.specs, self.leaf_offsets, self.leaf_bytes):
             seg = buf[off : off + nb]
@@ -110,18 +172,29 @@ class PayloadLayout:
         return leaves
 
 
+def _sum_rows(parts) -> torch.Tensor:
+    """parts[0] + parts[1] + ..., left to right from zero: the JAX
+    package's in-order sum of a group's rows."""
+    acc = torch.zeros_like(parts[0])
+    for p in parts:
+        acc = acc + p
+    return acc
+
+
 class FusedBuffer:
     """Named codec units (tensors, or the bucketed exchange's buckets) whose
-    payloads sit back to back in one uint8 buffer, in the units' order."""
+    payloads sit back to back in one uint8 buffer, in the units' order;
+    with `checksum` each payload is followed by its checksum word."""
 
-    def __init__(self, codecs: Dict[str, TensorCodec]):
+    def __init__(self, codecs: Dict[str, TensorCodec], *, checksum: bool = False):
         self.codecs = codecs
         self.units = list(codecs)
+        self.checksum = bool(checksum)
         self.layouts: Dict[str, PayloadLayout] = {}
         self.offsets: Dict[str, int] = {}
         nbytes = 0
         for u in self.units:
-            self.layouts[u] = PayloadLayout(codecs[u].payload_specs())
+            self.layouts[u] = PayloadLayout(codecs[u].payload_specs(), checksum=checksum)
             self.offsets[u] = nbytes
             nbytes += self.layouts[u].nbytes
         self.nbytes = nbytes
@@ -142,9 +215,10 @@ class FusedBuffer:
         units: Optional[List[str]] = None,
     ) -> Dict[str, WireStats]:
         """Write the payloads of `units` (default: all) of `tensors` (unit ->
-        tensor) into their spans of `buf`; returns each unit's wire stats.
-        `uniforms` (unit -> f32, CPU only) replaces the QSGD draws of the
-        named units (the parity tests' hook)."""
+        tensor) into their spans of `buf`, each sealed with its checksum
+        word; returns each unit's wire stats. `uniforms` (unit -> f32, CPU
+        only) replaces the QSGD draws of the named units (the parity tests'
+        hook)."""
         units = self.units if units is None else units
         group = []
         for u in units:
@@ -159,6 +233,7 @@ class FusedBuffer:
             codec, layout, lo = self.codecs[u], self.layouts[u], self.offsets[u]
             skip = () if codec.rows_leaf is None else (codec.rows_leaf,)
             layout.write_into(buf[lo : lo + layout.nbytes], payloads[u].leaves(), skip=skip)
+            layout.seal(buf[lo : lo + layout.nbytes])
             stats[u] = codec.wire_stats(payloads[u])
         return stats
 
@@ -166,6 +241,11 @@ class FusedBuffer:
     def host_units(self) -> List[str]:
         """The units whose codec runs on the host."""
         return [u for u in self.units if self.codecs[u].host]
+
+    def verify(self, rows: torch.Tensor) -> torch.Tensor:
+        """f32 [R, U] checksum gates of whole-buffer rows uint8 [R, B], one
+        batched reduction over the R rows per unit."""
+        return torch.stack([self.layouts[u].verify(rows[:, self.span(u)]) for u in self.units], dim=1)
 
     def decode(
         self, unit: str, seg: torch.Tensor, *, step: int = 0, host_seg: Optional[torch.Tensor] = None
@@ -182,6 +262,22 @@ class FusedBuffer:
             host_payload = codec.payload_from_leaves(layout.unpack(host_seg))
         return codec.decode(payload, step=step, host_payload=host_payload).to(torch.float32)
 
+    def decode_rows(
+        self, unit: str, rows: torch.Tensor, *, step: int = 0, host_rows: Optional[List[torch.Tensor]] = None
+    ) -> torch.Tensor:
+        """The decodes of a group of rows of `unit`'s bytes [g, nbytes] ->
+        f32 [g, *shape]: in one call where the codec's decode batches
+        (`TensorCodec.decode_batches`), else row by row, stacked."""
+        codec, layout = self.codecs[unit], self.layouts[unit]
+        if codec.decode_batches:
+            (shape, dt), = layout.specs
+            raw = rows[:, : layout.payload_nbytes].contiguous()
+            return raw.view(dt).reshape((rows.shape[0],) + codec.shape).to(torch.float32)
+        return torch.stack([
+            self.decode(unit, rows[w], step=step, host_seg=None if host_rows is None else host_rows[w])
+            for w in range(rows.shape[0])
+        ])
+
     def decode_sum(
         self,
         unit: str,
@@ -190,18 +286,46 @@ class FusedBuffer:
         *,
         step: int = 0,
         host_rows: Optional[List[torch.Tensor]] = None,
+        weights: Optional[torch.Tensor] = None,
+        gates: Optional[torch.Tensor] = None,
+        batch: Optional[int] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """(sum over the W rows of `unit`'s bytes [W, nbytes], the decode of
-        row `own` or None). Rows are summed in worker order from zeros, as
-        the JAX loop does. `host_rows`: the W rows' bytes on the host, for a
-        host codec (each row copied here when None)."""
+        row `own` or None). `gates` (f32[W], the checksum's) select each
+        row's decode or an exact zero; `weights` (f32[W], the participation
+        mask) then scale it, before both the sum and the own pick. A row
+        that fails its checksum is decoded from zero bytes, not from its
+        own: the decoders index with the payload's indices, and an index
+        out of range, which XLA drops, is a fault on the card; the gate
+        then selects zero, as in the JAX package.
+
+        Without `batch` (the 'loop' strategy) the rows are summed in worker
+        order from zeros. With `batch` (the 'vmap' strategy) they are
+        decoded in groups of `batch`, each group summed in order from zeros
+        and then added to the accumulator, the JAX package's structure.
+        `host_rows`: the W rows' bytes on the host, for a host codec (each
+        row copied here when None)."""
+        W = rows.shape[0]
+        if gates is not None:
+            rows = torch.where(gates[:, None] > 0.5, rows, 0)
         total = torch.zeros(self.codecs[unit].shape, dtype=torch.float32, device=rows.device)
         own_dec = None
-        for w in range(rows.shape[0]):
-            dec = self.decode(unit, rows[w], step=step, host_seg=None if host_rows is None else host_rows[w])
-            total = total + dec
-            if w == own:
-                own_dec = dec
+        G = 1 if batch is None else max(1, min(int(batch), W))
+        for g0 in range(0, W, G):
+            g1 = min(g0 + G, W)
+            hosts = None if host_rows is None else host_rows[g0:g1]
+            if batch is None:
+                decs = [self.decode(unit, rows[g0], step=step, host_seg=None if hosts is None else hosts[0])]
+            else:
+                decs = list(self.decode_rows(unit, rows[g0:g1], step=step, host_rows=hosts))
+            for i, w in enumerate(range(g0, g1)):
+                if gates is not None:
+                    decs[i] = torch.where(gates[w] > 0.5, decs[i], 0.0)
+                if weights is not None:
+                    decs[i] = decs[i] * weights[w]
+                if w == own:
+                    own_dec = decs[i]
+            total = total + (decs[0] if batch is None else _sum_rows(decs))
         return total, own_dec
 
 
@@ -234,6 +358,18 @@ class GradientExchanger:
         self.dense = not self.in_collective and (
             cfg.communicator == "allreduce" or (cfg.deepreduce is None and cfg.compressor == "none")
         )
+        # the resilience seams: None / False unless configured, so that the
+        # resilience-off exchange runs exactly the ops it ran without them
+        self.chaos = ChaosInjector.from_config(cfg)
+        self.checksum = bool(cfg.payload_checksum)
+        fused_allgather = cfg.fused and cfg.communicator == "allgather"
+        if cfg.decode_strategy != "loop" and not fused_allgather:
+            raise ConfigError(
+                "build-decode-strategy-needs-fused-allgather",
+                f"decode_strategy={cfg.decode_strategy!r} restructures the fused allgather decode and would be "
+                f"silently ignored here (communicator={cfg.communicator!r}, fused={cfg.fused}): use fused=True "
+                "with communicator='allgather', or decode_strategy='loop'",
+            )
         self.bucketed = None
         if cfg.bucket_bytes is not None:
             _check_bucketable(cfg)
@@ -245,7 +381,7 @@ class GradientExchanger:
             # the in-collective routes compress the flat gradient themselves
             self.fused = FusedBuffer({} if self.in_collective else {
                 n: TensorCodec(self.shapes[n], cfg, name=n, device=self.device) for n in self.names
-            })
+            }, checksum=self.checksum and fused_allgather)
         # the codec units (tensor names, or bucket labels) and their layout
         self.codecs = self.fused.codecs
         self.layouts = self.fused.layouts
@@ -268,10 +404,12 @@ class GradientExchanger:
         return None
 
     def payload_bytes(self) -> int:
-        """Static per-worker wire bytes: the fused buffer's size (the sum of
-        the bucket layouts when bucketed), the float32 gradients on the
-        dense baseline, or what the in-collective route injects (the JAX
-        package's `qar.wire_bits_per_worker` and `costmodel.rs_payload_bytes`)."""
+        """Static per-worker wire bytes: the fused buffer's size (checksum
+        words included; the sum of the bucket layouts when bucketed, of the
+        per-tensor payloads when unfused), (W - 1) times it for the ring,
+        the float32 gradients on the dense baseline, or what the
+        in-collective route injects (the JAX package's
+        `qar.wire_bits_per_worker` and `costmodel.rs_payload_bytes`)."""
         cfg = self.cfg
         if cfg.communicator == "qar":
             return int(qar.wire_bits_per_worker(self.d, self.num_workers, cfg.bucket_size) // 8)
@@ -279,10 +417,12 @@ class GradientExchanger:
             return int(costmodel.rs_payload_bytes(
                 cfg.rs_mode, self.d, self.num_workers, cfg.compress_ratio, headroom=cfg.rs_headroom,
                 out_headroom=cfg.rs_out_headroom, block=cfg.rs_block_size, bins=cfg.rs_oktopk_bins,
-                cap_headroom=cfg.rs_oktopk_cap_headroom,
+                cap_headroom=cfg.rs_oktopk_cap_headroom, masked=cfg.resilience,
             ))
         if self.dense:
             return 4 * self.d
+        if cfg.decode_strategy == "ring":
+            return ring_wire_bytes(self.fused_nbytes, self.num_workers)
         return self.fused_nbytes
 
     # -- 1. encode + pack ------------------------------------------------ #
@@ -307,12 +447,20 @@ class GradientExchanger:
         uniforms: Optional[Tree] = None,
     ) -> Tuple[torch.Tensor, Tree, WireStats]:
         """(uint8[B] fused buffer, compensated grads, combined wire stats)
-        of one worker. `uniforms` (unit -> f32, CPU only) replaces the QSGD
-        draws of the named units (the parity tests' hook)."""
+        of one worker, each payload sealed with its checksum word when the
+        checksum is on. `uniforms` (unit -> f32, CPU only) replaces the
+        QSGD draws of the named units (the parity tests' hook)."""
         compensated = self.compensate(grads, residuals)
         buf = torch.empty(self.fused_nbytes, dtype=torch.uint8, device=self.device)
         stats = self.fused.encode(self.units_of(compensated), buf, step=step, worker=worker, uniforms=uniforms)
         return buf, compensated, combine(stats)
+
+    def perturb(self, buf: torch.Tensor, *, step: int, salt: int = 0, draws: Optional[dict] = None) -> torch.Tensor:
+        """The wire boundary: this worker's packed buffer as the chaos
+        injector delivers it (itself without chaos)."""
+        if self.chaos is None:
+            return buf
+        return self.chaos.perturb(buf, step=step, worker=self.rank, salt=salt, draws=draws)
 
     # -- 2. gather ------------------------------------------------------- #
 
@@ -331,26 +479,73 @@ class GradientExchanger:
         `units_of`)."""
         return by_unit if self.bucketed is None else self.bucketed.split_all(by_unit)
 
+    def decode_totals(
+        self,
+        gathered: torch.Tensor,
+        *,
+        own: Optional[int] = None,
+        step: int = 0,
+        weights: Optional[torch.Tensor] = None,
+    ) -> Tuple[Tree, Tree, Optional[torch.Tensor]]:
+        """(unit -> sum over the W rows, unit -> decode of row `own`, the
+        checksum failures over the rows or None) of the gathered [W, B]
+        buffer, in the configured strategy ('loop' or 'vmap'). With the
+        checksum, every row of every unit is verified in one batched
+        reduction a unit; a row that fails decodes to zeros, and a row
+        weighted 0 counts no failure."""
+        totals, owns = {}, {}
+        gates = self.fused.verify(gathered) if self.checksum else None
+        batch = self.cfg.decode_batch if self.cfg.decode_strategy == "vmap" else None
+        # a host codec reads its leaves from one host copy of each row
+        rows = [gathered[w].cpu() for w in range(gathered.shape[0])] if self.fused.host_units else None
+        for i, u in enumerate(self.fused.units):
+            span = self.fused.span(u)
+            host_rows = None if rows is None or not self.codecs[u].host else [r[span] for r in rows]
+            totals[u], owns[u] = self.fused.decode_sum(
+                u, gathered[:, span], own, step=step, host_rows=host_rows, weights=weights,
+                gates=None if gates is None else gates[:, i], batch=batch,
+            )
+        fails = None
+        if gates is not None:
+            per_row = (1.0 - gates).sum(1)
+            fails = (per_row if weights is None else per_row * weights).sum()
+        return totals, owns, fails
+
     def decode_aggregate(
         self, gathered: torch.Tensor, *, own: Optional[int] = None, step: int = 0
     ) -> Tuple[Tree, Optional[Tree]]:
         """(mean over the W rows, the decode of row `own` or None), by
         tensor name."""
-        totals, owns = {}, {}
-        # a host codec reads its leaves from one host copy of each row
-        rows = [gathered[w].cpu() for w in range(gathered.shape[0])] if self.fused.host_units else None
-        for u in self.fused.units:
-            span = self.fused.span(u)
-            host_rows = None if rows is None or not self.codecs[u].host else [r[span] for r in rows]
-            totals[u], owns[u] = self.fused.decode_sum(u, gathered[:, span], own, step=step, host_rows=host_rows)
+        totals, owns, _ = self.decode_totals(gathered, own=own, step=step)
         return self.mean_and_own(totals, owns if own is not None else None, gathered.shape[0])
 
-    def mean_and_own(self, totals: Tree, owns: Optional[Tree], num_workers: int) -> Tuple[Tree, Optional[Tree]]:
+    def decode_fused_row(self, row: torch.Tensor, *, step: int = 0) -> Tuple[torch.Tensor, ...]:
+        """One worker's uint8[B] buffer -> the f32 decodes of every unit in
+        order, then with the checksum the row's failure count: the ring's
+        decode (a failed unit decodes to zeros)."""
+        gates = self.fused.verify(row[None])[0] if self.checksum else None
+        out = []
+        for i, u in enumerate(self.fused.units):
+            seg = row[self.fused.span(u)]
+            if gates is None:
+                out.append(self.fused.decode(u, seg, step=step))
+            else:  # a failed payload decodes from zero bytes (`FusedBuffer.decode_sum`)
+                dec = self.fused.decode(u, torch.where(gates[i] > 0.5, seg, 0), step=step)
+                out.append(torch.where(gates[i] > 0.5, dec, 0.0))
+        if gates is not None:
+            out.append((1.0 - gates).sum())
+        return tuple(out)
+
+    def mean_and_own(
+        self, totals: Tree, owns: Optional[Tree], num_workers: int, denom: Optional[torch.Tensor] = None
+    ) -> Tuple[Tree, Optional[Tree]]:
         """Unit sums and own decodes -> (the mean, the own decode) by tensor
         name; the mean multiplies by the float32 reciprocal of W, as XLA
-        compiles the JAX package's `total / W`."""
-        mean = self.to_tensors({u: mean_of_sum(t, num_workers) for u, t in totals.items()})
-        return mean, None if owns is None else self.to_tensors(owns)
+        compiles the JAX package's `total / W`, or under a participation
+        mask divides by the live count `denom` (a 0-d f32 tensor on the
+        device: an IEEE divide, as JAX divides by a traced count)."""
+        mean = {u: mean_of_sum(t, num_workers) if denom is None else t / denom for u, t in totals.items()}
+        return self.to_tensors(mean), None if owns is None else self.to_tensors(owns)
 
     def finish(
         self, grads: Tree, compensated: Tree, mean: Tree, own: Optional[Tree]
@@ -372,38 +567,109 @@ class GradientExchanger:
         step: int,
         uniforms: Optional[Tree] = None,
         collect: Optional[Tree] = None,
+        mask: Optional[torch.Tensor] = None,
+        chaos_draws: Optional[Dict[int, dict]] = None,
     ) -> Tuple[Tree, Optional[Tree], WireStats]:
         """(aggregated dense grads, new residuals, this worker's wire stats).
+
         `collect`, when a dict, receives the sparse_rs route's observables
-        (see `sparse_rs.exchange`) or the bucketed exchange's per-bucket
-        saturation flags (`bucket_saturated`)."""
+        (see `sparse_rs.exchange`), the bucketed exchange's per-bucket
+        saturation flags (`bucket_saturated`) and, with the checksum, the
+        failures over the gathered rows (`checksum_failures`), as device
+        tensors. `mask` (bool[W] on the device, the same on every worker) is
+        the participation mask: a False worker's decode is weighted 0 in
+        the sum and in its own decode (so its residual keeps its whole
+        compensated gradient) and the mean divides by the live count.
+        `chaos_draws` (salt -> draws, CPU only) replaces the chaos
+        injector's draws (the parity tests' hook; the salt is the bucket
+        index, 0 unbucketed)."""
+        cfg = self.cfg
+        if mask is not None and cfg.communicator == "qar":
+            raise ValueError(
+                "participation masks renormalize the decode-side mean of the allgather and allreduce paths "
+                "and re-own reduce-scatter shards on the sparse_rs routes; communicator='qar' sums every "
+                "worker's int8 levels in one reduce-scatter with no per-worker decode row to zero: use "
+                "communicator='allgather', 'allreduce' or 'sparse_rs'"
+            )
+        weights = denom = None
+        if mask is not None:
+            weights = mask.to(torch.float32)
+            denom = torch.clamp(weights.sum(), min=1.0)
+        if collect is not None and self.checksum:
+            collect.setdefault("checksum_failures", torch.zeros((), dtype=torch.float32, device=self.device))
         if self.in_collective:
-            return self.exchange_in_collective(grads, residuals, step=step, uniforms=uniforms, collect=collect)
+            return self.exchange_in_collective(grads, residuals, step=step, uniforms=uniforms, collect=collect,
+                                               mask=mask)
         if self.dense:
-            return self.exchange_dense(grads), residuals, self.dense_wire_stats()
+            return self.exchange_dense(grads, weights, denom), residuals, self.dense_wire_stats()
         own = self.rank if residuals is not None else None
+        draws = chaos_draws or {}
         if self.bucketed is not None:
             compensated = self.compensate(grads, residuals)
-            totals, owns, stats = self.bucketed.run(
-                self.units_of(compensated), self.coll, step=step, worker=self.rank, own=own, uniforms=uniforms
+            totals, owns, stats, fails = self.bucketed.run(
+                self.units_of(compensated), self.coll, step=step, worker=self.rank, own=own, uniforms=uniforms,
+                weights=weights, perturb=lambda buf, b: self.perturb(buf, step=step, salt=b, draws=draws.get(b)),
             )
             if collect is not None:
                 collect["bucket_saturated"] = self.bucketed.saturation_vector(stats)
-            mean, own_dec = self.mean_and_own(totals, owns, self.num_workers)
             stats = combine(stats)
         else:
             buf, compensated, stats = self.encode_worker(grads, residuals, step=step, worker=self.rank,
                                                          uniforms=uniforms)
-            mean, own_dec = self.decode_aggregate(self.gather(buf), own=own, step=step)
+            if not cfg.fused:
+                totals, owns, fails = self._exchange_per_tensor(buf, own, step=step, weights=weights)
+            else:
+                buf = self.perturb(buf, step=step, draws=draws.get(0))
+                if cfg.decode_strategy == "ring":
+                    totals, owns, fails = self._exchange_ring(buf, own is not None, step=step, weights=weights)
+                else:
+                    totals, owns, fails = self.decode_totals(self.gather(buf), own=own, step=step, weights=weights)
+        if fails is not None and collect is not None:
+            collect["checksum_failures"] = fails
+        mean, own_dec = self.mean_and_own(totals, owns if own is not None else None, self.num_workers, denom)
         agg, new_residuals = self.finish(grads, compensated, mean, own_dec)
         return agg, new_residuals, stats
 
+    def _exchange_ring(
+        self, buf: torch.Tensor, need_own: bool, *, step: int, weights: Optional[torch.Tensor]
+    ) -> Tuple[Tree, Tree, Optional[torch.Tensor]]:
+        """The ring decode (`comm_ring.py`) of the fused buffer: (unit ->
+        sum, unit -> own decode, the checksum failures or None)."""
+        total, own = ring_decode_exchange(buf, lambda row: self.decode_fused_row(row, step=step), self.coll,
+                                          need_own=need_own, row_weights=weights)
+        units = self.fused.units
+        fails = total[len(units)] if self.checksum else None
+        return dict(zip(units, total)), dict(zip(units, own or ())), fails
+
+    def _exchange_per_tensor(
+        self, buf: torch.Tensor, own: Optional[int], *, step: int, weights: Optional[torch.Tensor]
+    ) -> Tuple[Tree, Tree, None]:
+        """The unfused exchange (`fused=False`, the reference's shape): one
+        all_gather per tensor of its payload's bytes, its rows decoded in
+        worker order; this worker's own decode from its own payload,
+        outside the loop."""
+        totals, owns = {}, {}
+        for u in self.fused.units:
+            span = self.fused.span(u)
+            totals[u], _ = self.fused.decode_sum(u, self.coll.all_gather(buf[span]), step=step, weights=weights)
+            if own is not None:
+                dec = self.fused.decode(u, buf[span], step=step)
+                owns[u] = dec if weights is None else dec * weights[self.rank]
+        return totals, owns, None
+
     # -- the dense baseline ---------------------------------------------- #
 
-    def exchange_dense(self, grads: Tree) -> Tree:
+    def exchange_dense(
+        self, grads: Tree, weights: Optional[torch.Tensor] = None, denom: Optional[torch.Tensor] = None
+    ) -> Tree:
         """The mean over workers of the uncompressed gradients: one
         `all_reduce` of one flat float32 buffer, the identity at world size
-        1 without a group."""
+        1 without a group. Under a participation mask (`weights`, `denom`)
+        each worker's gradient is weighted before the sum, which divides by
+        the live count."""
+        if weights is not None:
+            flat = self.coll.all_reduce_sum(self._flatten(grads) * weights[self.rank]) / denom
+            return self._unflatten(flat, grads)
         if self.group is None:
             return dict(grads)
         flat = mean_of_sum(self.coll.all_reduce_sum(self._flatten(grads)), self.num_workers)
@@ -435,11 +701,13 @@ class GradientExchanger:
         step: int,
         uniforms: Optional[Tree] = None,
         collect: Optional[Tree] = None,
+        mask: Optional[torch.Tensor] = None,
     ) -> Tuple[Tree, Optional[Tree], WireStats]:
         """compensate -> flatten -> `route_flat` -> unflatten; the residual
         keeps what this worker did not transmit (qar keeps none)."""
         compensated = self.compensate(grads, residuals)
-        mean, own, stats = self.route_flat(self._flatten(compensated), step=step, uniforms=uniforms, collect=collect)
+        mean, own, stats = self.route_flat(self._flatten(compensated), step=step, uniforms=uniforms, collect=collect,
+                                           mask=mask)
         new_residuals = None
         if residuals is not None:
             new_residuals = memory.update(compensated, self._unflatten(own, grads))
@@ -452,9 +720,11 @@ class GradientExchanger:
         step: int,
         uniforms: Optional[Tree] = None,
         collect: Optional[Tree] = None,
+        mask: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor], WireStats]:
         """(mean f32[d], own-transmitted f32[d] or None for qar, wire stats)
-        of this worker's flat gradient through the configured route."""
+        of this worker's flat gradient through the configured route; `mask`
+        selects the sparse_rs route's participation-mask variant."""
         cfg = self.cfg
         if cfg.communicator == "qar":
             # the whole gradient through the int8 two-phase exchange
@@ -478,7 +748,7 @@ class GradientExchanger:
             oktopk_cap_headroom=cfg.rs_oktopk_cap_headroom,
             stream=None if name is None else self.stream(name, step),
             uniforms=None if name is None or uniforms is None else uniforms[name],
-            collect=collect,
+            collect=collect, mask=mask,
         )
 
     def dense_wire_stats(self) -> WireStats:
@@ -493,7 +763,15 @@ def _check_bucketable(cfg: DeepReduceConfig) -> None:
         raise ConfigError(
             "build-buckets-need-fused-allgather",
             "bucket_bytes partitions the fused allgather exchange and would be silently ignored here "
-            f"(communicator={cfg.communicator!r}): use communicator='allgather', or bucket_bytes=None",
+            f"(communicator={cfg.communicator!r}, fused={cfg.fused}): use fused=True with "
+            "communicator='allgather', or bucket_bytes=None",
+        )
+    if cfg.decode_strategy == "ring":
+        raise ConfigError(
+            "build-buckets-vs-ring",
+            "decode_strategy='ring' already pipelines the transfer against the decode over its hops; with "
+            "bucket_bytes the two pipelines would nest and the bucketing would be silently ignored: use "
+            "decode_strategy='loop' or 'vmap' with bucket_bytes, or the ring without it",
         )
     if cfg.layer_pattern is not None:
         raise ConfigError(

@@ -1,5 +1,7 @@
 """The bucketed exchange: one codec and one all_gather per bucket, ported
-from `deepreduce_tpu/comm_bucket.py` (the loop decode only).
+from `deepreduce_tpu/comm_bucket.py`, with the loop and vmap decodes, the
+checksum word, chaos salted by the bucket index and the participation mask
+(the ring decode is fenced off: `build-buckets-vs-ring`).
 
 `partition_buckets` splits the tensors, from (name, size) alone, into
 buckets of at most `bucket_bytes` dense float32 bytes: a tensor too big for
@@ -31,7 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -40,6 +42,7 @@ from deepreduce_tpu_torch.comm import FusedBuffer
 from deepreduce_tpu_torch.config import DeepReduceConfig
 from deepreduce_tpu_torch.device import DeviceLike, resolve_device
 from deepreduce_tpu_torch.metrics import WireStats
+from deepreduce_tpu_torch.resilience.chaos import ChaosInjector
 from deepreduce_tpu_torch.sparse import bucket_num_slots
 from deepreduce_tpu_torch.wrappers import TensorCodec
 
@@ -165,7 +168,7 @@ class BucketedExchanger:
             s.label: TensorCodec((s.total,), cfg, name=s.label, slots=bucket_num_slots(s.sizes, cfg.compress_ratio),
                                  device=self.device)
             for s in self.specs
-        })
+        }, checksum=cfg.payload_checksum)
         self.bucket_of = {n: b for b, s in enumerate(self.specs) for n in s.names}
 
     def concat_bucket(self, tensors: Tree, spec: BucketSpec) -> torch.Tensor:
@@ -198,21 +201,38 @@ class BucketedExchanger:
         worker: int,
         own: Optional[int] = None,
         uniforms: Optional[Tree] = None,
-    ) -> Tuple[Tree, Optional[Tree], Dict[str, WireStats]]:
+        weights: Optional[torch.Tensor] = None,
+        perturb: Optional[Callable[[torch.Tensor, int], torch.Tensor]] = None,
+    ) -> Tuple[Tree, Optional[Tree], Dict[str, WireStats], Optional[torch.Tensor]]:
         """The whole bucketed exchange of this worker's bucket super-tensors
-        (label -> f32): one encode of every bucket into one buffer, then one
-        gather and one decode per bucket in the configured schedule. Returns
-        (label -> sum over workers, label -> decode of row `own` or None,
-        label -> wire stats), in spec order."""
+        (label -> f32): one encode of every bucket into one buffer (each
+        bucket sealed with its checksum word when the checksum is on), then
+        one gather and one decode per bucket in the configured schedule and
+        decode strategy ('loop' or 'vmap'). `perturb(span, b)` is the wire
+        boundary (the chaos injector, salted by the bucket index b);
+        `weights` (f32[W]) the participation mask. Returns (label -> sum
+        over workers, label -> decode of row `own` or None, label -> wire
+        stats, the checksum failures summed over the buckets or None), in
+        spec order."""
         buf = torch.empty(self.fused.nbytes, dtype=torch.uint8, device=self.device)
         stats = self.fused.encode(buckets, buf, step=step, worker=worker, uniforms=uniforms)
         spans = [buf[self.fused.span(s.label)] for s in self.specs]
+        if perturb is not None:
+            spans = [perturb(x, b) for b, x in enumerate(spans)]
         totals: Tree = {}
         owns: Tree = {}
+        fails: List[torch.Tensor] = []
+        batch = self.cfg.decode_batch if self.cfg.decode_strategy == "vmap" else None
 
         def decode(b: int, handle: Gathered) -> None:
             label = self.specs[b].label
-            totals[label], owns[label] = self.fused.decode_sum(label, handle.wait(), own, step=step)
+            rows = handle.wait()
+            gates = None
+            if self.fused.checksum:
+                gates = self.fused.layouts[label].verify(rows)
+                fails.append(((1.0 - gates) if weights is None else (1.0 - gates) * weights).sum())
+            totals[label], owns[label] = self.fused.decode_sum(label, rows, own, step=step, weights=weights,
+                                                               gates=gates, batch=batch)
 
         count = len(self.specs)
         if self.cfg.bucket_pipeline and count:
@@ -226,7 +246,12 @@ class BucketedExchanger:
             handles = [coll.all_gather_async(x) for x in spans]
             for b in range(count):
                 decode(b, handles[b])
-        return totals, owns if own is not None else None, stats
+        total_fails = None
+        if fails:
+            total_fails = fails[0]
+            for f in fails[1:]:
+                total_fails = total_fails + f
+        return totals, owns if own is not None else None, stats, total_fails
 
     def run_streaming_bucket(
         self,
@@ -242,7 +267,13 @@ class BucketedExchanger:
         """Bucket b of the streamed schedule: concatenate its (compensated)
         members, encode it into its span of `buf` (one grouped QSGD launch
         for this bucket) and start its gather. Returns the gather in flight
-        and the bucket's wire stats; `decode_sum` reads the gather later."""
+        and the bucket's wire stats; `decode_sum` reads the gather later.
+        The streamed schedule threads no chaos or checksum state."""
+        if self.fused.checksum or ChaosInjector.from_config(self.cfg) is not None:
+            raise ValueError(
+                "the streamed schedule does not thread chaos or checksum state (the config rejects "
+                "stream_exchange with resilience)"
+            )
         spec = self.specs[b]
         dense = self.concat_bucket(tensors, spec)
         stats = self.fused.encode({spec.label: dense}, buf, step=step, worker=worker, uniforms=uniforms,

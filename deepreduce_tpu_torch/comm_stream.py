@@ -95,12 +95,14 @@ class StreamingExchange:
             main.wait_stream(self.side)
         totals, owns, stats = {}, {}, {}
         own = ex.rank if residuals is not None else None
+        batch = ex.cfg.decode_batch if ex.cfg.decode_strategy == "vmap" else None
         for b, spec in enumerate(self.bucketed.specs):
             handle, stats[spec.label] = run.inflight[b]
             rows = handle.wait()
             if main is not None:
                 rows.record_stream(main)
-            totals[spec.label], owns[spec.label] = self.bucketed.fused.decode_sum(spec.label, rows, own, step=step)
+            totals[spec.label], owns[spec.label] = self.bucketed.fused.decode_sum(spec.label, rows, own, step=step,
+                                                                                  batch=batch)
         if collect is not None:
             collect["bucket_saturated"] = self.bucketed.saturation_vector(stats)
         mean, own_dec = ex.mean_and_own(totals, owns if own is not None else None, ex.num_workers)

@@ -14,11 +14,14 @@ PolySeg and count-sketch value codecs, the bloom P1 (random) and
 approximate P2 policies and its hash-blocked layout; and the host codecs:
 the Huffman index, the C++ library's bloom index with the exact P2 policy
 `conflict_sets` and its integer family under `code`, the Deflate and the
-searched-knot PolyFit value codecs), with the same names and defaults.
+searched-knot PolyFit value codecs; the unfused exchange, the vmap and ring
+decodes and the resilience subsystem), with the same names and defaults.
 A value the port does not implement raises `ConfigError` naming
 the knob, so that no run quietly takes another path than the one it asked
 for (for instance `approx_topk=True`: torch has no `approx_max_k`, and
-exact top-k in its place would be a silent substitute).
+exact top-k in its place would be a silent substitute). Every rejection
+carries a registered reason code, the JAX package's where it makes the
+same rejection.
 """
 
 from __future__ import annotations
@@ -26,13 +29,176 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional
 
+# The machine-readable rejection codes, a copy of the JAX package's
+# registry (`deepreduce_tpu/config.py`, which imports jax through its
+# package): every fence the port shares with it raises the same code.
+REASON_CODES: Dict[str, str] = {
+    # enum membership (config.check): one code per enumerated field
+    "enum-compressor": "compressor not in COMPRESSORS",
+    "enum-memory": "memory not in MEMORIES",
+    "enum-communicator": "communicator not in COMMUNICATORS",
+    "enum-deepreduce": "deepreduce not in DEEPREDUCE_MODES",
+    "enum-policy": "policy not in POLICIES",
+    "enum-value": "value not in VALUE_CODECS",
+    "enum-index": "index not in INDEX_CODECS",
+    "enum-bloom_blocked": "bloom_blocked not in BLOOM_BLOCKED",
+    "enum-rs_mode": "rs_mode not in RS_MODES",
+    "enum-bucket_order": "bucket_order not in BUCKET_ORDERS",
+    "enum-hier_ici": "hier_ici not in HIER_ICI_LEGS",
+    "enum-hier_dcn": "hier_dcn not in HIER_DCN_MODES",
+    "enum-decode_strategy": "decode_strategy not in ('loop', 'vmap', 'ring')",
+    # scalar range checks
+    "rs-block-size-range": "rs_block_size must be a positive multiple of 4",
+    "rs-density-threshold-range": "rs_density_threshold outside [0, 1]",
+    "rs-sketch-rows-range": "rs_sketch_rows < 1",
+    "rs-sketch-cols-range": "rs_sketch_cols < 0",
+    "rs-oktopk-bins-range":
+        "rs_oktopk_bins not a power of two in [64, 2**24]",
+    "rs-oktopk-cap-headroom-range": "rs_oktopk_cap_headroom <= 0",
+    "decode-batch-range": "decode_batch < 1",
+    "telemetry-every-range": "telemetry_every < 1",
+    "bucket-bytes-range": "bucket_bytes < 4 (one f32 element)",
+    "ici-size-range": "ici_size < 1",
+    "resilience-rate-range": "a drop/chaos rate outside [0, 1]",
+    "ctrl-target-range": "ctrl_target_err_cos outside (0, 1]",
+    "ctrl-headroom-range": "ctrl_headroom < 0",
+    "ctrl-saturation-range": "ctrl_saturation_ceiling < 0",
+    "ctrl-hysteresis-range": "ctrl_hysteresis < 1",
+    "fed-population-range": "fed_num_clients <= 0 with fed=True",
+    "fed-cohort-range": "fed_clients_per_round <= 0 with fed=True",
+    "fed-cohort-exceeds-population": "cohort larger than the population",
+    "fed-local-steps-range": "fed_local_steps <= 0",
+    "fed-server-lr-range": "fed_server_lr <= 0",
+    "fed-client-chunk-range": "fed_client_chunk < 0",
+    "fed-chunk-divides-cohort": "fed_client_chunk does not divide the cohort",
+    # feature-exclusion constraints (the legality matrix proper)
+    "rs-mode-needs-sparse-rs": "rs_mode set without communicator='sparse_rs'",
+    "bucket-order-needs-buckets": "bucket_order set without bucket_bytes",
+    "stream-needs-buckets": "stream_exchange without bucket_bytes",
+    "stream-vs-resilience": "stream_exchange cannot thread resilience state",
+    "stream-vs-hier":
+        "stream_exchange composes over the dense-ICI hier leg only "
+        "(allgather, loop/vmap decode, no ctrl/fed)",
+    "stream-vs-fed": "stream_exchange hooks a path the fed round never runs",
+    "resilience-knobs-disengaged": "resilience knob(s) without resilience=True",
+    "resilience-vs-owner-communicator":
+        "participation mask cannot re-own this communicator's shards "
+        "(qar; sparse_rs adaptive/sketch routes)",
+    "chaos-needs-checksum": "chaos injection without payload_checksum",
+    "checksum-needs-fused-allgather":
+        "payload_checksum outside the fused allgather wire format",
+    "hier-knobs-disengaged": "hier knob(s) without hier=True",
+    "hier-vs-ring": "ring hop schedule addresses ici replicas under hier",
+    "hier-vs-resilience": "per-worker mask cannot mask a slice-mean psum",
+    "hier-dcn-auto-needs-topk":
+        "hier_dcn='auto' rewrites among plain top-k routes only",
+    "rs-oktopk-vs-approx-topk":
+        "approximate candidates break the oktopk threshold-count containment",
+    "fed-knobs-disengaged": "fed_* knob(s) without fed=True",
+    "fed-vs-hier": "the fed round ignores the hierarchical exchange",
+    "fed-vs-communicator":
+        "the fed round aggregates via ONE fused psum; communicator unused",
+    "fed-vs-buckets": "the fed round's TreeCodec path ignores bucket_bytes",
+    "fed-vs-decode-strategy":
+        "the fed round has no gathered-worker decode to restructure",
+    "fed-vs-trainer": "Trainer runs the data-parallel exchange, not fed rounds",
+    "fed-async-needs-fed": "fed_async=True without the fed round geometry",
+    "fed-async-knobs-disengaged": "fed_async_* knob(s) without fed_async=True",
+    "fed-async-k-range": "fed_async_k < 1 with fed_async=True",
+    "fed-async-alpha-range": "fed_async_alpha < 0",
+    "fed-async-latency-syntax": "fed_async_latency failed parse_latency",
+    "fed-mt-needs-fed": "fed_tenants > 0 without the fed round geometry",
+    "fed-mt-tenants-range": "fed_tenants < 0",
+    "fed-mt-knobs-disengaged": "fed_mt_* knob(s) without fed_tenants >= 1",
+    "fed-mt-async-knobs":
+        "per-tenant K/alpha/latency knob(s) without fed_async=True",
+    "fed-mt-k-syntax": "fed_mt_k failed the per-tenant list parse or has K < 1",
+    "fed-mt-alpha-syntax":
+        "fed_mt_alpha failed the per-tenant list parse or has alpha < 0",
+    "fed-mt-latency-syntax": "fed_mt_latency failed parse_tenant_latency",
+    "fed-mt-cohort-syntax":
+        "fed_mt_cohort failed the per-tenant list parse or has a size "
+        "outside [1, fed_clients_per_round]",
+    "pop-needs-fed": "pop_spec without the federated serving path",
+    "pop-knobs-disengaged":
+        "pop_* knob(s) (or per-class latency rows) without their consumer",
+    "pop-vs-mt":
+        "pop_spec with fed_tenants >= 1 (per-class and per-tenant "
+        "heterogeneity do not compose yet)",
+    "pop-labels-range": "pop_labels/num_labels outside its legal range",
+    # population spec-file rejections (population/spec.py): the spec
+    # parser raises these so a typo'd population spec fails loudly instead
+    # of silently serving an IID population
+    "pop-spec-syntax": "population spec failed PopulationSpec parse",
+    "pop-spec-range": "population spec value outside its legal range",
+    "pop-latency-syntax": "a per-class latency row failed parse_latency",
+    "slo-needs-fed": "slo_spec without the federated serving path",
+    "slo-knobs-disengaged": "slo_* override knob(s) without slo_spec",
+    "slo-window-range": "slo_window < 0",
+    "slo-hysteresis-range": "slo_hysteresis < 0",
+    # SLO spec-file rejections (slo/spec.py): the spec parser raises these
+    # so a typo'd slo.json fails loudly instead of silently monitoring
+    # nothing
+    "slo-spec-syntax": "SLO spec file failed SLOSpec parse",
+    "slo-spec-unknown-target": "SLO spec target not in slo.spec.TARGET_KEYS",
+    "slo-spec-target-range": "SLO spec target value outside its legal range",
+    "slo-spec-window-range": "SLO spec window/hysteresis tick count invalid",
+    "slo-spec-tenant-override": "SLO spec per-tenant override malformed",
+    "ctrl-knobs-disengaged": "ctrl_* knob(s) without ctrl=True",
+    "ctrl-needs-telemetry": "ctrl=True without telemetry=True",
+    "ctrl-needs-compressor": "ctrl=True with compressor='none'",
+    "ctrl-vs-hier-fed": "ctrl drives the flat exchanger only",
+    "profile-needs-auto-selector": "profile without any 'auto' selector",
+    "profile-vs-ctrl": "profile and ctrl both own the operating point",
+    # syntax checks delegated to the owning subsystem's parser
+    "fault-plan-syntax": "fault_plan failed FaultPlan.parse",
+    "ctrl-ladder-syntax": "ctrl_ladder failed Ladder.parse",
+    # exchanger-construction rejections (comm.py): combos the config cannot
+    # see alone (they need the fused/bucketed build context)
+    "build-qar-codec-stack":
+        "qar quantizes in-collective; codec/memory stack would be ignored",
+    "build-sparse-rs-codec-stack":
+        "sparse_rs routes its own top-k; codec stack would be ignored",
+    "build-rs-auto-needs-workers": "rs_mode='auto' needs the static mesh size",
+    "build-buckets-need-fused-allgather":
+        "bucket_bytes outside the fused allgather exchange",
+    "build-buckets-vs-ring": "bucket_bytes would nest two pipelines under ring",
+    "build-buckets-need-compression": "bucket_bytes on the dense psum baseline",
+    "build-buckets-vs-layer-pattern": "fused buckets dissolve leaf identity",
+    "build-bucket-points-need-buckets": "bucket_points without bucket_bytes",
+    "build-decode-strategy-needs-fused-allgather":
+        "vmap/ring decode outside the fused allgather exchange",
+}
+
+# codes of the port's own rejections, which the JAX package does not make
+PORT_REASON_CODES: Dict[str, str] = {
+    "not-ported": "a knob value the port does not implement (or no value of the knob at all)",
+    "unknown-knob": "a from_params key that is not a knob of the port",
+    "knob-range": "a knob outside its range where the JAX package checks it without a code",
+    "codec-pairing": "a codec pairing the JAX package refuses when it builds the codec",
+}
+REASON_CODES.update(PORT_REASON_CODES)
+
 
 class ConfigError(ValueError):
-    """A rejected configuration; `.knob` names the offending field."""
+    """A rejected configuration, tagged with a registered reason code.
 
-    def __init__(self, knob: str, message: str):
-        super().__init__(f"{message} [knob={knob}]")
-        self.knob = knob
+    `.reason_code` is the JAX package's code where it makes the same
+    rejection (else one of `PORT_REASON_CODES`); `.knob` names the offending
+    field where the code does not (a range or a value not ported), and is
+    the reason code otherwise."""
+
+    def __init__(self, reason_code: str, message: str, *, knob: Optional[str] = None):
+        if reason_code not in REASON_CODES:
+            raise AssertionError(f"unregistered reason_code {reason_code!r}: add it to config.REASON_CODES")
+        super().__init__(f"{message} [reason_code={reason_code}]")
+        self.reason_code = reason_code
+        self.knob = knob or reason_code
+
+
+def reason_code_of(exc: BaseException) -> Optional[str]:
+    """The rejection code of a config or build error, or None."""
+    return getattr(exc, "reason_code", None)
 
 
 # knob -> the values the port implements
@@ -45,9 +211,9 @@ _SUPPORTED = {
     # select_rs_mode: neither is ported
     "rs_mode": ("sparse", "adaptive", "quantized", "oktopk"),
     "deepreduce": (None, "value", "index", "both"),
-    "fused": (True,),
-    "decode_strategy": ("loop",),
+    "fused": (True, False),
 }
+DECODE_STRATEGIES = ("loop", "vmap", "ring")
 BUCKET_ORDERS = ("trace", "reverse")
 # codec knobs, read only when a codec runs (deepreduce is not None): every
 # codec of the JAX package. huffman, gzip, polyfit_host and the *_native
@@ -60,6 +226,15 @@ _SUPPORTED_CODEC = {
     "bloom_blocked": ("mod", "hash", True, False),
     "code": ("fbp", "varint", "pfor"),
 }
+# the resilience knobs with their disengaged values, in the JAX package's order
+_RESILIENCE_KNOBS = (
+    ("drop_rate", 0.0),
+    ("fault_plan", None),
+    ("payload_checksum", False),
+    ("chaos_drop_rate", 0.0),
+    ("chaos_corrupt_rate", 0.0),
+    ("chaos_truncate_rate", 0.0),
+)
 # reference-style aliases of `from_params` (the JAX package's _KEY_MAP)
 _KEY_MAP = {"threshold": "threshold_val", "micro-benchmark": "micro_benchmark"}
 
@@ -92,8 +267,15 @@ class DeepReduceConfig:
     bucket_size: int = 512
     sort: bool = False
     seed: int = 0
+    # one uint8 buffer and one all_gather for every tensor of a step (False:
+    # one all_gather per tensor, the reference's shape)
     fused: bool = True
+    # how the W gathered payloads become one aggregate: 'loop' decodes them
+    # in worker order, 'vmap' in groups of `decode_batch` rows, 'ring'
+    # passes the buffer W - 1 hops around the workers, decoding each chunk
+    # while the next one travels (comm_ring.py)
     decode_strategy: str = "loop"
+    decode_batch: int = 4
     # None: 1000, or 9000 when value='doubleexp' (the per-codec gates)
     min_compress_size: Optional[int] = None
     # regex on the tensor's name: a leaf it does not match ships dense, not
@@ -124,6 +306,19 @@ class DeepReduceConfig:
     # the reference's 'micro-benchmark' mode: `TensorCodec.micro_benchmark`
     # prints its per-stage times and relative volumes (observability only)
     micro_benchmark: bool = False
+    # the resilience subsystem (resilience/): a participation mask from
+    # i.i.d. dropout at `drop_rate` and the `fault_plan` schedule
+    # ('worker@start:stop' or 'worker@step', comma-separated), a checksum
+    # word after every payload, and chaos at the wire boundary (each
+    # payload dropped, byte-corrupted or truncated at these rates). Every
+    # knob needs resilience=True, chaos needs the checksum.
+    resilience: bool = False
+    drop_rate: float = 0.0
+    fault_plan: Optional[str] = None
+    payload_checksum: bool = False
+    chaos_drop_rate: float = 0.0
+    chaos_corrupt_rate: float = 0.0
+    chaos_truncate_rate: float = 0.0
 
     def __post_init__(self):
         checked = dict(_SUPPORTED, **(_SUPPORTED_CODEC if self.deepreduce is not None else {}))
@@ -132,35 +327,31 @@ class DeepReduceConfig:
             # `is` for the booleans: 1 == True would let 1 through
             if not any(val is a or (type(val) is type(a) and val == a) for a in allowed):
                 raise ConfigError(
-                    knob,
-                    f"{knob}={val!r} is not ported to deepreduce_tpu_torch yet "
-                    f"(supported: {list(allowed)})",
+                    "not-ported",
+                    f"{knob}={val!r} is not ported to deepreduce_tpu_torch yet (supported: {list(allowed)})",
+                    knob=knob,
                 )
-        if not 0.0 < self.compress_ratio <= 1.0:
-            raise ConfigError("compress_ratio", "compress_ratio must lie in (0, 1]")
-        if self.fpr is not None and not 0.0 < self.fpr < 1.0:
-            raise ConfigError("fpr", "fpr must lie in (0, 1)")
-        if not 0 < self.quantum_num <= 127:
-            raise ConfigError("quantum_num", "quantum_num must lie in [1, 127] (int8 levels)")
-        if self.bucket_size <= 0:
-            raise ConfigError("bucket_size", "bucket_size must be positive")
-        if self.topk_sample_size <= 0:
-            raise ConfigError("topk_sample_size", "topk_sample_size must be positive")
-        if not self.topk_undershoot > 0.0:
-            raise ConfigError("topk_undershoot", "topk_undershoot must be positive")
-        if not isinstance(self.bloom_threshold_insert, bool):
-            raise ConfigError("bloom_threshold_insert", "bloom_threshold_insert must be a bool")
-        if not isinstance(self.sort, bool):
-            raise ConfigError("sort", "sort must be a bool")
-        if self.poly_degree < 0:
-            raise ConfigError("poly_degree", "poly_degree must be non-negative")
-        if not isinstance(self.micro_benchmark, bool):
-            raise ConfigError("micro_benchmark", "micro_benchmark must be a bool")
+        for knob, ok, what in (
+            ("compress_ratio", 0.0 < self.compress_ratio <= 1.0, "must lie in (0, 1]"),
+            ("fpr", self.fpr is None or 0.0 < self.fpr < 1.0, "must lie in (0, 1)"),
+            ("quantum_num", 0 < self.quantum_num <= 127, "must lie in [1, 127] (int8 levels)"),
+            ("bucket_size", self.bucket_size > 0, "must be positive"),
+            ("topk_sample_size", self.topk_sample_size > 0, "must be positive"),
+            ("topk_undershoot", self.topk_undershoot > 0.0, "must be positive"),
+            ("bloom_threshold_insert", isinstance(self.bloom_threshold_insert, bool), "must be a bool"),
+            ("sort", isinstance(self.sort, bool), "must be a bool"),
+            ("poly_degree", self.poly_degree >= 0, "must be non-negative"),
+            ("micro_benchmark", isinstance(self.micro_benchmark, bool), "must be a bool"),
+        ):
+            if not ok:
+                raise ConfigError("knob-range", f"{knob} {what}, got {getattr(self, knob)!r}", knob=knob)
         if self.deepreduce is not None:
             self._check_host_codecs()
 
         self._check_in_collective()
+        self._check_decode()
         self._check_buckets()
+        self._check_resilience()
 
     def _check_host_codecs(self) -> None:
         """The pairings the JAX package refuses: the exact P2 policy off the
@@ -168,40 +359,42 @@ class DeepReduceConfig:
         'both' mode (`wrappers.py`'s TensorCodec)."""
         if self.policy == "conflict_sets" and self.index != "bloom_native" and self.deepreduce in ("index", "both"):
             raise ConfigError(
-                "policy",
+                "codec-pairing",
                 "exact conflict_sets (P2) is native-only, as in the reference (policies.hpp:43-146): use "
                 "index='bloom_native', or policy='conflict_sets_approx' for the in-graph parallel redesign",
+                knob="policy",
             )
         if self.deepreduce == "both" and self.index == "bloom_native":
             raise ConfigError(
-                "index",
+                "codec-pairing",
                 "bloom_native is index-mode only: its C++ wire format carries values in-band, so a value codec "
                 "on top would transmit them twice — use index='bloom' for 'both' mode",
+                knob="index",
             )
 
     def _check_in_collective(self) -> None:
         """The sparse_rs knobs' ranges and the fences of the in-collective
-        communicators (the JAX package's reason codes name the fences; it
-        raises the codec-stack ones when the exchanger is built)."""
+        communicators (the JAX package raises the codec-stack ones when the
+        exchanger is built)."""
         if self.rs_mode != "sparse" and self.communicator != "sparse_rs":
             raise ConfigError(
                 "rs-mode-needs-sparse-rs",
                 f"rs_mode={self.rs_mode!r} selects a sparse_rs route and would be silently ignored "
                 f"with communicator={self.communicator!r}: use communicator='sparse_rs'",
             )
-        if self.rs_block_size < 4 or self.rs_block_size % 4:
-            raise ConfigError(
-                "rs_block_size",
-                f"rs_block_size must be a positive multiple of 4 (int8 levels ride 4 per f32 lane), "
-                f"got {self.rs_block_size}",
-            )
-        if not 0.0 <= self.rs_density_threshold <= 1.0:
-            raise ConfigError("rs_density_threshold", "rs_density_threshold must lie in [0, 1]")
         b = self.rs_oktopk_bins
-        if b < 64 or b > (1 << 24) or b & (b - 1):
-            raise ConfigError("rs_oktopk_bins", f"rs_oktopk_bins must be a power of two in [64, 2**24], got {b}")
-        if not self.rs_oktopk_cap_headroom > 0.0:
-            raise ConfigError("rs_oktopk_cap_headroom", "rs_oktopk_cap_headroom must be positive")
+        for code, knob, ok, what in (
+            ("rs-block-size-range", "rs_block_size", self.rs_block_size >= 4 and self.rs_block_size % 4 == 0,
+             "must be a positive multiple of 4 (int8 levels ride 4 per f32 lane)"),
+            ("rs-density-threshold-range", "rs_density_threshold", 0.0 <= self.rs_density_threshold <= 1.0,
+             "must lie in [0, 1]"),
+            ("rs-oktopk-bins-range", "rs_oktopk_bins", 64 <= b <= (1 << 24) and not b & (b - 1),
+             "must be a power of two in [64, 2**24]"),
+            ("rs-oktopk-cap-headroom-range", "rs_oktopk_cap_headroom", self.rs_oktopk_cap_headroom > 0.0,
+             "must be positive"),
+        ):
+            if not ok:
+                raise ConfigError(code, f"{knob} {what}, got {getattr(self, knob)!r}", knob=knob)
         if self.communicator == "qar" and (
             self.deepreduce is not None or self.compressor != "none" or self.memory == "residual"
         ):
@@ -219,6 +412,16 @@ class DeepReduceConfig:
                 f"deepreduce={self.deepreduce!r} and compressor={self.compressor!r} would be silently "
                 "ignored; use compressor='topk', deepreduce=None",
             )
+
+    def _check_decode(self) -> None:
+        if self.decode_strategy not in DECODE_STRATEGIES:
+            raise ConfigError(
+                "enum-decode_strategy",
+                f"decode_strategy must be one of {DECODE_STRATEGIES}, got {self.decode_strategy!r}",
+                knob="decode_strategy",
+            )
+        if self.decode_batch < 1:
+            raise ConfigError("decode-batch-range", f"decode_batch must be >= 1, got {self.decode_batch}")
 
     def _check_buckets(self) -> None:
         """The bucketed and streamed exchange's fences, under the JAX
@@ -243,6 +446,69 @@ class DeepReduceConfig:
                 "stream_exchange=True streams the bucketed exchange out of the backward pass (one hook per "
                 "bucket): with bucket_bytes=None there is no partition to stream; set bucket_bytes",
             )
+        if self.stream_exchange and self.resilience:
+            raise ConfigError(
+                "stream-vs-resilience",
+                "stream_exchange=True exchanges each bucket from a backward hook, which does not thread the "
+                "resilience subsystem's participation mask, chaos or checksum state: run streaming without "
+                "resilience, or the barrier or pipelined schedule with it",
+            )
+
+    def _check_resilience(self) -> None:
+        """The resilience fences, in the JAX package's order and under its
+        codes."""
+        for knob in ("drop_rate", "chaos_drop_rate", "chaos_corrupt_rate", "chaos_truncate_rate"):
+            rate = getattr(self, knob)
+            if not 0.0 <= rate <= 1.0:
+                raise ConfigError("resilience-rate-range", f"{knob} must be in [0, 1], got {rate}")
+        engaged = [knob for knob, default in _RESILIENCE_KNOBS if getattr(self, knob) != default]
+        if engaged and not self.resilience:
+            raise ConfigError(
+                "resilience-knobs-disengaged",
+                f"{', '.join(engaged)} configure the resilience subsystem and would be silently ignored with "
+                "resilience=False: set resilience=True (or drop the knob(s))",
+            )
+        if self.resilience and self.communicator not in ("allgather", "allreduce"):
+            # the flat, loop-decoded sparse_rs routes re-own a dropped
+            # worker's shard (sparse_rs.owner_permutation); qar sums every
+            # worker's levels in one reduce-scatter and the adaptive lanes
+            # are per-worker wire state no deputy can serve
+            reowned = (
+                self.communicator == "sparse_rs"
+                and self.rs_mode in ("sparse", "quantized", "oktopk")
+                and not self.stream_exchange
+                and self.decode_strategy == "loop"
+                and self.bucket_bytes is None
+            )
+            if not reowned:
+                raise ConfigError(
+                    "resilience-vs-owner-communicator",
+                    "resilience=True threads a participation mask through the exchange, which the allgather "
+                    "and allreduce communicators and the flat loop-decoded sparse_rs routes (sparse, quantized, "
+                    f"oktopk) support: communicator={self.communicator!r} with this shape makes every worker a "
+                    "shard owner with no re-ownership path, so a dropped worker would black-hole its shard",
+                )
+        chaos_on = self.chaos_drop_rate > 0 or self.chaos_corrupt_rate > 0 or self.chaos_truncate_rate > 0
+        if chaos_on and not self.payload_checksum:
+            raise ConfigError(
+                "chaos-needs-checksum",
+                "chaos_*_rate perturbs payloads at the wire boundary; without payload_checksum=True the damage "
+                "decodes silently instead of degrading to a counted zero contribution: enable payload_checksum",
+            )
+        if self.payload_checksum and not (self.fused and self.communicator == "allgather"):
+            raise ConfigError(
+                "checksum-needs-fused-allgather",
+                "payload_checksum appends a checksum word to the fused buffer's wire format and would be "
+                f"silently ignored here (communicator={self.communicator!r}, fused={self.fused}): use "
+                "fused=True with communicator='allgather'",
+            )
+        if self.fault_plan is not None:
+            from deepreduce_tpu_torch.resilience.faults import FaultPlan
+
+            try:
+                FaultPlan.parse(self.fault_plan)
+            except ValueError as e:
+                raise ConfigError("fault-plan-syntax", str(e)) from e
 
     def codec_params(self) -> Dict[str, Any]:
         return {
@@ -270,7 +536,7 @@ def from_params(params: Dict[str, Any]) -> DeepReduceConfig:
         key = _KEY_MAP.get(key, key)
         if key not in fields:
             raise ConfigError(
-                key, f"{key!r} is not a knob of deepreduce_tpu_torch (known: {sorted(fields)})"
+                "unknown-knob", f"{key!r} is not a knob of deepreduce_tpu_torch (known: {sorted(fields)})", knob=key
             )
         kwargs[key] = val
     return DeepReduceConfig(**kwargs)

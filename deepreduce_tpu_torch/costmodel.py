@@ -22,9 +22,12 @@ def rs_wire_bytes(
     block: int = 256,
     bins: int = 4096,
     cap_headroom: float = 2.0,
+    masked: bool = False,
 ) -> Dict[str, float]:
     """Per-collective injection bytes of one worker for one route, keyed
-    by the collective's name in the JAX package's trace."""
+    by the collective's name in the JAX package's trace. `masked` prices
+    the participation-mask variants: the quantized route adds one int8
+    all_gather of the summed shard (the other layouts are unchanged)."""
     B = sparse_rs.send_budget(d, ratio, W, headroom)
     K2 = sparse_rs.out_budget(d, ratio, W, out_headroom)
     if mode == "sparse":
@@ -34,7 +37,8 @@ def rs_wire_bytes(
         return {"all_to_all": W * B * 8.0, "all_gather": (L + 1) * 4.0}
     if mode == "quantized":
         n = sparse_rs.padded_shard(d, W, block) * W
-        return {"pmax": (n // block) * 4.0, "psum_scatter": n * 1.0, "all_gather": K2 * 8.0}
+        extra = (n // W) * 1.0 if masked else 0.0
+        return {"pmax": (n // block) * 4.0, "psum_scatter": n * 1.0, "all_gather": K2 * 8.0 + extra}
     if mode == "oktopk":
         Bo = sparse_rs.oktopk_send_budget(d, ratio, W, cap_headroom)
         return {"psum": bins * 4.0, "all_to_all": W * Bo * 8.0, "all_gather": K2 * 8.0}

@@ -48,13 +48,19 @@ def _flat_legs(ex, axis: str) -> Tuple[Leg, ...]:
         return (Leg("encode", None, "int8-bucket-quantize"), Leg("collective", axis, "qar"),
                 Leg("decode", None, "dequantize"), Leg("stats", None, "wire"))
     if cfg.communicator == "sparse_rs":
-        return (Leg("encode", None, "topk-route"), Leg("collective", axis, f"sparse_rs:{cfg.rs_mode}"),
-                Leg("decode", None, "shard-reselect"), Leg("stats", None, "wire"))
+        # under resilience the route re-owns a dropped worker's shards
+        masked = (Leg("decode", axis, "masked-reowner"),) if cfg.resilience else ()
+        return (Leg("encode", None, "topk-route"),) + masked + (
+            Leg("collective", axis, f"sparse_rs:{cfg.rs_mode}"), Leg("decode", None, "shard-reselect"),
+            Leg("stats", None, "wire"))
     if ex.dense:
         return (Leg("collective", axis, "dense-psum"), Leg("stats", None, "wire"))
     gather = "bucketed-allgather" if ex.bucketed is not None else "fused-allgather"
-    return (Leg("encode", None, "codec-pack"), Leg("collective", axis, gather),
-            Leg("decode", None, "per-worker-loop"), Leg("stats", None, "wire"))
+    decode = {"loop": "per-worker-loop", "vmap": "batched-vmap", "ring": "ring-permute"}[cfg.decode_strategy]
+    collective = "ring-permute" if cfg.decode_strategy == "ring" else gather
+    masked = (Leg("decode", None, "masked-row-weights"),) if cfg.resilience else ()
+    return (Leg("encode", None, "codec-pack"), Leg("collective", axis, collective)) + masked + (
+        Leg("decode", None, decode), Leg("stats", None, "wire"))
 
 
 def leg_plan(ex) -> Tuple[Leg, ...]:

@@ -1,4 +1,5 @@
-"""Bytes-on-wire accounting: per-tensor `WireStats` and their sum."""
+"""Bytes-on-wire accounting: per-tensor `WireStats` and their sum, and the
+ring exchange's per-worker bytes."""
 
 from __future__ import annotations
 
@@ -49,3 +50,9 @@ def combine(stats: Dict[str, WireStats]) -> WireStats:
         dense_bits=sum(s.dense_bits for s in vals),
         saturated=sum(s.saturated for s in vals),
     )
+
+
+def ring_wire_bytes(buffer_bytes: int, num_workers: int) -> int:
+    """Per-worker wire bytes of the ring exchange (`comm_ring.py`): each
+    worker forwards the B-byte buffer W - 1 times."""
+    return int(buffer_bytes) * max(0, int(num_workers) - 1)

@@ -28,7 +28,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from deepreduce_tpu_torch.device import DeviceLike, check_on, resolve_device
-from deepreduce_tpu_torch.ops.qsgd_kernel import philox_uniforms_plain, quantize_levels_plain
+from deepreduce_tpu_torch.ops.qsgd_kernel import count_launches, philox_uniforms_plain, quantize_levels_plain
 
 MAX_SEGMENTS = 128  # the kernel's segment table (csrc/qsgd_encode.cu kMaxSegments)
 
@@ -237,7 +237,7 @@ def qsgd_encode_rows(
         qsgd_encode_rows_plain(segments, quantum_num, bucket_size, out)
         return
     if any(s.values.shape[0] > 0 for s in segments):
-        qsgd_encode_rows.launches += launch(kernel_lib(), segments, out, quantum_num, bucket_size)
+        count_launches(qsgd_encode_rows, launch(kernel_lib(), segments, out, quantum_num, bucket_size))
 
 
 qsgd_encode_rows.launches = 0

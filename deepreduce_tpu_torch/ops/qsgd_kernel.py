@@ -24,6 +24,7 @@ the fused `qsgd_encode_rows` (`ops/qsgd_encode.py`) instead.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -131,8 +132,17 @@ def quantize_levels(
         raise RuntimeError(
             f"qsgd_quantize launch failed: {lib.qsgd_error_string(code).decode()} (cudaError {code})"
         )
-    quantize_levels.launches += 1
+    count_launches(quantize_levels, 1)
     return out
 
 
 quantize_levels.launches = 0
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launches(wrapper, n: int) -> None:
+    """Add `n` to `wrapper.launches` under a lock: workers of an
+    `InProcessGroup` launch from several threads, and a launch releases the
+    interpreter lock."""
+    with _COUNT_LOCK:
+        wrapper.launches += n

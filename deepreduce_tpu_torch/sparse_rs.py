@@ -22,8 +22,19 @@ The universe splits into W contiguous shards, one per worker:
   survivors route, with a W-times smaller per-(worker, shard) capacity;
   then the sparse phase 2.
 
-`sketch` (count-sketch), `auto` (the cost model's choice) and the
-participation-mask variants are not ported and raise by name.
+Under the resilience participation mask (`mask=`), the sparse, quantized
+and oktopk routes re-own shards over the live set (`owner_permutation`: a
+live worker keeps its shard, a dropped worker's shard s goes to the live
+worker of rank s mod n_live): senders route entries to the deputy owner
+with global indices on the wire, dropped rows are zeroed on both sides,
+phase 2 re-selects owned coordinates only and the mean divides by the live
+count (an IEEE divide by a device tensor, as JAX divides by a traced
+count). The quantized route adds one int8 all_gather of the summed shards,
+so that a deputy can dequantize the shards it serves. The adaptive route's
+lanes are per-worker wire state no deputy can serve: it refuses the mask.
+
+`sketch` (count-sketch) and `auto` (the cost model's choice) are not
+ported and raise by name.
 
 Every shape is static, and every data-dependent decision (budget overflow,
 the adaptive flag, the oktopk threshold) stays on the device as data, so a
@@ -200,13 +211,17 @@ def exchange(
     stream: Optional[qar.Stream] = None,
     uniforms: Optional[torch.Tensor] = None,
     collect: Optional[Dict[str, torch.Tensor]] = None,
+    mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, WireStats]:
     """-> (mean f32[d], own-transmitted dense f32[d] for error feedback,
     wire stats) of this worker. `stream` is the worker's Philox stream for
     the routes that quantize (adaptive, quantized); `uniforms` (CPU only)
     replaces it. `collect`, when a dict, receives the adaptive route's
     `rs_density` / `rs_dense_switches` and the oktopk route's
-    `rs_oktopk_survivors` / `rs_oktopk_threshold` / `rs_oktopk_spills`."""
+    `rs_oktopk_survivors` / `rs_oktopk_threshold` / `rs_oktopk_spills`.
+    `mask` (bool[W] on the device, the same on every worker) selects the
+    route's participation-mask variant; an all-ones mask gives the
+    mask-free route's outputs."""
     if rs_mode not in RS_MODES:
         raise ValueError(
             f"rs_mode={rs_mode!r} is not ported to deepreduce_tpu_torch (ported: {list(RS_MODES)}); "
@@ -216,6 +231,20 @@ def exchange(
         raise ValueError(f"rs_mode={rs_mode!r} quantizes and needs a Philox stream")
     if flat.dtype != torch.float32 or flat.dim() != 1:
         raise ValueError(f"flat must be a 1-d float32 tensor, got {flat.dtype} {tuple(flat.shape)}")
+    if mask is not None:
+        if rs_mode == "sparse":
+            return _exchange_sparse_masked(flat, coll, ratio=ratio, headroom=headroom, out_headroom=out_headroom,
+                                           mask=mask)
+        if rs_mode == "quantized":
+            return _exchange_quantized_masked(flat, coll, ratio=ratio, out_headroom=out_headroom, block=block_size,
+                                              stream=stream, uniforms=uniforms, mask=mask)
+        if rs_mode == "oktopk":
+            return _exchange_oktopk_masked(flat, coll, ratio=ratio, out_headroom=out_headroom, bins=oktopk_bins,
+                                           cap_headroom=oktopk_cap_headroom, collect=collect, mask=mask)
+        raise ValueError(
+            f"rs_mode={rs_mode!r} has no participation-mask variant (the adaptive lane switches are per-worker "
+            "wire state no deputy can re-own): the config fences it as resilience-vs-owner-communicator"
+        )
     if rs_mode == "sparse":
         return _exchange_sparse(flat, coll, ratio=ratio, headroom=headroom, out_headroom=out_headroom)
     if rs_mode == "adaptive":
@@ -366,3 +395,162 @@ def _exchange_oktopk(flat, coll: Collectives, *, ratio, out_headroom, bins, cap_
         collect["rs_oktopk_spills"] = survive.sum(dtype=torch.float32) - keep.sum(dtype=torch.float32)
     # the histogram lanes count as values
     return mean, own, WireStats.constant((W * Bo + K2) * 32.0, (W * Bo + K2 + bins) * 32.0, d * 32.0, dev)
+
+
+# -- the participation-mask variants ---------------------------------------- #
+
+
+def owner_permutation(mask: torch.Tensor, num_workers: int) -> torch.Tensor:
+    """owner_of[s] (int64 [W]): the worker serving shard s under the mask.
+    A live worker keeps its shard; a dropped worker's shard goes to the live
+    worker of rank s mod n_live in the ascending live set (a stable sort of
+    the not-live flags, no host sync). The identity under an all-ones mask,
+    and the same on every worker."""
+    W = num_workers
+    live = mask.to(torch.float32).reshape(W) > 0.0
+    n_live = live.sum(dtype=torch.int64)
+    packed = torch.sort((~live).to(torch.int32), stable=True).indices
+    ar = torch.arange(W, device=mask.device)
+    deputy = packed[ar % torch.clamp(n_live, min=1)]
+    return torch.where(live, ar, deputy)
+
+
+def _masked_route(values, indices, select, owner_of, live_self, coll: Collectives, S: int, B: int, mask_f):
+    """Masked phase 1: route the entries marked `select` (in descending
+    magnitude order) to the deputy owner of their shard through one
+    all_to_all, at most B per (worker, target), global indices on the wire;
+    a dropped sender sends nothing and a dropped sender's received row is
+    zeroed. The receiver adds the W rows into its [W S] deputy buffer in
+    worker order. Returns (deputy buffer, keep, idxs, vals, pos), the latter
+    four in routing order for the own-transmitted scatter."""
+    W = coll.world_size
+    dev = values.device
+    k = values.shape[0]
+    tw = torch.where(select, owner_of[torch.clamp(indices.long() // S, 0, W - 1)], W)  # dead -> parked W
+    order = torch.sort(tw, stable=True).indices
+    tws, vals, idxs = tw[order], values[order], indices[order]
+    pos = torch.arange(k, dtype=torch.int32, device=dev)
+    starts = torch.ones(k, dtype=torch.bool, device=dev)
+    starts[1:] = tws[1:] != tws[:-1]
+    rank = pos - torch.cummax(torch.where(starts, pos, -1), 0).values
+    keep = (tws < W) & (rank < B) & live_self
+    tgt = torch.where(keep, tws * B + rank, W * B + pos)
+    send_v = _scatter_set(W * B, tgt, vals).view(W, B)
+    send_i = _scatter_set(W * B, tgt, idxs.to(torch.int32)).view(W, B)
+    rx = coll.all_to_all(torch.cat([send_v, _f32(send_i)], dim=1))  # [W, 2B]
+    rx_v, rx_i = rx[:, :B] * mask_f[:, None], _i32(rx[:, B:]).long()
+    # as in `_route`: each row's nonzero entries have unique targets; set a
+    # row into zeros (zeros park past the buffer), add the rows in order
+    n = W * S
+    slots = torch.arange(B, device=dev)
+    live = rx_v != 0
+    buf = torch.zeros(n, dtype=torch.float32, device=dev)
+    for w in range(W):
+        row = torch.zeros(n + B, dtype=torch.float32, device=dev)
+        row[torch.where(live[w], torch.clamp(rx_i[w], 0, n - 1), n + slots)] = rx_v[w]
+        buf = buf + row[:n]
+    return buf, keep, idxs, vals, pos
+
+
+def _masked_phase2(est, owned, coll: Collectives, K2: int, mask_f):
+    """Masked phase 2: re-select the K2 largest owned coordinates of the
+    [W S] deputy estimate, all_gather (values, global indices) and add the
+    live rows. Returns (clipped global indices i64[W K2], dense numerator
+    f32[W S]). Owned regions are disjoint and every other pick carries an
+    exact zero, so the add is exact in any order."""
+    n = est.shape[0]
+    top_i = sparse.top_order(torch.where(owned, est.abs(), 0.0), K2)
+    out_vals = torch.where(owned[top_i], est[top_i], 0.0)
+    gathered = coll.all_gather(torch.cat([out_vals, _f32(top_i.to(torch.int32))]))  # [W, 2 K2]
+    gi = torch.clamp(_i32(gathered[:, K2:]).reshape(-1).long(), 0, n - 1)
+    vals = (gathered[:, :K2] * mask_f[:, None]).reshape(-1)
+    return gi, torch.zeros(n, dtype=torch.float32, device=est.device).index_add_(0, gi, vals)
+
+
+def _mask_parts(mask, coll: Collectives):
+    """(mask f32[W], this worker live: bool 0-d, owner_of, the live count
+    max(n_live, 1) as a 0-d f32 on the device)."""
+    W = coll.world_size
+    mask_f = mask.to(torch.float32).reshape(W)
+    return mask_f, mask_f[coll.rank] > 0.0, owner_permutation(mask_f, W), torch.clamp(mask_f.sum(), min=1.0)
+
+
+def _exchange_sparse_masked(flat, coll: Collectives, *, ratio, headroom, out_headroom, mask):
+    d, W = flat.shape[0], coll.world_size
+    S = shard_size(d, W)
+    B = send_budget(d, ratio, W, headroom)
+    K2 = out_budget(d, ratio, W, out_headroom)
+    mask_f, live_self, owner_of, denom = _mask_parts(mask, coll)
+    sp = sparse.topk(flat, ratio, sort_indices=False)
+    live = torch.arange(sp.k, device=flat.device) < sp.nnz
+    buf, keep, idxs, vals, pos = _masked_route(sp.values, sp.indices, live, owner_of, live_self, coll, S, B, mask_f)
+    owned = owner_of[torch.arange(W * S, device=flat.device) // S] == coll.rank
+    _, dense = _masked_phase2(buf, owned, coll, K2, mask_f)
+    own = _own_transmitted(keep, idxs, vals, pos, W, S, d)
+    return dense[:d] / denom, own, WireStats.constant((W * B + K2) * 32.0, (W * B + K2) * 32.0, d * 32.0,
+                                                      flat.device)
+
+
+def _exchange_quantized_masked(flat, coll: Collectives, *, ratio, out_headroom, block, stream, uniforms, mask):
+    d, W = flat.shape[0], coll.world_size
+    dev = flat.device
+    n = padded_shard(d, W, block) * W
+    Ssh = n // W
+    K2 = out_budget(d, ratio, W, out_headroom)
+    q = quantized_levels_budget(W)
+    mask_f, live_self, owner_of, denom = _mask_parts(mask, coll)
+    gp = torch.zeros(n, dtype=torch.float32, device=dev)
+    gp[:d] = flat
+    # a dropped worker's norms leave the shared max, its levels the sum
+    norms = coll.all_reduce_max(torch.where(live_self, bucket_norms_ordered(gp, block), 0.0))
+    levels, _ = qar.bucket_quantize(gp, q, block, stream, norms=norms, uniforms=uniforms)
+    levels = torch.where(live_self, levels, torch.zeros_like(levels))
+    summed = coll.reduce_scatter_sum(levels)  # int8[Ssh], exact
+    shards = coll.all_gather(summed)  # int8[W, Ssh]: a deputy dequantizes the shards it serves
+    nb = Ssh // block
+    est = torch.cat([
+        torch.where(owner_of[v] == coll.rank, qar.bucket_dequantize(shards[v], norms[v * nb : (v + 1) * nb], q, block),
+                    0.0)
+        for v in range(W)
+    ])
+    owned = owner_of[torch.arange(n, device=dev) // Ssh] == coll.rank
+    gi, dense = _masked_phase2(est, owned, coll, K2, mask_f)
+    # own contribution from the zeroed levels, at every gathered index (a
+    # dropped row's zero-valued picks included, as in the JAX package)
+    my_deq = qar.bucket_dequantize(levels, norms, q, block)
+    own = torch.zeros(n, dtype=torch.float32, device=dev).index_add_(0, gi, my_deq[gi])[:d]
+    value_bits = n * 8.0 + (n // block) * 32.0 + K2 * 32.0 + Ssh * 8.0
+    return dense[:d] / denom, own, WireStats.constant(K2 * 32.0, value_bits, d * 32.0, dev)
+
+
+def _exchange_oktopk_masked(flat, coll: Collectives, *, ratio, out_headroom, bins, cap_headroom, collect, mask):
+    d, W = flat.shape[0], coll.world_size
+    dev = flat.device
+    S = shard_size(d, W)
+    Bo = oktopk_send_budget(d, ratio, W, cap_headroom)
+    K2 = out_budget(d, ratio, W, out_headroom)
+    shift = oktopk_shift(bins)
+    mask_f, live_self, owner_of, denom = _mask_parts(mask, coll)
+    sp = sparse.topk(flat, ratio, sort_indices=False)
+    k = sp.k
+    live = torch.arange(k, device=dev) < sp.nnz
+    mag = torch.where(live, sp.values.abs(), 0.0)
+    bucket = _i32(mag) >> shift
+    nonzero = live & (mag > 0)
+    # a dropped worker's candidates do not move the global threshold
+    weight = torch.where(live_self, nonzero.to(torch.float32), 0.0)
+    hist = torch.zeros(bins, dtype=torch.float32, device=dev).index_add_(0, bucket.long(), weight)
+    cum = torch.flip(torch.cumsum(torch.flip(coll.all_reduce_sum(hist), (0,)), 0), (0,))
+    b_star = torch.where(cum >= float(k), torch.arange(bins, dtype=torch.int32, device=dev), 0).amax()
+    survive = nonzero & (bucket >= b_star)
+    buf, keep, idxs, vals, pos = _masked_route(sp.values, sp.indices, survive, owner_of, live_self, coll, S, Bo,
+                                               mask_f)
+    owned = owner_of[torch.arange(W * S, device=dev) // S] == coll.rank
+    _, dense = _masked_phase2(buf, owned, coll, K2, mask_f)
+    own = _own_transmitted(keep, idxs, vals, pos, W, S, d)
+    if collect is not None:
+        collect["rs_oktopk_survivors"] = torch.index_select(cum, 0, b_star.long().reshape(1))[0]
+        collect["rs_oktopk_threshold"] = _f32((b_star << shift).reshape(1))[0]
+        collect["rs_oktopk_spills"] = survive.sum(dtype=torch.float32) - keep.sum(dtype=torch.float32)
+    return dense[:d] / denom, own, WireStats.constant((W * Bo + K2) * 32.0, (W * Bo + K2 + bins) * 32.0, d * 32.0,
+                                                      dev)

@@ -2,9 +2,10 @@
 
 One process per worker (rank of the process group; one worker without a
 group), or one thread per worker of a `collectives.InProcessGroup`. The
-step is forward/backward -> `compensate` -> exchange -> `update` ->
-optimizer, with `torch.optim.SGD(lr, momentum)`, whose update
-matches `optax.sgd(lr, momentum)`. With `cfg.stream_exchange` the
+step is forward/backward -> `compensate` -> exchange (under the step's
+participation mask with `cfg.resilience`) -> `update` -> optimizer, with
+`torch.optim.SGD(lr, momentum)`, whose update matches
+`optax.sgd(lr, momentum)`. With `cfg.stream_exchange` the
 bucketed exchange runs from the backward pass instead
 (`comm_stream.StreamingExchange`). Parameters and optimizer state are
 updated in place. A model with BatchNorm (ResNet-20) moves its running
@@ -32,6 +33,7 @@ from deepreduce_tpu_torch.device import DeviceLike, resolve_device
 from deepreduce_tpu_torch.exchange import build_exchanger, wrap_streaming
 from deepreduce_tpu_torch.metrics import WireStats
 from deepreduce_tpu_torch.numerics import mean_of_sum
+from deepreduce_tpu_torch.resilience.faults import participation_mask
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,7 +138,14 @@ class Trainer:
         value bits averaged over workers, saturation counts summed).
         `uniforms` is the CPU parity tests' hook for the stochastic draws and
         `collect` receives the exchange's observables (see
-        `GradientExchanger.exchange`)."""
+        `GradientExchanger.exchange`) and, with `cfg.resilience`, the live
+        worker count (`live_workers`) and whether any worker sat the step out
+        (`dropped`), as device tensors.
+
+        With `cfg.resilience` the step's participation mask comes from
+        `faults.participation_mask` at (seed, step) and goes into the
+        exchange; without it the step runs exactly the resilience-free
+        ops."""
         params = state.params
         if self.streaming is not None:
             loss, _, agg, residuals, wire = self.streaming.value_and_grad_exchange(
@@ -148,8 +157,20 @@ class Trainer:
             loss = self.loss_fn(batch)
             loss.backward()
             grads = {n: p.grad for n, p in params.items()}
+            mask = None
+            if self.cfg.resilience:
+                # from host data every worker shares (the seed, the step): the
+                # same mask on every worker, built on the device without a copy
+                mask = participation_mask(self.coll.world_size, state.step, self.cfg.seed,
+                                          drop_rate=self.cfg.drop_rate, fault_plan=self.cfg.fault_plan,
+                                          device=self.device)
+                if collect is not None:
+                    W = self.coll.world_size
+                    live = torch.full((), float(W), device=self.device) if mask is None else mask.sum(dtype=torch.float32)
+                    collect["live_workers"] = live
+                    collect["dropped"] = (live < W).to(torch.float32)
             agg, residuals, wire = self.exchanger.exchange(
-                grads, state.residuals, step=state.step, uniforms=uniforms, collect=collect
+                grads, state.residuals, step=state.step, uniforms=uniforms, collect=collect, mask=mask
             )
         for n, p in params.items():
             p.grad = agg[n]

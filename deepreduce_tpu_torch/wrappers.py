@@ -310,6 +310,13 @@ class TensorCodec:
         )
 
     @property
+    def decode_batches(self) -> bool:
+        """True when a group of payloads decodes in one call (the vmap
+        decode's batch): a raw dense tensor, whose decode is a view. Every
+        other decode runs row by row."""
+        return self.dense_fallback
+
+    @property
     def host(self) -> bool:
         """True when a codec of this tensor runs on the host."""
         return any(c is not None and c.host for c in (self.idx_codec, self.val_codec))

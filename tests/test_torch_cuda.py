@@ -589,3 +589,96 @@ def test_host_codec_exchange_card_equals_cpu_and_counts_its_syncs(cuda, arm):
     for n in shapes:
         assert torch.equal(gagg[n].cpu(), cagg[n]), n
         assert torch.equal(gres[n].cpu(), cres[n]), n
+
+
+# -- the resilient fused exchange ------------------------------------------- #
+
+
+def test_checksum_and_chaos_draws_card_equal_cpu(cuda):
+    """The checksum words of 3 rows of 9 MB (past the 2**23 bytes an
+    unsplit int64 sum would overflow at), their gates and the chaos
+    stream's words on the card bitwise the CPU's."""
+    from deepreduce_tpu_torch.comm import PayloadLayout
+    from deepreduce_tpu_torch.resilience import chaos, stream
+
+    n = 9_000_001
+    gen = torch.Generator().manual_seed(2)
+    layout = PayloadLayout([((n,), torch.uint8)], checksum=True)
+    rows = torch.stack([layout.pack([torch.randint(0, 256, (n,), generator=gen, dtype=torch.uint8)])
+                        for _ in range(3)])
+    rows[1, 5] ^= 1
+    got = layout.verify(rows.to(cuda))
+    assert torch.equal(got.cpu(), layout.verify(rows)) and got.tolist() == [1.0, 0.0, 1.0]
+    k = stream.key(3, 0x0C405, 1, 7, 2)
+    assert torch.equal(stream.words(k, 1 << 20, cuda).cpu(), stream.words(k, 1 << 20, "cpu"))
+    inj = chaos.ChaosInjector(corrupt_rate=1.0, truncate_rate=1.0, seed=3)
+    buf = rows[0, :100_000]
+    assert torch.equal(inj.perturb(buf.to(cuda), step=7, worker=2).cpu(), inj.perturb(buf, step=7, worker=2))
+
+
+@pytest.mark.parametrize("strategy", ["loop", "vmap", "ring"])
+def test_resilient_exchange_card_equals_cpu(cuda, strategy):
+    """Four in-process workers, worker 2 dropped, the checksum and byte
+    corruption at rate 0.5: the aggregate (a mean over a
+    live count of 3 is an IEEE divide by a device tensor), the residuals and
+    the failure count bitwise equal on the card and the CPU, with one
+    qsgd_encode_rows launch a worker."""
+    from deepreduce_tpu_torch import DeepReduceConfig, GradientExchanger, InProcessGroup
+
+    W = 4
+    cfg = DeepReduceConfig(**BUCKET_FLAGSHIP, resilience=True, payload_checksum=True, chaos_corrupt_rate=0.5,
+                           decode_strategy=strategy, decode_batch=3)
+    shapes = {"a/kernel": (100, 100), "b": (9_000,), "c": (400,)}
+    gen = torch.Generator().manual_seed(13)
+    grads = [{n: torch.randn(s, generator=gen) for n, s in shapes.items()} for _ in range(W)]
+    res = [{n: torch.randn(s, generator=gen) * 1e-2 for n, s in shapes.items()} for _ in range(W)]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        mask = torch.tensor([True, True, False, True]).to(dev)
+
+        def work(coll, g, r, dev=dev, mask=mask):
+            ex = GradientExchanger(shapes, cfg, device=dev, group=coll)
+            collect = {}
+            agg, new_r, _ = ex.exchange({n: t.to(dev) for n, t in g.items()}, {n: t.to(dev) for n, t in r.items()},
+                                        step=1, collect=collect, mask=mask)
+            return agg, new_r, collect["checksum_failures"]
+
+        before = qsgd_encode_rows.launches
+        out[dev.type] = InProcessGroup(W).run(work, grads, res)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert qsgd_encode_rows.launches - before == W
+    assert float(out["cpu"][0][2]) > 0  # some payload failed its checksum
+    for (gagg, gres, gf), (cagg, cres, cf) in zip(out["cuda"], out["cpu"]):
+        assert float(gf) == float(cf)
+        for n in shapes:
+            assert torch.equal(gagg[n].cpu(), cagg[n]) and torch.equal(gres[n].cpu(), cres[n]), n
+
+
+@pytest.mark.parametrize("route", ["sparse", "quantized", "oktopk"])
+def test_masked_sparse_rs_card_equals_cpu(cuda, route):
+    """The masked routes at W = 4 with worker 1 dropped: mean and residuals
+    bitwise equal on the card and the CPU."""
+    from deepreduce_tpu_torch import DeepReduceConfig, GradientExchanger, InProcessGroup
+
+    W = 4
+    cfg = DeepReduceConfig(communicator="sparse_rs", rs_mode=route, compress_ratio=0.1, resilience=True,
+                           fault_plan="1@0:9", seed=5)
+    shapes = {"a/kernel": (300, 60), "b": (2_000,)}
+    gen = torch.Generator().manual_seed(14)
+    grads = [{n: torch.randn(s, generator=gen) for n, s in shapes.items()} for _ in range(W)]
+    res = [{n: torch.randn(s, generator=gen) * 1e-2 for n, s in shapes.items()} for _ in range(W)]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        def work(coll, g, r, dev=dev):
+            from deepreduce_tpu_torch.resilience.faults import participation_mask
+
+            ex = GradientExchanger(shapes, cfg, device=dev, group=coll)
+            mask = participation_mask(W, 2, cfg.seed, fault_plan=cfg.fault_plan, device=dev)
+            return ex.exchange({n: t.to(dev) for n, t in g.items()}, {n: t.to(dev) for n, t in r.items()}, step=2,
+                               mask=mask)[:2]
+
+        out[dev.type] = InProcessGroup(W).run(work, grads, res)
+    for (gagg, gres), (cagg, cres) in zip(out["cuda"], out["cpu"]):
+        for n in shapes:
+            assert torch.equal(gagg[n].cpu(), cagg[n]) and torch.equal(gres[n].cpu(), cres[n]), n

@@ -274,7 +274,9 @@ def test_port_imports_no_jax():
         " deepreduce_tpu_torch.models.mobilenet, deepreduce_tpu_torch.models.ncf, deepreduce_tpu_torch.models.bert,"
         " deepreduce_tpu_torch.checkpoint, deepreduce_tpu_torch.resilience.retry, deepreduce_tpu_torch.native,"
         " deepreduce_tpu_torch.codecs.huffman, deepreduce_tpu_torch.codecs.gzip_codec,"
-        " deepreduce_tpu_torch.codecs.polyfit_host, deepreduce_tpu_torch.codecs.bloom_native;"
+        " deepreduce_tpu_torch.codecs.polyfit_host, deepreduce_tpu_torch.codecs.bloom_native,"
+        " deepreduce_tpu_torch.comm_ring, deepreduce_tpu_torch.resilience.faults, deepreduce_tpu_torch.resilience.chaos,"
+        " deepreduce_tpu_torch.resilience.stream, deepreduce_tpu_torch.resilience.__main__;"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'flax', 'optax'))"
         " or m == 'deepreduce_tpu' or m.startswith('deepreduce_tpu.')];"
         "print(bad); sys.exit(1 if bad else 0)"
@@ -298,6 +300,10 @@ def test_cuda_default_entry_points_raise_without_cuda():
             port.GradientExchanger({"w": (2000,)}, port.DeepReduceConfig(**knobs))
     with pytest.raises(RuntimeError, match="CUDA"):
         port.Trainer(WordLSTM(16, 4, 8), cfg, lr=0.1)
+    from deepreduce_tpu_torch.resilience import faults
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        faults.participation_mask(4, 0, fault_plan="1@0")
     with pytest.raises(RuntimeError, match="CUDA"):
         port.FedAvg(lambda p, b: p["w"].sum(), cfg, port.FedConfig(4, 2), 0.1)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -315,11 +321,14 @@ def test_config_rejects_unported_knobs_by_name():
     assert e.value.knob == "approx_topk"
     # the host codecs run, in the pairings the JAX package runs: not the
     # exact P2 off its C++ library, nor bloom_native in 'both' mode (FLAGSHIP's)
-    for knob, val in [("decode_strategy", "vmap"), ("policy", "conflict_sets"),
+    for knob, val in [("decode_strategy", "tree"), ("policy", "conflict_sets"),
                       ("index", "bloom_native"), ("code", "simple16")]:
         with pytest.raises(port.ConfigError) as e:
             port.DeepReduceConfig(**{**FLAGSHIP, knob: val})
         assert e.value.knob == knob
+    # the unfused exchange and the vmap and ring decodes run
+    for knob, val in [("decode_strategy", "vmap"), ("decode_strategy", "ring"), ("fused", False)]:
+        assert getattr(port.DeepReduceConfig(**{**FLAGSHIP, knob: val}), knob) == val
     for knob, val in [("index", "huffman"), ("index", "integer_native"), ("value", "gzip"),
                       ("value", "polyfit_host"), ("code", "pfor")]:
         assert getattr(port.DeepReduceConfig(**{**FLAGSHIP, knob: val}), knob) == val
