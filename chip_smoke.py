@@ -31,7 +31,9 @@ Phases, one line each; any failure raises and exits non-zero:
      qsgd_quantize never (it is no longer on the main path); then the
      flagship's codec-table times (as in phase 7);
   6. device times (torch.profiler) and host times of each kernel and its
-     plain version at its path's shapes (qsgd_encode_rows on phase 5's table,
+     plain version at its path's shapes, taken right after phase 4 for
+     qsgd_encode_rows and in phase 9 for qsgd_quantize, before any phase
+     runs its workers as threads (qsgd_encode_rows on phase 5's table,
      beside the per-leaf QSGD composition it replaced; qsgd_quantize at the
      qar path's 4,050,944 elements from phase 9), and qsgd_encode_rows's
      sweep: its launch floor (an empty kernel with its parameter block and
@@ -198,6 +200,25 @@ Phases, one line each; any failure raises and exits non-zero:
      `python -m deepreduce_tpu_torch.resilience check` (8 in-process
      workers on the card) with its four checks true. No hop or gather
      crosses between cards: one card.
+ 17. the sparse_rs sketch and auto routes and the two-tier exchange on the
+     full-width WordLSTM: at W = 1 through the same NCCL group, 3 steps an
+     arm with the counts zeroed just before and read just after (`PHASE17`):
+     `rs_sketch` (5 rows, C = 162,030; its one host sync a step named by
+     file:line; the sampled top-k card = CPU bitwise, the sketch table
+     within each cell's reordering bound, and given the CPU's table the
+     mean and own bitwise), `rs_auto` (resolves to sparse, bitwise
+     `rs_sparse` after every step) and `hier_w1` (the group split into
+     (ici, dcn) = (1, 1): bitwise the flagship, one qsgd_encode_rows launch a
+     step on a table bitwise its plain version); then four in-process
+     workers on the one card as `InProcessGrid(2, 2)` (`HIER17`), each on a
+     quarter of the batch for 3 steps: `hier_dense_fused`, `hier_qar_quantized`
+     (bench.py's qar+quantized), `hier_auto` (its plan `{ici: qar, dcn: fused}`)
+     and `stream_hier` (4 MiB buckets, bitwise the same config without
+     streaming): `describe()`, the launches a worker-step, no host sync, DCN
+     and ICI bytes, every worker's parameters alike and a slice's residuals,
+     one exchange of full-width gradients card = CPU bitwise with each
+     kernel bitwise its plain version on the arm's inputs, and worker 0's
+     step times. No slice mean or cross-slice gather crosses between cards.
 `--profile` adds one profiled training step after phase 5, after each arm
 of phases 7, 8, 9, 10, 11, 14 and 15, and one profiled round after each arm
 of phase 12: the device's busy and idle share over the step or round, its
@@ -2914,12 +2935,403 @@ def phase_resilience(seed: int, tokens, group, ref_loss: float):
     return arms, extras
 
 
-def phase_timing(ex, errs: dict, by_arm: dict, quantize: dict) -> None:
-    # each path's run, counted from 0 just before it (phases 5 and 7-16)
+# phase 17: the in-collective remainders and the two-tier exchange on the
+# full-width WordLSTM. At W = 1 through the NCCL group: (knobs over the
+# flagship's, the arm whose parameters and residuals it must equal bitwise
+# after every step, or None); the payload bytes are the JAX package's
+# (test_phase17_wire_constants_match_jax). The count sketch's C is 162,030
+# columns (costmodel.sketch_cols: 2k / rows).
+PHASE17 = {
+    "rs_sketch": (dict(RS, rs_mode="sketch", rs_sketch_rows=5, rs_sketch_cols=0), None),
+    "rs_auto": (dict(RS, rs_mode="auto"), "rs_sparse"),  # the cost model picks sparse at W = 1
+    "hier_w1": (dict(hier=True, ici_size=1), "drqsgd_bloom"),  # a slice mean of one is the identity
+}
+REF17 = {"drqsgd_bloom": {}, "rs_sparse": dict(RS, rs_mode="sparse")}
+PAYLOAD17 = {"rs_sketch": 6_481_192, "rs_auto": 9_721_776, "hier_w1": 1_189_616}
+# four in-process workers on the one card as InProcessGrid(2, 2), each on a
+# quarter of the batch: (knobs over the flagship's, (DCN bytes, ICI bytes)
+# a worker-step, qsgd_quantize and qsgd_encode_rows launches a worker-step)
+GRID17 = (2, 2)
+HIER17 = {
+    "hier_dense_fused": (dict(hier=True), (1_189_616, 16_202_992), (0, 1)),
+    # bench.py:1015-1019's qar+quantized: 2 levels launches for the qar slice leg, 1 for the route
+    "hier_qar_quantized": (dict(RS, rs_mode="quantized", memory="none", hier=True, hier_ici="qar"),
+                           (5_734_536, 4_082_592), (3, 0)),
+    "hier_auto": (dict(deepreduce=None, hier=True, hier_ici="auto", hier_dcn="auto"), (3_240_652, 4_082_592),
+                  (2, 0)),
+    "stream_hier": (dict(hier=True, bucket_bytes=BUCKET_BYTES, bucket_order="reverse", stream_exchange=True),
+                    (1_183_992, 16_202_992), (0, 5)),
+}
+PLAN17 = {"ici": "qar", "dcn": "fused"}
+
+
+def sketch_reorder_bound(values, indices, rows: int, cols: int, seed: int):
+    """f64 [rows, cols]: per cell of a count sketch, the most two orders of
+    its float32 column sum can differ, 2 gamma(n - 1) sum |v| over the cell's
+    n nonzero addends (gamma(m) = m u / (1 - m u), u = 2**-24: a sum of n
+    terms in any order rounds n - 1 times and errs by at most gamma(n - 1)
+    sum |v|; zeros add exactly). The card's `index_add_` adds in atomic
+    order, the CPU's in slot order."""
+    import torch
+
+    from deepreduce_tpu_torch import u32
+    from deepreduce_tpu_torch.codecs import countsketch
+
+    idx = indices.cpu().to(torch.int64) & u32.MASK32
+    v = values.cpu().double()
+    out = torch.zeros(rows, cols, dtype=torch.float64)
+    for r, (a_mult, _) in enumerate(countsketch.row_constants(rows, seed)):
+        col = countsketch._bucket(idx, a_mult, cols)
+        n = torch.zeros(cols, dtype=torch.float64).index_add_(0, col, (v != 0).double())
+        m = torch.clamp(n - 1, min=0) * 2.0 ** -24
+        out[r] = 2 * m / (1 - m) * torch.zeros(cols, dtype=torch.float64).index_add_(0, col, v.abs())
+    return out
+
+
+def sketch_route_card_vs_cpu(route, flat) -> dict:
+    """`route(x)` -> (mean, own) of the sparse_rs sketch route on `flat`
+    (f32 on the card) and on the CPU: the sampled top-k the sketch is built
+    from bitwise equal; the card's sketch table within
+    `sketch_reorder_bound` of the CPU's, cell by cell; and given the CPU's
+    table, the card's mean and own-transmitted tensor bitwise the CPU's
+    (what follows the table, the median-of-rows read, the re-selection and
+    the unique-index scatters, is order-free)."""
+    import torch
+
+    from deepreduce_tpu_torch.codecs import countsketch
+
+    real = countsketch.sketch_from_sparse
+    seen = []
+
+    def spy(values, indices, rows, cols, *, seed=0):
+        table = real(values, indices, rows, cols, seed=seed)
+        seen.append((table, values, indices, rows, cols, seed))
+        return table
+
+    def replay(values, indices, rows, cols, *, seed=0):
+        return cpu_table.to(values.device)
+
+    out = {}
+    try:
+        countsketch.sketch_from_sparse = spy
+        out["cpu"] = route(flat.cpu())
+        out["cuda"] = route(flat)
+        cpu_table = seen[0][0]
+        countsketch.sketch_from_sparse = replay
+        out["cuda_from_cpu_table"] = route(flat)
+    finally:
+        countsketch.sketch_from_sparse = real
+    torch.cuda.synchronize()
+    (ct, cv, ci, rows, cols, seed), (gt, gv, gi, *_) = seen[0], seen[1]
+    _check(torch.equal(gv.cpu(), cv) and torch.equal(gi.cpu(), ci), "the card's sampled top-k differs from the CPU's")
+    bound = sketch_reorder_bound(cv, ci, rows, cols, seed)
+    diff = (gt.cpu().double() - ct.double()).abs()
+    _check(bool((diff <= bound).all()), f"the card's sketch exceeds its reordering bound in {int((diff > bound).sum())} "
+                                        f"cells (max |diff| {float(diff.max())})")
+    for name, got, ref in zip(("mean", "own"), out["cuda_from_cpu_table"], out["cpu"]):
+        _check(torch.equal(got.cpu(), ref), f"given the CPU's sketch, the card's {name} differs")
+    worst = float((diff / bound.clamp(min=1e-300))[bound > 0].max()) if bool((bound > 0).any()) else 0.0
+    return {"selected": int((cv != 0).sum()), "bitwise": ["top-k selection", "mean and own given the CPU's table"],
+            "table_max_abs_err": float(diff.max()), "table_cells_differing": int((diff > 0).sum()),
+            "table_err_over_bound_max": worst,
+            "mean_max_abs_err": float((out["cuda"][0].cpu() - out["cpu"][0]).abs().max())}
+
+
+def _sketch_card_vs_cpu(trainer, state, batch) -> dict:
+    """One step's compensated full-width gradient through the sketch route
+    on the card (over the NCCL group) and on the CPU (a one-worker group):
+    `sketch_route_card_vs_cpu`."""
+    import copy
+
+    from deepreduce_tpu_torch import GradientExchanger, memory
+    from deepreduce_tpu_torch.collectives import Solo
+    from deepreduce_tpu_torch.train import classification_loss
+
+    ex, cfg = trainer.exchanger, trainer.cfg
+    probe = copy.deepcopy(trainer.model)
+    classification_loss(probe)(batch).backward()
+    comp = memory.compensate({n: p.grad for n, p in probe.flax_params().items()}, state.residuals, beta=cfg.beta,
+                             gamma=cfg.gamma)
+    cpu_ex = GradientExchanger(ex.shapes, cfg, device="cpu", group=Solo())
+    route = lambda x: (ex if x.is_cuda else cpu_ex).route_flat(x, step=state.step)[:2]
+    return sketch_route_card_vs_cpu(route, ex._flatten(comp))
+
+
+def _phase17_w1(seed: int, tokens, group, ref_loss: float) -> dict:
+    """The W = 1 arms through the NCCL group, each held to its reference."""
+    import torch
+
+    from deepreduce_tpu_torch import Trainer
+    from deepreduce_tpu_torch.exchange import describe
+    from deepreduce_tpu_torch.models import WordLSTM
+    from deepreduce_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    batches = lambda i: (tokens[i, :, :-1], tokens[i, :, 1:])
+    refs, results = {}, {}
+    for ref, knobs in REF17.items():
+        trainer = Trainer(WordLSTM(seed=seed), _flagship_cfg(seed, **knobs), lr=0.1, momentum=0.9, device="cuda",
+                          group=group)
+        _, out = _steps16(trainer, trainer.init_state(), batches, ARM_STEPS)
+        refs[ref] = out["snaps"]
+        del trainer
+    for arm, (knobs, ref) in PHASE17.items():
+        cfg = _flagship_cfg(seed, **knobs)
+        trainer = Trainer(WordLSTM(seed=seed), cfg, lr=0.1, momentum=0.9, device="cuda", group=group)
+        state = trainer.init_state()
+        ex = trainer.exchanger
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        state, out = _steps16(trainer, state, batches, ARM_STEPS)
+        launches = launch_counts()
+        expected = {"qsgd_quantize": 0, "qsgd_encode_rows": ARM_STEPS if arm == "hier_w1" else 0}
+        _check(launches == expected, f"{arm}: kernel launches {launches}, expected {expected}")
+        _check_trained(state, out["losses"], ref_loss, arm)
+        _check(ex.payload_bytes() == PAYLOAD17[arm], f"{arm}: payload_bytes {ex.payload_bytes()}, "
+                                                     f"expected {PAYLOAD17[arm]}")
+        syncs = out["syncs"]
+        if arm == "rs_sketch":
+            # topk_sampled reads its threshold's sign on the host, once a step
+            _check(all(len(s) == 1 for s in syncs), f"{arm}: host syncs {syncs}, expected one a step")
+        else:
+            _check(not any(syncs), f"{arm}: host syncs in the step: {syncs}")
+        if ref is not None:
+            for i in range(ARM_STEPS):
+                _same16(out["snaps"][i], refs[ref][i], f"{arm} vs {ref} after step {i}")
+        dev_ms = out["dev_ms"]
+        res = {
+            "describe": describe(ex), "losses": out["losses"], "step_ms_all": dev_ms,
+            "step_ms_median": statistics.median(dev_ms), "host_step_ms_all": out["host_ms"],
+            "rel_volume": float(out["wire"].rel_volume()), "payload_bytes": ex.payload_bytes(), "launches": launches,
+            "host_syncs_per_step": [len(s) for s in syncs], "host_sync_sites": sorted({c for s in syncs for c in s}),
+            "bitwise_equal_to": ref, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        }
+        if arm == "rs_sketch":
+            res["card_vs_cpu"] = _sketch_card_vs_cpu(trainer, state, batches(0))
+        if arm == "rs_auto":
+            _check(ex._rs_mode == "sparse", f"{arm}: resolved to {ex._rs_mode}")
+            res["resolved"] = ex._rs_mode
+        if arm == "hier_w1":
+            _check(ex.ici_payload_bytes() == 0.0 and float(out["wire"].ici_bits) == 0.0, f"{arm}: ICI bytes at one")
+            res["ici_payload_bytes"] = ex.ici_payload_bytes()
+            segs = _main_path_table(ex.exchanger, seed=71)
+            got, ref_rows = _encode_on_card_and_cpu(segs, ex.exchanger.fused_nbytes, cfg.quantum_num,
+                                                    cfg.bucket_size)
+            res["qsgd_table_max_abs_err"] = _check_rows(got, ref_rows, segs, cfg.bucket_size, cfg.quantum_num,
+                                                        f"the {arm} table")
+        print(f"phase 17 ok: {arm} " + json.dumps(res), flush=True)
+        results[arm] = res
+        del trainer, state, out
+        torch.cuda.empty_cache()
+    return results
+
+
+def _grid_trainers(seed: int, cfg):
+    """The four in-process Trainers of an InProcessGrid(2, 2), built before
+    any counted run: moving a model to the card is a copy."""
+    from deepreduce_tpu_torch import Trainer
+    from deepreduce_tpu_torch.collectives import InProcessGrid
+    from deepreduce_tpu_torch.models import WordLSTM
+
+    grid = InProcessGrid(*GRID17)
+    trainers = [Trainer(WordLSTM(seed=seed), cfg, lr=0.1, momentum=0.9, device="cuda", group=grid.member(r))
+                for r in range(grid.world_size)]
+    return grid, trainers, [t.init_state() for t in trainers]
+
+
+def _grid_steps(grid, trainers, states, tokens, steps: int):
+    """`steps` Trainer steps of every worker of the grid, one thread a
+    worker on its quarter of the batch, under the sync debug mode: (each
+    worker's (state, [(start, end, loss, wire)]), the host sync sites)."""
+    import warnings
+
+    import torch
+
+    shard = tokens.shape[1] // grid.world_size
+
+    def worker(pair, trainer, state):
+        r = pair[1].rank * GRID17[1] + pair[0].rank
+        lo = r * shard
+        out = []
+        for coll in pair:  # every worker built before the clock starts
+            coll.all_reduce_sum(torch.zeros(1, device="cuda"))
+        for i in range(steps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, loss, wire = trainer.step(state, (tokens[i, lo : lo + shard, :-1], tokens[i, lo : lo + shard, 1:]))
+            end.record()
+            out.append((start, end, loss, wire))
+        return state, out
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            outs = grid.run(worker, trainers, states)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return outs, sorted({f"{w.filename}:{w.lineno}" for w in caught if "called a synchronizing" in str(w.message)})
+
+
+def _grid_exchange_card_vs_cpu(seed: int, cfg) -> dict:
+    """One (2, 2) hierarchical exchange of full-width random gradients (one
+    residual a slice) on the card and on the CPU under the same streams:
+    every worker's aggregate and residuals bitwise equal, all workers'
+    aggregates alike; and each kernel of the arm's legs held bitwise
+    against its plain version on this exchange's own inputs. The streamed
+    arm's exchanger is its barrier one (the schedule is the Trainer's)."""
+    import torch
+
+    from deepreduce_tpu_torch import qar, sparse_rs
+    from deepreduce_tpu_torch.collectives import InProcessGrid
+    from deepreduce_tpu_torch.exchange import build_exchanger
+    from deepreduce_tpu_torch.models import WordLSTM
+    from deepreduce_tpu_torch.ops import (
+        bucket_norms_ordered, philox_uniforms_plain, quantize_levels, quantize_levels_plain, scale_from_norms)
+    from deepreduce_tpu_torch.sparse import per_tensor_stream
+
+    S, P = GRID17
+    shapes = {n: tuple(p.shape) for n, p in WordLSTM(embed_dim=96, hidden_dim=670).flax_params().items()}
+    gen = torch.Generator().manual_seed(seed + 17)
+    grads = [{n: torch.randn(s, generator=gen) * 1e-2 for n, s in shapes.items()} for _ in range(S * P)]
+    res = [{n: torch.randn(s, generator=gen) * 1e-3 for n, s in shapes.items()} for _ in range(S)]
+    out, exs = {}, {}
+    for dev in ("cuda", "cpu"):
+        def work(pair, g, dev=dev):
+            ex = build_exchanger(shapes, cfg, device=dev, group=pair)
+            r = None if cfg.memory == "none" else {n: t.to(dev) for n, t in res[pair[1].rank].items()}
+            agg, new_r, _ = ex.exchange({n: t.to(dev) for n, t in g.items()}, r, step=1)
+            return ex, {n: t.cpu() for n, t in agg.items()}, {n: t.cpu() for n, t in (new_r or {}).items()}
+
+        got = InProcessGrid(S, P).run(work, grads)
+        exs[dev] = got[0][0]
+        out[dev] = [o[1:] for o in got]
+    for w in range(S * P):
+        for k, what in ((0, "aggregate"), (1, "residual")):
+            for n, ref in out["cpu"][w][k].items():
+                _check(torch.equal(out["cuda"][w][k][n], ref), f"worker {w}: {what} {n} differs between card and CPU")
+        for n, ref in out["cuda"][0][0].items():
+            _check(torch.equal(out["cuda"][w][0][n], ref), f"worker {w}: aggregate {n} differs from worker 0's")
+    ex = exs["cuda"]
+    kernels = {}
+    flat = ex.exchanger._flatten({n: t.cuda() for n, t in grads[0].items()})
+    if ex.ici_leg == "qar":
+        padded = torch.zeros(qar.pad_len(ex.d, P, cfg.bucket_size), device="cuda")
+        padded[: ex.d] = flat
+        kernels["qsgd_quantize/qar_leg"] = (padded, cfg.quantum_num, cfg.bucket_size,
+                                            per_tensor_stream(cfg.seed, qar.STREAM_PHASE1, 1, 0))
+    if ex.exchanger._rs_mode == "quantized" and ex.inner_cfg.communicator == "sparse_rs":
+        bs = cfg.rs_block_size
+        padded = torch.zeros(sparse_rs.padded_shard(ex.d, S, bs) * S, device="cuda")
+        padded[: ex.d] = flat
+        kernels["qsgd_quantize/quantized_route"] = (padded, sparse_rs.quantized_levels_budget(S), bs,
+                                                    ex.exchanger.stream(sparse_rs.STREAM_QUANTIZED, 1))
+    errs = {}
+    for name, (x, q, bs, stream) in kernels.items():
+        scale = scale_from_norms(bucket_norms_ordered(x, bs), q)[:, None].expand(-1, bs).reshape(-1)
+        got = quantize_levels(x, scale, *stream, device=x.device)
+        ref = quantize_levels_plain(x.cpu(), scale.cpu(), philox_uniforms_plain(x.numel(), *stream))
+        torch.cuda.synchronize()
+        errs[name] = float((got.cpu().int() - ref.int()).abs().max())
+        _check(torch.equal(got.cpu(), ref), f"{name}: qsgd_quantize != plain (max |diff| {errs[name]})")
+    if any(c.rows_leaf is not None for c in ex.exchanger.codecs.values()):
+        segs = _main_path_table(ex.exchanger, seed=seed + 73)
+        rows, ref_rows = _encode_on_card_and_cpu(segs, ex.exchanger.fused_nbytes, cfg.quantum_num, cfg.bucket_size)
+        errs["qsgd_encode_rows"] = _check_rows(rows, ref_rows, segs, cfg.bucket_size, cfg.quantum_num,
+                                               "the DCN leg's table")
+    return {"workers": S * P, "bitwise": ["aggregates", "residuals", "card = CPU", "all workers alike"],
+            "kernels_vs_plain_max_abs_err": errs}
+
+
+def _phase17_grid(seed: int, tokens) -> dict:
+    """The four in-process (2, 2) arms on the one card."""
+    import torch
+
+    from deepreduce_tpu_torch.exchange import describe
+    from deepreduce_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    S, P = GRID17
+    W = S * P
+    results = {}
+    for arm, (knobs, (dcn_bytes, ici_bytes), (per_quantize, per_encode)) in HIER17.items():
+        cfg = _flagship_cfg(seed, **knobs)
+        grid, trainers, states = _grid_trainers(seed, cfg)
+        ex = trainers[0].exchanger
+        plan = describe(trainers[0].streaming or ex)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        outs, syncs = _grid_steps(grid, trainers, states, tokens, ARM_STEPS)
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = launch_counts()
+        expected = {"qsgd_quantize": per_quantize * W * ARM_STEPS, "qsgd_encode_rows": per_encode * W * ARM_STEPS}
+        _check(launches == expected, f"{arm}: kernel launches {launches}, expected {expected}")
+        _check(not syncs, f"{arm}: host syncs at {syncs}")
+        _check((ex.payload_bytes(), ex.ici_payload_bytes()) == (dcn_bytes, ici_bytes),
+               f"{arm}: DCN / ICI bytes {ex.payload_bytes()} / {ex.ici_payload_bytes()}, expected "
+               f"{dcn_bytes} / {ici_bytes}")
+        if arm == "hier_auto":
+            _check({k: ex.plan[k] for k in PLAN17} == PLAN17, f"{arm}: plan {ex.plan}")
+        # the replicas agree: every worker's parameters alike, a slice's residuals alike
+        final = [st for st, _ in outs]
+        for w in range(W):
+            for n, p in final[0].params.items():
+                _check(torch.equal(final[w].params[n], p), f"{arm}: worker {w}'s parameter {n} differs")
+            for n, r in (final[w - w % P].residuals or {}).items():
+                _check(torch.equal(final[w].residuals[n], r), f"{arm}: worker {w}'s residual {n} differs in its slice")
+        steps0 = outs[0][1]
+        losses = [float(s[2]) for s in steps0]
+        _check(all(math.isfinite(l) for l in losses), f"{arm}: losses {losses}")
+        _check(all(bool(torch.isfinite(p).all()) for p in final[0].params.values()), f"{arm}: non-finite parameters")
+        dev_ms = [s[0].elapsed_time(s[1]) for s in steps0]
+        wire = steps0[-1][3]
+        res = {
+            "describe": plan, "losses": losses, "worker0_step_ms_all": dev_ms,
+            "step_ms_median": statistics.median(dev_ms), "step_ms_spread": max(dev_ms) - min(dev_ms),
+            "wall_ms_all_steps": wall, "launches": launches,
+            "launches_per_worker_step": {k: v / (W * ARM_STEPS) for k, v in launches.items()}, "host_syncs": 0,
+            "dcn_payload_bytes": ex.payload_bytes(), "ici_payload_bytes": ex.ici_payload_bytes(),
+            "ici_bits": float(wire.ici_bits), "rel_volume": float(wire.rel_volume()),
+        }
+        if ex.plan is not None:
+            res["plan"] = {k: ex.plan[k] for k in ("ici", "dcn", "modeled_step_s")}
+        snaps = [_snapshot16(st) for st in final]
+        del grid, trainers, states, outs, final
+        torch.cuda.empty_cache()
+        if cfg.stream_exchange:
+            # the same config without streaming, from the same weights: bitwise
+            grid, trainers, states = _grid_trainers(seed, _flagship_cfg(seed, **dict(knobs, stream_exchange=False)))
+            bouts, _ = _grid_steps(grid, trainers, states, tokens, ARM_STEPS)
+            for w in range(W):
+                _same16(snaps[w], _snapshot16(bouts[w][0]), f"{arm} worker {w} vs the barrier schedule")
+            res["bitwise_equal_to"] = "the same config without streaming"
+            del grid, trainers, states, bouts
+        del snaps
+        res["card_vs_cpu"] = _grid_exchange_card_vs_cpu(seed, cfg)
+        print(f"phase 17 ok: {arm} " + json.dumps(res), flush=True)
+        results[arm] = res
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_two_tier(seed: int, tokens, group, ref_loss: float) -> dict:
+    """Phase 17: the sparse_rs sketch and auto routes and the two-tier
+    exchange. Returns {arm: result}."""
+    tokens3 = tokens[:ARM_STEPS].cuda()
+    results = _phase17_w1(seed, tokens3, group, ref_loss)
+    results.update(_phase17_grid(seed, tokens3))
+    print("phase 17 note: W = 1 runs one rank of NCCL and the (2, 2) grid runs four threads on one card, so no "
+          "slice mean or cross-slice gather crosses between cards here; the two tiers over NCCL between cards and "
+          "nodes are not measured", flush=True)
+    return results
+
+
+def phase_timing(encode: dict, errs: dict, by_arm: dict, quantize: dict) -> None:
+    # each path's run, counted from 0 just before it (phases 5 and 7-17)
     total = lambda name: sum(counts[name] for counts in by_arm.values())
     kernels = [
         _quantize_entry(quantize, total("qsgd_quantize"), errs["qsgd_quantize"]),
-        _time_encode(ex, total("qsgd_encode_rows"), errs["qsgd_encode_rows"]),
+        dict(encode, launches=total("qsgd_encode_rows")),
     ]
     for k in kernels:
         k["launches_by_arm"] = {arm: counts[k["name"]] for arm, counts in by_arm.items()}
@@ -2965,6 +3377,10 @@ def main(argv=None) -> int:
     sizes = [c.val_codec.meta.padded_len for c in ex.codecs.values() if c.compressed]
     errs = phase_kernels(sizes, ex)
     phase_codec(args.seed)
+    # phase 6's device times, before any phase runs its workers as threads:
+    # after the in-process phases the profiler drops kernel records (after
+    # phase 17's grid and phases 12-13 it once saw none of a 200-launch window)
+    encode = _time_encode(ex, 0, errs["qsgd_encode_rows"])
     import torch.distributed as dist
 
     tokens = _tokens(args.seed, args.steps, args.batch, args.seq, shapes["Embed_0/embedding"][0])
@@ -2982,14 +3398,15 @@ def main(argv=None) -> int:
         models14 = phase_models(args.seed, dist.group.WORLD, args.profile)
         host15 = phase_host_codecs(args.seed, tokens, dist.group.WORLD, res["cpu_ref_loss0"], args.profile)
         resil16, _ = phase_resilience(args.seed, tokens, dist.group.WORLD, res["cpu_ref_loss0"])
+        two_tier17 = phase_two_tier(args.seed, tokens, dist.group.WORLD, res["cpu_ref_loss0"])
     finally:
         dist.destroy_process_group()
     fed = phase_fedavg(args.seed, args.profile)
     table6 = phase_table6(args.seed)
     by_arm = {"drqsgd_bloom": res["launches"]}
-    for phase in (arms, resnet, in_coll, bucketed, zoo, models14, fed, table6, host15, resil16):
+    for phase in (arms, resnet, in_coll, bucketed, zoo, models14, fed, table6, host15, resil16, two_tier17):
         by_arm.update({a: r["launches"] for a, r in phase.items()})
-    phase_timing(ex, errs, by_arm, quantize)
+    phase_timing(encode, errs, by_arm, quantize)
     print(f"chip_smoke total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({
         "ok": True,

@@ -43,17 +43,25 @@ loss (`train.next_token_loss`), with a checkpoint that carries the
 residuals (`checkpoint.py`); and the resilient fused exchange: the unfused
 exchange, the vmap and ring decodes (`comm_ring.py`), the payload checksum,
 chaos at the wire boundary and participation masks (`resilience/`), with
-the JAX package's reason codes on every rejection. Collectives
-run through `collectives.Collectives`: a `torch.distributed` group, or an
-`InProcessGroup` of W lockstep workers in one process.
+the JAX package's reason codes on every rejection; and the sparse_rs
+count-sketch route and the cost model's route choice (`rs_mode='sketch'`,
+`'auto'`, `costmodel.py`, the JAX package's pricing and selectors with its
+machine profiles), and the two-tier exchange (`parallel.
+HierarchicalExchanger`, `cfg.hier`): a dense or int8-quantized slice mean
+over the intra-node group, then the compressed exchange across slices,
+planned by `costmodel.select_hier_plan` where asked, and streamed from the
+backward pass. Collectives run through `collectives.Collectives`: a
+`torch.distributed` group, an `InProcessGroup` of W lockstep workers in one
+process, or an `InProcessGrid` of slices x workers a slice.
 """
 
-from deepreduce_tpu_torch.collectives import Collectives, InProcessGroup
+from deepreduce_tpu_torch.collectives import Collectives, InProcessGrid, InProcessGroup
 from deepreduce_tpu_torch.config import ConfigError, DeepReduceConfig, from_params
 from deepreduce_tpu_torch.codecs.registry import PolyFitCodec
 from deepreduce_tpu_torch.comm import GradientExchanger
 from deepreduce_tpu_torch.fedavg import FedAvg, FedAvgState
 from deepreduce_tpu_torch.fedsim import FedConfig, TreeCodec
+from deepreduce_tpu_torch.parallel import HierarchicalExchanger
 from deepreduce_tpu_torch.train import Trainer, TrainState
 from deepreduce_tpu_torch.wrappers import TensorCodec
 
@@ -65,6 +73,8 @@ __all__ = [
     "FedAvgState",
     "FedConfig",
     "GradientExchanger",
+    "HierarchicalExchanger",
+    "InProcessGrid",
     "InProcessGroup",
     "PolyFitCodec",
     "TensorCodec",

@@ -19,12 +19,20 @@ Three implementations:
 `collectives_for(group)` picks the implementation for what the entry points
 accept as `group`: None, a `torch.distributed.ProcessGroup` or a
 `Collectives`.
+
+The hierarchical exchange runs over two groups a worker: `ici`, the
+workers of its slice (the fast intra-node link), and `dcn`, the workers at
+its position in every slice (the scarce link across nodes). Worker r of
+n_slices x per_slice sits in slice r // per_slice at position
+r % per_slice, the layout of the JAX package's `make_hybrid_mesh`.
+`split_group` makes the pair from one `torch.distributed` group;
+`InProcessGrid` gives in-process workers theirs.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -185,24 +193,32 @@ class InProcessGroup:
     def run(self, fn, *args_per_rank):
         """[fn(member(r), *args[r]) for r] with one thread per worker; the
         first exception of any worker is raised after all have stopped."""
-        results: List[object] = [None] * self.world_size
-        errors: List[BaseException] = []
+        return _run_threads(self.world_size, self.member, [self], fn, args_per_rank)
 
-        def body(r):
-            try:
-                results[r] = fn(self.member(r), *(a[r] for a in args_per_rank))
-            except BaseException as e:  # noqa: BLE001 - re-raised below, after the join
-                errors.append(e)
-                self._barrier.abort()
 
-        threads = [threading.Thread(target=body, args=(r,)) for r in range(self.world_size)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-        if errors:
-            raise errors[0]
-        return results
+def _run_threads(n: int, member, groups, fn, args_per_rank):
+    """[fn(member(r), *args[r]) for r < n], one thread a worker; a failing
+    worker aborts the barriers of `groups`, and the first exception is
+    raised after every thread has stopped."""
+    results: List[object] = [None] * n
+    errors: List[BaseException] = []
+
+    def body(r):
+        try:
+            results[r] = fn(member(r), *(a[r] for a in args_per_rank))
+        except BaseException as e:  # noqa: BLE001 - re-raised below, after the join
+            errors.append(e)
+            for g in groups:
+                g._barrier.abort()
+
+    threads = [threading.Thread(target=body, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return results
 
 
 class InProcessMember(Collectives):
@@ -236,6 +252,65 @@ class InProcessMember(Collectives):
 
     def all_reduce_max(self, x):
         return torch.stack(self._group.exchange(self.rank, x)).amax(dim=0)
+
+
+class InProcessGrid:
+    """n_slices x per_slice lockstep workers in one process: worker r's
+    `member(r)` is its (ici, dcn) pair, the `InProcessMember`s of its slice's
+    group (rank r % per_slice) and of its position's group (rank
+    r // per_slice), each group with its own barrier."""
+
+    def __init__(self, n_slices: int, per_slice: int, timeout: float = 120.0):
+        self.n_slices, self.per_slice = n_slices, per_slice
+        self.world_size = n_slices * per_slice
+        self.slices = [InProcessGroup(per_slice, timeout) for _ in range(n_slices)]
+        self.positions = [InProcessGroup(n_slices, timeout) for _ in range(per_slice)]
+
+    def member(self, rank: int) -> Tuple["InProcessMember", "InProcessMember"]:
+        s, p = divmod(rank, self.per_slice)
+        return self.slices[s].member(p), self.positions[p].member(s)
+
+    def run(self, fn, *args_per_rank):
+        """[fn(member(r), *args[r]) for r] with one thread per worker."""
+        return _run_threads(self.world_size, self.member, self.slices + self.positions, fn, args_per_rank)
+
+
+def split_group(group, ici_size: Optional[int]) -> Tuple[Collectives, Collectives]:
+    """The (ici, dcn) pair of this worker from what the entry points accept:
+    an (ici, dcn) pair itself (whose slice must have `ici_size` workers when
+    it is given), or one group of W = n_slices * ici_size workers (None: one
+    worker), split as `make_hybrid_mesh` lays the workers out. A
+    `torch.distributed` group is split with `dist.new_group`, a collective
+    call of every rank of the default group: each creates every slice's
+    group and then every position's, in the same order."""
+    if isinstance(group, tuple):
+        ici, dcn = (collectives_for(g) for g in group)
+        if ici_size is not None and ici.world_size != ici_size:
+            raise ValueError(f"ici_size={ici_size} contradicts the given slice group of {ici.world_size} workers")
+        return ici, dcn
+    coll = collectives_for(group)
+    W = coll.world_size
+    if ici_size is None:
+        raise ValueError("hier=True needs this worker's (ici, dcn) pair, or one group and cfg.ici_size to split it")
+    if ici_size < 1 or W % ici_size:
+        raise ValueError(f"ici_size={ici_size} does not divide the world size {W}")
+    if isinstance(coll, Solo):
+        return Solo(), Solo()
+    if not isinstance(coll, ProcessGroupCollectives):
+        raise ValueError("in-process workers take their (ici, dcn) pair from InProcessGrid(n_slices, per_slice)")
+    n_slices = W // ici_size
+    glob = lambda r: dist.get_global_rank(coll.group, r)
+    me_s, me_p = divmod(coll.rank, ici_size)
+    ici = dcn = None
+    for s in range(n_slices):
+        g = dist.new_group([glob(s * ici_size + p) for p in range(ici_size)])
+        if s == me_s:
+            ici = g
+    for p in range(ici_size):
+        g = dist.new_group([glob(s * ici_size + p) for s in range(n_slices)])
+        if p == me_p:
+            dcn = g
+    return ProcessGroupCollectives(ici), ProcessGroupCollectives(dcn)
 
 
 def collectives_for(group) -> Collectives:

@@ -3,7 +3,8 @@ mean, ported from `deepreduce_tpu/comm.py` for `communicator='allgather'`
 with the 'loop', 'vmap' and 'ring' decodes (`comm_ring.py`) and unfused
 (`fused=False`: one all_gather per tensor); the bucketed exchange
 (`bucket_bytes`, `comm_bucket.py`); the dense baseline; the in-collective
-communicators `qar` and `sparse_rs`; and the resilience seams: a checksum
+communicators `qar` and `sparse_rs` (whose `rs_mode='auto'` is resolved
+here, once, by `costmodel.select_rs_mode`); and the resilience seams: a checksum
 word after every payload (`PayloadLayout.seal` / `verify`), the chaos
 injector at the wire boundary and the participation mask (`exchange`'s
 `mask`). Without them configured the exchange runs exactly the ops it
@@ -344,6 +345,7 @@ class GradientExchanger:
         *,
         device: DeviceLike = "cuda",
         group: Optional[Union[dist.ProcessGroup, Collectives]] = None,
+        profile: Optional[costmodel.MachineProfile] = None,
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -354,6 +356,28 @@ class GradientExchanger:
         self.names = sorted(grads_like)
         self.shapes = {n: tuple(getattr(grads_like[n], "shape", grads_like[n])) for n in self.names}
         self.d = sum(math.prod(s) for s in self.shapes.values())
+        # the sparse_rs route, resolved once: 'auto' takes the cost model's
+        # argmin (`costmodel.select_rs_mode`) over the static W, priced with
+        # `profile` (or the profile file `cfg.profile`) where one is given
+        if profile is None and cfg.profile is not None:
+            profile = costmodel.load_profile(cfg.profile)
+        self.profile = profile
+        self._rs_mode = cfg.rs_mode
+        if cfg.communicator == "sparse_rs" and cfg.rs_mode == "auto":
+            if group is None:
+                raise ConfigError(
+                    "build-rs-auto-needs-workers",
+                    "rs_mode='auto' resolves against the W-aware cost model at construction and needs the static "
+                    "group size: construct GradientExchanger(..., group=...) (a one-rank group for one worker)",
+                )
+            self._rs_mode = costmodel.select_rs_mode(
+                self.d, self.num_workers, cfg.compress_ratio, headroom=cfg.rs_headroom,
+                out_headroom=cfg.rs_out_headroom, block=cfg.rs_block_size, rows=cfg.rs_sketch_rows,
+                cols=cfg.rs_sketch_cols, bins=cfg.rs_oktopk_bins, cap_headroom=cfg.rs_oktopk_cap_headroom,
+                profile=profile,
+                # under resilience only the routes a deputy can re-own
+                modes=("sparse", "quantized", "oktopk") if cfg.resilience else None,
+            )
         self.in_collective = cfg.communicator in ("qar", "sparse_rs")
         self.dense = not self.in_collective and (
             cfg.communicator == "allreduce" or (cfg.deepreduce is None and cfg.compressor == "none")
@@ -415,9 +439,10 @@ class GradientExchanger:
             return int(qar.wire_bits_per_worker(self.d, self.num_workers, cfg.bucket_size) // 8)
         if cfg.communicator == "sparse_rs":
             return int(costmodel.rs_payload_bytes(
-                cfg.rs_mode, self.d, self.num_workers, cfg.compress_ratio, headroom=cfg.rs_headroom,
-                out_headroom=cfg.rs_out_headroom, block=cfg.rs_block_size, bins=cfg.rs_oktopk_bins,
-                cap_headroom=cfg.rs_oktopk_cap_headroom, masked=cfg.resilience,
+                self._rs_mode, self.d, self.num_workers, cfg.compress_ratio, headroom=cfg.rs_headroom,
+                out_headroom=cfg.rs_out_headroom, block=cfg.rs_block_size, rows=cfg.rs_sketch_rows,
+                cols=cfg.rs_sketch_cols, bins=cfg.rs_oktopk_bins, cap_headroom=cfg.rs_oktopk_cap_headroom,
+                masked=cfg.resilience,
             ))
         if self.dense:
             return 4 * self.d
@@ -740,11 +765,12 @@ class GradientExchanger:
             # gradient: the JAX package's rel_volume convention for qar
             stats = WireStats.constant(0.0, n * 8 + (n // cfg.bucket_size) * 32, self.d * 32, flat.device)
             return mean, None, stats
-        name = {"adaptive": sparse_rs.STREAM_ADAPTIVE, "quantized": sparse_rs.STREAM_QUANTIZED}.get(cfg.rs_mode)
+        name = {"adaptive": sparse_rs.STREAM_ADAPTIVE, "quantized": sparse_rs.STREAM_QUANTIZED}.get(self._rs_mode)
         return sparse_rs.exchange(
-            flat, self.coll, ratio=cfg.compress_ratio, rs_mode=cfg.rs_mode, headroom=cfg.rs_headroom,
+            flat, self.coll, ratio=cfg.compress_ratio, rs_mode=self._rs_mode, headroom=cfg.rs_headroom,
             out_headroom=cfg.rs_out_headroom, block_size=cfg.rs_block_size,
-            density_threshold=cfg.rs_density_threshold, oktopk_bins=cfg.rs_oktopk_bins,
+            density_threshold=cfg.rs_density_threshold, sketch_rows=cfg.rs_sketch_rows,
+            sketch_cols=cfg.rs_sketch_cols, sketch_seed=cfg.seed, oktopk_bins=cfg.rs_oktopk_bins,
             oktopk_cap_headroom=cfg.rs_oktopk_cap_headroom,
             stream=None if name is None else self.stream(name, step),
             uniforms=None if name is None or uniforms is None else uniforms[name],

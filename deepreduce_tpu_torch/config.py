@@ -5,8 +5,11 @@ run (the Table-4 arms of `bench.py`: dense allreduce, Top-r, DRQSGD with a
 delta-bitpacked or a bloom index, sampled top-k, the sparsifier-free direct
 bloom encode, bloom index-only; the README quick start: the classic bloom
 index with the PolyFit value codec; the in-collective communicators: the
-int8 quantized allreduce `qar` and the `sparse_rs` reduce-scatter routes
-sparse, adaptive, quantized and oktopk; the bucketed exchange with its
+int8 quantized allreduce `qar` and every `sparse_rs` reduce-scatter route:
+sparse, adaptive, quantized, sketch, oktopk and the cost model's pick
+`auto`, with its machine `profile`; the two-tier exchange `hier` (a slice
+mean over the intra-node group, then the compressed exchange across
+slices); the bucketed exchange with its
 pipelined, barrier and backprop-streamed schedules; and every on-device
 codec, policy, layout, wrapper mode and sparsifier: random-k and the
 magnitude threshold, the value-only mode, the RLE index, the Fit-DExp,
@@ -207,13 +210,13 @@ _SUPPORTED = {
     "approx_topk": (False,),
     "memory": ("residual", "none"),
     "communicator": ("allgather", "allreduce", "qar", "sparse_rs"),
-    # 'sketch' needs the count-sketch codec, 'auto' the cost model's
-    # select_rs_mode: neither is ported
-    "rs_mode": ("sparse", "adaptive", "quantized", "oktopk"),
+    "rs_mode": ("sparse", "adaptive", "quantized", "sketch", "oktopk", "auto"),
     "deepreduce": (None, "value", "index", "both"),
     "fused": (True, False),
 }
 DECODE_STRATEGIES = ("loop", "vmap", "ring")
+HIER_ICI_LEGS = ("dense", "qar", "auto")
+HIER_DCN_MODES = ("config", "auto")
 BUCKET_ORDERS = ("trace", "reverse")
 # codec knobs, read only when a codec runs (deepreduce is not None): every
 # codec of the JAX package. huffman, gzip, polyfit_host and the *_native
@@ -291,6 +294,10 @@ class DeepReduceConfig:
     rs_mode: str = "sparse"
     rs_block_size: int = 256
     rs_density_threshold: float = 1.0
+    # the count sketch of rs_mode='sketch': rows of the table, and its
+    # columns (0: about 2k / rows, `costmodel.sketch_cols`)
+    rs_sketch_rows: int = 5
+    rs_sketch_cols: int = 0
     rs_oktopk_bins: int = 4096
     rs_oktopk_cap_headroom: float = 2.0
     # the bucketed exchange (comm_bucket.py): buckets of at most
@@ -319,6 +326,19 @@ class DeepReduceConfig:
     chaos_drop_rate: float = 0.0
     chaos_corrupt_rate: float = 0.0
     chaos_truncate_rate: float = 0.0
+    # the two-tier exchange (parallel/hierarchical.py): the slice mean over
+    # the fast intra-node group first ('dense': a float32 all_reduce; 'qar':
+    # the int8 quantized allreduce; 'auto': the cost model's pick), then the
+    # exchange this config describes across slices only ('config'), or the
+    # cross-slice route the cost model picks ('auto'). `ici_size` is the
+    # workers a slice, with which the Trainer splits one group in two.
+    hier: bool = False
+    ici_size: Optional[int] = None
+    hier_ici: str = "dense"
+    hier_dcn: str = "config"
+    # a machine profile (`costmodel.MachineProfile` JSON) the 'auto'
+    # selectors price their choice with instead of the static constants
+    profile: Optional[str] = None
 
     def __post_init__(self):
         checked = dict(_SUPPORTED, **(_SUPPORTED_CODEC if self.deepreduce is not None else {}))
@@ -352,6 +372,13 @@ class DeepReduceConfig:
         self._check_decode()
         self._check_buckets()
         self._check_resilience()
+        self._check_hier()
+        if self.profile is not None and "auto" not in (self.rs_mode, self.hier_ici, self.hier_dcn):
+            raise ConfigError(
+                "profile-needs-auto-selector",
+                f"profile={self.profile!r} prices the 'auto' selections and would be silently ignored with every "
+                "selector explicit: set rs_mode='auto' or hier_ici/hier_dcn='auto' (or drop profile)",
+            )
 
     def _check_host_codecs(self) -> None:
         """The pairings the JAX package refuses: the exact P2 policy off the
@@ -388,6 +415,9 @@ class DeepReduceConfig:
              "must be a positive multiple of 4 (int8 levels ride 4 per f32 lane)"),
             ("rs-density-threshold-range", "rs_density_threshold", 0.0 <= self.rs_density_threshold <= 1.0,
              "must lie in [0, 1]"),
+            ("rs-sketch-rows-range", "rs_sketch_rows", self.rs_sketch_rows >= 1, "must be >= 1"),
+            ("rs-sketch-cols-range", "rs_sketch_cols", self.rs_sketch_cols >= 0,
+             "must be >= 1, or 0 to size it at about 2k / rows"),
             ("rs-oktopk-bins-range", "rs_oktopk_bins", 64 <= b <= (1 << 24) and not b & (b - 1),
              "must be a power of two in [64, 2**24]"),
             ("rs-oktopk-cap-headroom-range", "rs_oktopk_cap_headroom", self.rs_oktopk_cap_headroom > 0.0,
@@ -453,6 +483,17 @@ class DeepReduceConfig:
                 "resilience subsystem's participation mask, chaos or checksum state: run streaming without "
                 "resilience, or the barrier or pipelined schedule with it",
             )
+        if self.stream_exchange and self.hier and not (
+            self.communicator == "allgather" and self.hier_ici == "dense" and self.hier_dcn == "config"
+            and self.decode_strategy in ("loop", "vmap")
+        ):
+            raise ConfigError(
+                "stream-vs-hier",
+                "stream_exchange=True over hier=True composes only as the dense slice mean and the config-pinned "
+                "bucketed allgather across slices (communicator='allgather', hier_ici='dense', "
+                "hier_dcn='config', decode_strategy 'loop' or 'vmap'): this config restructures a leg the "
+                "backward hooks run",
+            )
 
     def _check_resilience(self) -> None:
         """The resilience fences, in the JAX package's order and under its
@@ -475,7 +516,8 @@ class DeepReduceConfig:
             # are per-worker wire state no deputy can serve
             reowned = (
                 self.communicator == "sparse_rs"
-                and self.rs_mode in ("sparse", "quantized", "oktopk")
+                and self.rs_mode in ("sparse", "quantized", "oktopk", "auto")
+                and not self.hier
                 and not self.stream_exchange
                 and self.decode_strategy == "loop"
                 and self.bucket_bytes is None
@@ -509,6 +551,45 @@ class DeepReduceConfig:
                 FaultPlan.parse(self.fault_plan)
             except ValueError as e:
                 raise ConfigError("fault-plan-syntax", str(e)) from e
+
+    def _check_hier(self) -> None:
+        """The hierarchical exchange's fences, in the JAX package's order and
+        under its codes."""
+        for knob, allowed in (("hier_ici", HIER_ICI_LEGS), ("hier_dcn", HIER_DCN_MODES)):
+            if getattr(self, knob) not in allowed:
+                raise ConfigError(f"enum-{knob}", f"{knob} must be one of {allowed}, got {getattr(self, knob)!r}")
+        if self.ici_size is not None and self.ici_size < 1:
+            raise ConfigError("ici-size-range", f"ici_size must be >= 1 or None, got {self.ici_size}")
+        engaged = [knob for knob, default in (("ici_size", None), ("hier_ici", "dense"), ("hier_dcn", "config"))
+                   if getattr(self, knob) != default]
+        if engaged and not self.hier:
+            raise ConfigError(
+                "hier-knobs-disengaged",
+                f"{', '.join(engaged)} configure the hierarchical exchange and would be silently ignored with "
+                "hier=False: set hier=True (or drop the knob(s))",
+            )
+        if self.hier and self.decode_strategy == "ring":
+            raise ConfigError(
+                "hier-vs-ring",
+                "hier=True cannot use decode_strategy='ring': the ring's hops are sized from the flat worker "
+                "count, but the cross-slice leg runs over the slices only, so a hop would address a replica of "
+                "the same slice: use 'loop' or 'vmap'",
+            )
+        if self.hier and self.resilience:
+            raise ConfigError(
+                "hier-vs-resilience",
+                "resilience=True threads a per-worker participation mask through the exchange, but hier=True "
+                "exchanges per slice: the slice mean is an unmasked all_reduce, so a dropped worker would poison "
+                "its slice's mean instead of degrading gracefully",
+            )
+        if self.hier and self.hier_dcn == "auto" and (self.deepreduce is not None or self.compressor != "topk"):
+            raise ConfigError(
+                "hier-dcn-auto-needs-topk",
+                "hier_dcn='auto' rewrites the cross-slice route among the plain top-k fused allgather and the "
+                "sparse_rs routes, which need compressor='topk' and no deepreduce wrapper: got "
+                f"compressor={self.compressor!r}, deepreduce={self.deepreduce!r}; use hier_dcn='config' to run "
+                "this codec stack across slices as it is",
+            )
 
     def codec_params(self) -> Dict[str, Any]:
         return {

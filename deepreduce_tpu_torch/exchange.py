@@ -1,29 +1,49 @@
 """The exchange stacks as legs, and the factory from a config to a stack,
-ported from `deepreduce_tpu/exchange.py` for the flat stacks the port has
-(the hierarchical wrapper is not ported).
+ported from `deepreduce_tpu/exchange.py`.
 
-Every stack has one shape, encode -> collective -> decode -> stats, and
-`Leg` names one stage of it: its role, the mesh axis its collectives ride
-(the data-parallel group is the JAX package's axis "data") and its
-mechanism. `leg_plan` derives a built stack's plan by inspection and
-`describe` prints it as the JAX package does. `build_exchanger` is the
-factory; `wrap_streaming` adds the backprop-streamed schedule on top.
+Every stack has one shape, encode -> collective -> decode -> stats.
+`Exchanger` is the protocol the stacks implement (`GradientExchanger`,
+`parallel.HierarchicalExchanger`), and `Leg` names one stage of a stack:
+its role, the mesh axis its collectives ride (the flat data-parallel group
+is the JAX package's axis "data"; the hierarchical exchange's groups are
+its "ici" and "dcn") and its mechanism. `leg_plan` derives a built stack's
+plan by inspection and `describe` prints it as the JAX package does.
+`build_exchanger` is the factory; `wrap_streaming` adds the
+backprop-streamed schedule on top of a flat or a hierarchical stack.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Protocol, Tuple, Union, runtime_checkable
 
 import torch.distributed as dist
 
-from deepreduce_tpu_torch.collectives import Collectives
+from deepreduce_tpu_torch.collectives import Collectives, split_group
 from deepreduce_tpu_torch.comm import GradientExchanger
 from deepreduce_tpu_torch.comm_stream import StreamingExchange
 from deepreduce_tpu_torch.config import DeepReduceConfig
 from deepreduce_tpu_torch.device import DeviceLike
+from deepreduce_tpu_torch.parallel.hierarchical import HierarchicalExchanger
 
 AXIS = "data"  # the JAX package's default axis name for the data-parallel workers
+
+
+@runtime_checkable
+class Exchanger(Protocol):
+    """What every exchange stack implements: `exchange` runs one encode ->
+    collective -> decode round of this worker and returns (the aggregate,
+    the new residuals, its `WireStats`); `payload_bytes` is the static
+    per-worker injection on the stack's wire-accounted (scarce) link."""
+
+    cfg: DeepReduceConfig
+
+    def init_state(self, grads_like: Any) -> Any: ...
+
+    def exchange(self, grads: Any, residuals: Any, *, step: int, uniforms=None, collect=None,
+                 mask=None) -> Tuple[Any, Any, Any]: ...
+
+    def payload_bytes(self) -> int: ...
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +71,7 @@ def _flat_legs(ex, axis: str) -> Tuple[Leg, ...]:
         # under resilience the route re-owns a dropped worker's shards
         masked = (Leg("decode", axis, "masked-reowner"),) if cfg.resilience else ()
         return (Leg("encode", None, "topk-route"),) + masked + (
-            Leg("collective", axis, f"sparse_rs:{cfg.rs_mode}"), Leg("decode", None, "shard-reselect"),
+            Leg("collective", axis, f"sparse_rs:{ex._rs_mode}"), Leg("decode", None, "shard-reselect"),
             Leg("stats", None, "wire"))
     if ex.dense:
         return (Leg("collective", axis, "dense-psum"), Leg("stats", None, "wire"))
@@ -64,10 +84,14 @@ def _flat_legs(ex, axis: str) -> Tuple[Leg, ...]:
 
 
 def leg_plan(ex) -> Tuple[Leg, ...]:
-    """The collective plan of a built stack: a `GradientExchanger`, or a
-    `StreamingExchange` over one."""
+    """The collective plan of a built stack: a `GradientExchanger`, a
+    `HierarchicalExchanger` (its slice leg, then its inner plan across
+    slices), or a `StreamingExchange` over either."""
     if hasattr(ex, "value_and_grad_exchange"):
-        return (Leg("schedule", None, "stream-hooks"),) + leg_plan(ex.exchanger)
+        return (Leg("schedule", None, "stream-hooks"),) + leg_plan(ex.hier if ex.hier is not None else ex.exchanger)
+    if isinstance(ex, HierarchicalExchanger):
+        ici = Leg("collective", "ici", "dense-psum" if ex.ici_leg == "dense" else "qar")
+        return (ici,) + _flat_legs(ex.exchanger, "dcn")
     return _flat_legs(ex, AXIS)
 
 
@@ -81,11 +105,18 @@ def build_exchanger(
     cfg: DeepReduceConfig,
     *,
     device: DeviceLike = "cuda",
-    group: Optional[Union[dist.ProcessGroup, Collectives]] = None,
+    group: Union[dist.ProcessGroup, Collectives, Tuple, None] = None,
+    profile=None,
 ):
-    """The factory from a config to a flat `GradientExchanger`. Streaming is
-    a schedule of the step, not of the stack: see `wrap_streaming`."""
-    return GradientExchanger(grads_like, cfg, device=device, group=group)
+    """The factory from a config to a stack: with `cfg.hier` the
+    `HierarchicalExchanger` over this worker's (ici, dcn) pair, which
+    `group` is or from which `collectives.split_group` makes it with
+    `cfg.ici_size`; else a flat `GradientExchanger` over `group`. Streaming
+    is a schedule of the step, not of the stack: see `wrap_streaming`."""
+    if cfg.hier:
+        ici, dcn = split_group(group, cfg.ici_size)
+        return HierarchicalExchanger(grads_like, cfg, ici=ici, dcn=dcn, device=device, profile=profile)
+    return GradientExchanger(grads_like, cfg, device=device, group=group, profile=profile)
 
 
 def wrap_streaming(exchanger):

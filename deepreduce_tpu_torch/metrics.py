@@ -4,7 +4,7 @@ ring exchange's per-worker bytes."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Union
 
 import torch
 
@@ -18,6 +18,12 @@ class WireStats:
     dense_bits: torch.Tensor
     # number of payloads whose selection filled every budget slot
     saturated: torch.Tensor
+    # bits this worker moved on the intra-node link: the hierarchical
+    # exchange's slice-mean leg, ring-adjusted like the cost model's terms;
+    # 0.0 in every flat exchange. index_bits and value_bits stay the scarce
+    # link's (the flat group's, or the one across slices), and total_bits
+    # leaves this counter out.
+    ici_bits: Union[float, torch.Tensor] = 0.0
 
     @property
     def total_bits(self) -> torch.Tensor:
@@ -49,6 +55,7 @@ def combine(stats: Dict[str, WireStats]) -> WireStats:
         value_bits=sum(s.value_bits for s in vals),
         dense_bits=sum(s.dense_bits for s in vals),
         saturated=sum(s.saturated for s in vals),
+        ici_bits=sum(s.ici_bits for s in vals),
     )
 
 

@@ -1,6 +1,7 @@
 """Compressed in-collective allreduce, the Ok-Topk / SparCML exchange shape,
-ported from `deepreduce_tpu/sparse_rs.py` for the routes `sparse`,
-`adaptive`, `quantized` and `oktopk`.
+ported from `deepreduce_tpu/sparse_rs.py`: the routes `sparse`,
+`adaptive`, `quantized`, `sketch` and `oktopk` (`auto` is resolved by the
+caller, `comm.GradientExchanger`, through `costmodel.select_rs_mode`).
 
 The universe splits into W contiguous shards, one per worker:
 
@@ -17,6 +18,12 @@ The universe splits into W contiguous shards, one per worker:
   block-quantized against the workers' shared (max) block norms with levels
   bounded by 127 // W, so one int8 reduce-scatter sums them exactly; then
   the sparse phase 2 over the dequantized summed shard.
+- ``sketch``: the sortless sampled top-k (`sparse.topk_sampled`) is count
+  sketched (`codecs.countsketch`), the W sketches summed by one
+  `all_reduce` (a sketch is linear: the sum's sketch), and each worker
+  reads back only its own shard from the summed sketch; then the sparse
+  phase 2. The own-transmitted estimate is this worker's own sketch read
+  at the gathered indices.
 - ``oktopk``: an all-reduced bit-pattern histogram of the local top-k
   magnitudes picks one global threshold for about k survivors in all; only
   survivors route, with a W-times smaller per-(worker, shard) capacity;
@@ -30,19 +37,20 @@ with global indices on the wire, dropped rows are zeroed on both sides,
 phase 2 re-selects owned coordinates only and the mean divides by the live
 count (an IEEE divide by a device tensor, as JAX divides by a traced
 count). The quantized route adds one int8 all_gather of the summed shards,
-so that a deputy can dequantize the shards it serves. The adaptive route's
-lanes are per-worker wire state no deputy can serve: it refuses the mask.
-
-`sketch` (count-sketch) and `auto` (the cost model's choice) are not
-ported and raise by name.
+so that a deputy can dequantize the shards it serves. The adaptive lanes
+and the sketch rows are per-worker wire state no deputy can serve: those
+routes refuse the mask.
 
 Every shape is static, and every data-dependent decision (budget overflow,
 the adaptive flag, the oktopk threshold) stays on the device as data, so a
-step makes no host sync. Ties are broken as `jax.lax.top_k` breaks them
+step makes no host sync, except the sketch route's sampled threshold, which
+is read on the host (`sparse.host_branch`: one sync a step). Ties are broken as `jax.lax.top_k` breaks them
 (`sparse.top_order`), scatters that add go row by row in worker order, and
 dequantization multiplies by the float32 reciprocal as XLA does, so every
 deterministic output equals the JAX package's bit for bit and the card's
-equals the CPU's.
+equals the CPU's; the sketch's column sums are the exception on the card,
+where `index_add_` adds in atomic order (the CPU adds in slot order, as
+XLA does).
 
 Randomness (adaptive, quantized): one Philox (seed, offset) per (step,
 worker) from `sparse.per_tensor_stream` under the stream names
@@ -59,12 +67,14 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from deepreduce_tpu_torch import qar, sparse
+from deepreduce_tpu_torch.codecs import countsketch
 from deepreduce_tpu_torch.collectives import Collectives
+from deepreduce_tpu_torch.costmodel import sketch_cols
 from deepreduce_tpu_torch.metrics import WireStats
 from deepreduce_tpu_torch.numerics import reciprocal_f32
 from deepreduce_tpu_torch.ops import bucket_norms_ordered
 
-RS_MODES = ("sparse", "adaptive", "quantized", "oktopk")
+RS_MODES = ("sparse", "adaptive", "quantized", "sketch", "oktopk")
 STREAM_ADAPTIVE = "sparse_rs/adaptive"
 STREAM_QUANTIZED = "sparse_rs/quantized"
 ADAPTIVE_Q = 127  # a dense phase-2 row is dequantized alone: the full int8 range
@@ -206,6 +216,9 @@ def exchange(
     out_headroom: float = 1.0,
     block_size: int = 256,
     density_threshold: float = 1.0,
+    sketch_rows: int = 5,
+    sketch_cols: int = 0,
+    sketch_seed: int = 0,
     oktopk_bins: int = 4096,
     oktopk_cap_headroom: float = 2.0,
     stream: Optional[qar.Stream] = None,
@@ -224,8 +237,8 @@ def exchange(
     mask-free route's outputs."""
     if rs_mode not in RS_MODES:
         raise ValueError(
-            f"rs_mode={rs_mode!r} is not ported to deepreduce_tpu_torch (ported: {list(RS_MODES)}); "
-            "'sketch' needs the count-sketch codec and 'auto' the cost model"
+            f"rs_mode={rs_mode!r} is not a route (routes: {list(RS_MODES)}); 'auto' is resolved by the caller "
+            "(GradientExchanger, through costmodel.select_rs_mode)"
         )
     if rs_mode in ("adaptive", "quantized") and stream is None and uniforms is None:
         raise ValueError(f"rs_mode={rs_mode!r} quantizes and needs a Philox stream")
@@ -242,8 +255,8 @@ def exchange(
             return _exchange_oktopk_masked(flat, coll, ratio=ratio, out_headroom=out_headroom, bins=oktopk_bins,
                                            cap_headroom=oktopk_cap_headroom, collect=collect, mask=mask)
         raise ValueError(
-            f"rs_mode={rs_mode!r} has no participation-mask variant (the adaptive lane switches are per-worker "
-            "wire state no deputy can re-own): the config fences it as resilience-vs-owner-communicator"
+            f"rs_mode={rs_mode!r} has no live-mask-aware variant (adaptive lane switches and sketch rows are "
+            "per-worker wire state no deputy can re-own) — config fences this as resilience-vs-owner-communicator"
         )
     if rs_mode == "sparse":
         return _exchange_sparse(flat, coll, ratio=ratio, headroom=headroom, out_headroom=out_headroom)
@@ -256,6 +269,9 @@ def exchange(
         return _exchange_quantized(
             flat, coll, ratio=ratio, out_headroom=out_headroom, block=block_size, stream=stream, uniforms=uniforms
         )
+    if rs_mode == "sketch":
+        return _exchange_sketch(flat, coll, ratio=ratio, out_headroom=out_headroom, rows=sketch_rows, cols=sketch_cols,
+                                seed=sketch_seed)
     return _exchange_oktopk(
         flat, coll, ratio=ratio, out_headroom=out_headroom, bins=oktopk_bins, cap_headroom=oktopk_cap_headroom,
         collect=collect,
@@ -359,6 +375,29 @@ def _exchange_quantized(flat, coll: Collectives, *, ratio, out_headroom, block, 
     own = torch.zeros(W * Ssh, dtype=torch.float32, device=flat.device).index_add_(0, gi, my_deq[gi])[:d]
     value_bits = n * 8.0 + (n // block) * 32.0 + K2 * 32.0  # the int8 levels, the block norms, the phase-2 values
     return mean, own, WireStats.constant(K2 * 32.0, value_bits, d * 32.0, flat.device)
+
+
+def _exchange_sketch(flat, coll: Collectives, *, ratio, out_headroom, rows, cols, seed):
+    d, W = flat.shape[0], coll.world_size
+    dev = flat.device
+    S = shard_size(d, W)
+    K2 = out_budget(d, ratio, W, out_headroom)
+    k = sparse.num_slots(d, ratio)
+    C = sketch_cols(d, ratio, rows, cols)
+    sp = sparse.topk_sampled(flat, ratio, k=k)
+    live = torch.arange(sp.k, device=dev) < sp.nnz
+    sk = countsketch.sketch_from_sparse(torch.where(live, sp.values, 0.0), sp.indices, rows, C, seed=seed)
+    summed = coll.all_reduce_sum(sk)  # linear: the sketch of the sum
+    # read back this worker's shard only
+    shard_idx = torch.arange(S, dtype=torch.int64, device=dev) + coll.rank * S
+    shard_est = countsketch.unsketch_at(summed, shard_idx, seed=seed)
+    gi, mean = _sparse_phase2(shard_est, coll, S, K2, d)
+    # error feedback: this worker's own sketch read at the gathered indices,
+    # what it effectively contributed to the mean, collisions included (the
+    # indices are unique, so the add is a set)
+    own_est = countsketch.unsketch_at(sk, gi, seed=seed)
+    own = torch.zeros(W * S, dtype=torch.float32, device=dev).index_add_(0, gi, own_est)[:d]
+    return mean, own, WireStats.constant(K2 * 32.0, (rows * C + K2) * 32.0, d * 32.0, dev)
 
 
 def _exchange_oktopk(flat, coll: Collectives, *, ratio, out_headroom, bins, cap_headroom, collect):

@@ -13,11 +13,19 @@ statistics in the forward; the step then averages them over the workers
 with one `all_reduce` (the JAX package's `pmean(new_stats)`). Every mean
 over the workers multiplies by the float32 reciprocal of W, as XLA
 compiles the JAX package's `pmean`.
+
+With `cfg.hier` the exchange is the two-tier `HierarchicalExchanger` over
+this worker's (ici, dcn) pair: `group` is the pair itself (an
+`InProcessGrid` member), or one group that `cfg.ici_size` splits
+(`collectives.split_group`, the JAX Trainer's `make_hybrid_mesh`). The loss,
+the BatchNorm statistics and the wire bits are then reduced over every
+worker of both tiers: summed over the slice, then across slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -25,7 +33,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from deepreduce_tpu_torch.collectives import collectives_for
+from deepreduce_tpu_torch.collectives import collectives_for, split_group
 from deepreduce_tpu_torch.comm import GradientExchanger
 from deepreduce_tpu_torch.comm_stream import StreamingExchange
 from deepreduce_tpu_torch.config import DeepReduceConfig
@@ -94,7 +102,12 @@ class Trainer:
         self.lr = lr
         self.momentum = momentum
         self.group = group
-        self.coll = collectives_for(group)
+        if cfg.hier:
+            self.group = split_group(group, cfg.ici_size)
+            self.colls = self.group
+        else:
+            self.colls = (collectives_for(group),)
+        self.num_workers = math.prod(c.world_size for c in self.colls)
         self.loss_fn = loss_fn or classification_loss(self.model)
         self.exchanger: Optional[GradientExchanger] = None
         self.streaming: Optional[StreamingExchange] = None
@@ -109,10 +122,15 @@ class Trainer:
             params=params, batch_stats=self.model.flax_batch_stats(), optimizer=opt, residuals=residuals, step=0
         )
 
+    def _sum_over_workers(self, x: torch.Tensor) -> torch.Tensor:
+        for coll in self.colls:  # the slice first, then across slices
+            x = coll.all_reduce_sum(x)
+        return x
+
     def _mean_over_workers(self, x: torch.Tensor) -> torch.Tensor:
         if self.group is None:
             return x
-        return mean_of_sum(self.coll.all_reduce_sum(x), self.coll.world_size)
+        return mean_of_sum(self._sum_over_workers(x), self.num_workers)
 
     def _average_stats(self, stats: Dict[str, torch.Tensor]) -> None:
         """Replace each running statistic by its mean over the workers, in
@@ -161,11 +179,11 @@ class Trainer:
             if self.cfg.resilience:
                 # from host data every worker shares (the seed, the step): the
                 # same mask on every worker, built on the device without a copy
-                mask = participation_mask(self.coll.world_size, state.step, self.cfg.seed,
+                mask = participation_mask(self.num_workers, state.step, self.cfg.seed,
                                           drop_rate=self.cfg.drop_rate, fault_plan=self.cfg.fault_plan,
                                           device=self.device)
                 if collect is not None:
-                    W = self.coll.world_size
+                    W = self.num_workers
                     live = torch.full((), float(W), device=self.device) if mask is None else mask.sum(dtype=torch.float32)
                     collect["live_workers"] = live
                     collect["dropped"] = (live < W).to(torch.float32)
@@ -180,7 +198,8 @@ class Trainer:
         if self.group is not None:
             # index and value bits averaged (the JAX package's pmean), the
             # saturation count summed (its psum)
-            bits = self.coll.all_reduce_sum(torch.stack([wire.index_bits, wire.value_bits, wire.saturated]))
-            mean = mean_of_sum(bits[:2], self.coll.world_size)
-            wire = WireStats(mean[0], mean[1], wire.dense_bits, bits[2])
+            bits = self._sum_over_workers(torch.stack([wire.index_bits, wire.value_bits, wire.saturated]))
+            mean = mean_of_sum(bits[:2], self.num_workers)
+            # ici_bits is the same static count on every worker: no collective
+            wire = WireStats(mean[0], mean[1], wire.dense_bits, bits[2], wire.ici_bits)
         return dataclasses.replace(state, residuals=residuals, step=state.step + 1), loss, wire

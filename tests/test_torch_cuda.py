@@ -682,3 +682,68 @@ def test_masked_sparse_rs_card_equals_cpu(cuda, route):
     for (gagg, gres), (cagg, cres) in zip(out["cuda"], out["cpu"]):
         for n in shapes:
             assert torch.equal(gagg[n].cpu(), cagg[n]) and torch.equal(gres[n].cpu(), cres[n]), n
+
+
+def test_sketch_route_card_equals_cpu(cuda):
+    """The sparse_rs sketch route on a 200,000-element gradient (the sampled
+    threshold path), on the card and on the CPU: the sampled top-k bitwise
+    equal, the card's sketch table within its reordering bound cell by cell
+    (its `index_add_` adds in atomic order, the CPU's in slot order), and
+    given the CPU's table the mean and the own-transmitted tensor bitwise
+    equal (`chip_smoke.sketch_route_card_vs_cpu`)."""
+    import chip_smoke
+
+    from deepreduce_tpu_torch import DeepReduceConfig, GradientExchanger
+
+    cfg = DeepReduceConfig(communicator="sparse_rs", rs_mode="sketch", compress_ratio=0.1, seed=5)
+    shapes = {"w": (200_000,)}
+    flat = torch.randn(200_000, generator=torch.Generator().manual_seed(16))
+    exs = {dev: GradientExchanger(shapes, cfg, device=dev) for dev in ("cuda", "cpu")}
+    res = chip_smoke.sketch_route_card_vs_cpu(
+        lambda x: exs["cuda" if x.is_cuda else "cpu"].route_flat(x, step=2)[:2], flat.to(cuda))
+    assert res["selected"] > 0
+
+
+HIER = {
+    "dense_fused": dict(BUCKET_FLAGSHIP, hier=True),
+    "qar_quantized": dict(communicator="sparse_rs", rs_mode="quantized", compress_ratio=0.1, seed=3, hier=True,
+                          hier_ici="qar"),
+}
+
+
+@pytest.mark.parametrize("arm", list(HIER))
+def test_hierarchical_exchange_card_equals_cpu(cuda, arm):
+    """One in-process (2, 2) hierarchical exchange on the card and on the
+    CPU under the same streams: every worker's aggregate and residuals
+    bitwise equal, the replicas of a slice alike, and the kernels launched
+    as the legs quantize (one qsgd_encode_rows a worker for the fused leg;
+    two qsgd_quantize for the qar slice leg and one for the quantized
+    route)."""
+    from deepreduce_tpu_torch import DeepReduceConfig
+    from deepreduce_tpu_torch.collectives import InProcessGrid
+    from deepreduce_tpu_torch.exchange import build_exchanger
+
+    S, P = 2, 2
+    cfg = DeepReduceConfig(**HIER[arm])
+    shapes = {"a/kernel": (300, 60), "b": (2_000,)}
+    gen = torch.Generator().manual_seed(15)
+    grads = [{n: torch.randn(s, generator=gen) for n, s in shapes.items()} for _ in range(S * P)]
+    res = [{n: torch.randn(s, generator=gen) * 1e-2 for n, s in shapes.items()} for _ in range(S)]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        def work(pair, g, dev=dev):
+            ex = build_exchanger(shapes, cfg, device=dev, group=pair)
+            r = {n: t.to(dev) for n, t in res[pair[1].rank].items()}
+            return ex.exchange({n: t.to(dev) for n, t in g.items()}, r, step=2)[:2]
+
+        before = (qsgd_encode_rows.launches, quantize_levels.launches)
+        out[dev.type] = InProcessGrid(S, P).run(work, grads)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            fused = arm == "dense_fused"
+            assert (qsgd_encode_rows.launches - before[0], quantize_levels.launches - before[1]) == (
+                (S * P, 0) if fused else (0, 3 * S * P))
+    for r, ((gagg, gres), (cagg, cres)) in enumerate(zip(out["cuda"], out["cpu"])):
+        for n in shapes:
+            assert torch.equal(gagg[n].cpu(), cagg[n]) and torch.equal(gres[n].cpu(), cres[n]), (r, n)
+            assert torch.equal(gagg[n], out["cuda"][r - r % P][0][n]), (r, n)

@@ -476,13 +476,15 @@ def test_config_takes_the_host_codecs_and_rejects_what_jax_rejects():
     # every other host codec composes under 'both', as in JAX
     for knobs in (dict(value="polyfit_host"), dict(value="gzip"), dict(index="integer_native", value="gzip")):
         assert port.DeepReduceConfig(**{**FLAGSHIP, **knobs}).deepreduce == "both"
-    for knob, val in [("code", "simple16"), ("micro_benchmark", 1), ("rs_mode", "sketch")]:
+    for knob, val in [("code", "simple16"), ("micro_benchmark", 1)]:
         with pytest.raises(port.ConfigError) as e:
             port.DeepReduceConfig(**{**_knobs("drqsgd_varint"), knob: val})
         assert e.value.knob == knob
+    # the sketch route needs the sparse_rs communicator, as in JAX; 'auto' is a route choice there
     with pytest.raises(port.ConfigError) as e:
-        port.DeepReduceConfig(communicator="sparse_rs", deepreduce=None, rs_mode="auto")
-    assert e.value.knob == "rs_mode"
+        port.DeepReduceConfig(**{**_knobs("drqsgd_varint"), "rs_mode": "sketch"})
+    assert e.value.reason_code == "rs-mode-needs-sparse-rs"
+    assert port.DeepReduceConfig(communicator="sparse_rs", deepreduce=None, rs_mode="auto").rs_mode == "auto"
 
 
 # -- Trainer.step ------------------------------------------------------------------ #

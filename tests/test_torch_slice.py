@@ -276,7 +276,8 @@ def test_port_imports_no_jax():
         " deepreduce_tpu_torch.codecs.huffman, deepreduce_tpu_torch.codecs.gzip_codec,"
         " deepreduce_tpu_torch.codecs.polyfit_host, deepreduce_tpu_torch.codecs.bloom_native,"
         " deepreduce_tpu_torch.comm_ring, deepreduce_tpu_torch.resilience.faults, deepreduce_tpu_torch.resilience.chaos,"
-        " deepreduce_tpu_torch.resilience.stream, deepreduce_tpu_torch.resilience.__main__;"
+        " deepreduce_tpu_torch.resilience.stream, deepreduce_tpu_torch.resilience.__main__,"
+        " deepreduce_tpu_torch.parallel, deepreduce_tpu_torch.parallel.hierarchical;"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'flax', 'optax'))"
         " or m == 'deepreduce_tpu' or m.startswith('deepreduce_tpu.')];"
         "print(bad); sys.exit(1 if bad else 0)"
@@ -332,10 +333,9 @@ def test_config_rejects_unported_knobs_by_name():
     for knob, val in [("index", "huffman"), ("index", "integer_native"), ("value", "gzip"),
                       ("value", "polyfit_host"), ("code", "pfor")]:
         assert getattr(port.DeepReduceConfig(**{**FLAGSHIP, knob: val}), knob) == val
-    # sparse_rs runs, but not its count-sketch route
-    with pytest.raises(port.ConfigError) as e:
-        port.DeepReduceConfig(communicator="sparse_rs", compressor="topk", deepreduce=None, rs_mode="sketch")
-    assert e.value.knob == "rs_mode"
+    # sparse_rs runs, its count-sketch route too
+    assert port.DeepReduceConfig(communicator="sparse_rs", compressor="topk", deepreduce=None,
+                                 rs_mode="sketch").rs_mode == "sketch"
     # qar runs, but not under the flagship's codec stack, which it would ignore
     with pytest.raises(port.ConfigError) as e:
         port.DeepReduceConfig(**{**FLAGSHIP, "communicator": "qar"})

@@ -225,6 +225,7 @@ def _shapes_of(which):
 WORDLSTM_BYTES = {  # the JAX package's payload_bytes at W = 1, 4, 8
     "sparse": [9_721_776, 7_291_336, 6_886_296], "adaptive": [10_595_428, 7_509_748, 6_995_500],
     "quantized": [7_354_832, 4_924_392, 4_519_320], "oktopk": [9_738_160, 2_446_856, 1_231_640],
+    "sketch": [6_481_192, 4_050_752, 3_645_680],
 }
 
 
@@ -278,21 +279,22 @@ def test_config_fences_match_jax():
         assert e.value.knob == knob
         with pytest.raises(JConfigError):
             JConfig(**RS, **{knob: val})
-    # not ported, by name
+    # the sketch route and the cost model's pick are knobs of both packages;
+    # 'auto' is resolved by the exchanger, so the route function refuses it
     for mode in ("sketch", "auto"):
-        assert JConfig(**RS, rs_mode=mode).rs_mode == mode
+        assert JConfig(**RS, rs_mode=mode).rs_mode == mode == port.DeepReduceConfig(**RS, rs_mode=mode).rs_mode
+    with pytest.raises(ValueError, match="auto"):
+        sparse_rs.exchange(torch.zeros(8), Solo(), ratio=0.5, rs_mode="auto")
+    for knob, val in (("rs_sketch_rows", 0), ("rs_sketch_cols", -1)):
+        assert port.from_params({**RS, knob: 5}) == port.DeepReduceConfig(**RS, **{knob: 5})
         with pytest.raises(port.ConfigError) as e:
-            port.DeepReduceConfig(**RS, rs_mode=mode)
-        assert e.value.knob == "rs_mode"
-        with pytest.raises(ValueError, match=mode):
-            sparse_rs.exchange(torch.zeros(8), Solo(), ratio=0.5, rs_mode=mode)
-    for knob in ("rs_sketch_rows", "rs_sketch_cols"):
-        with pytest.raises(port.ConfigError) as e:
-            port.from_params({**RS, knob: 5})
-        assert e.value.knob == knob
+            port.DeepReduceConfig(**RS, **{knob: val})
+        with pytest.raises(JConfigError) as je:
+            JConfig(**RS, **{knob: val})
+        assert e.value.reason_code == je.value.reason_code == knob.replace("_", "-") + "-range"
     defaults = port.DeepReduceConfig(**RS)
     for knob in ("rs_headroom", "rs_out_headroom", "rs_mode", "rs_block_size", "rs_density_threshold",
-                 "rs_oktopk_bins", "rs_oktopk_cap_headroom"):
+                 "rs_sketch_rows", "rs_sketch_cols", "rs_oktopk_bins", "rs_oktopk_cap_headroom"):
         assert getattr(defaults, knob) == getattr(JConfig(), knob), knob
     with pytest.raises(ValueError, match="stream"):
         sparse_rs.exchange(torch.zeros(BLOCK), Solo(), ratio=0.5, rs_mode="quantized")

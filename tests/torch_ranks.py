@@ -26,6 +26,22 @@ def run_rank(rank: int, world: int, store_path: str, out_path: str, arms, shapes
         dist.destroy_process_group()
 
 
+def run_hier_rank(rank: int, world: int, store_path: str, out_path: str, knobs, shapes, inputs, step: int) -> None:
+    """The hierarchical exchange of `inputs[rank]` = (grads, residuals) over
+    a gloo group that `exchange.build_exchanger` splits into this rank's
+    (ici, dcn) pair by `knobs['ici_size']`; saves (aggregate, residuals)."""
+    from deepreduce_tpu_torch.exchange import build_exchanger
+
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world), rank=rank, world_size=world)
+    try:
+        ex = build_exchanger(shapes, port.DeepReduceConfig(**knobs), device="cpu", group=dist.group.WORLD)
+        grads, res = inputs[rank]
+        agg, new_res, _ = ex.exchange(grads, res, step=step)
+        torch.save((agg, new_res), out_path)
+    finally:
+        dist.destroy_process_group()
+
+
 def run_trainer_rank(rank: int, world: int, store_path: str, out_path: str, knobs, batches,
                      model=("ResNet20", {"seed": 0})) -> None:
     """One `Trainer.step` of `model` (a class of `deepreduce_tpu_torch.models`
