@@ -219,6 +219,24 @@ Phases, one line each; any failure raises and exits non-zero:
      one exchange of full-width gradients card = CPU bitwise with each
      kernel bitwise its plain version on the arm's inputs, and worker 0's
      step times. No slice mean or cross-slice gather crosses between cards.
+ 18. the population-scale federated simulator (`FedSim`) through the same NCCL
+     group (`PHASE18`): the linear arms at the JAX package's FedSim benchmark
+     geometry (dimension 256, 131,072 clients, a cohort of 16,384 in blocks
+     of 1,024, top-k 25% + mod bloom, churn and corruption under checksums)
+     sync (4 rounds), async (K 16,384, alpha 0.5, latency "0.5,0.3,0.2"; 6
+     ticks through `stream()`), two tenants (one leaving for two ticks) and
+     a skewed population with the SLO monitor writing health.jsonl; then the
+     full-width MobileNetV1 under DRQSGD-BF-P0 over 512 clients (a 6.6 GB
+     bank), cohort 32 in blocks of 4, 3 rounds batched and 1 one client at
+     a time. Each arm: tick times (CUDA events), host syncs (0), counted
+     launches (`qsgd_encode_rows` equal to the packing's count), one
+     all_reduce a tick at the byte law, peak bytes, finite parameters,
+     w_rel_err falling, checksum failures, a mid-run checkpoint replayed
+     bitwise, card = CPU (the linear arms on one tick at 1/8 of the
+     population with float64 local training; the MobileNet block in float64
+     and on the same client updates), the grouped cross-client encode
+     bitwise its plain version and its per-client launches, and the device
+     launches of a profiled tick or block.
 `--profile` adds one profiled training step after phase 5, after each arm
 of phases 7, 8, 9, 10, 11, 14 and 15, and one profiled round after each arm
 of phase 12: the device's busy and idle share over the step or round, its
@@ -3326,8 +3344,657 @@ def phase_two_tier(seed: int, tokens, group, ref_loss: float) -> dict:
     return results
 
 
+# phase 18: the population-scale federated simulator. The linear arms are
+# the JAX package's FedSim benchmark geometry (BENCH_FED_r13.json `detail`:
+# dimension 256, batch 4, 2 local steps, a population of 131,072 with a
+# per-client residual bank, a cohort of 16,384 in blocks of 128, top-k 25%
+# with a mod-blocked bloom index) under `fedsim check`'s churn and chaos,
+# sync, async (BENCH_FEDASYNC_r20.json: K 16,384, alpha 0.5, latency
+# "0.5,0.3,0.2"), two tenants (BENCH_FEDMT_r21.json) and BENCH_POP_r25.json's
+# mild_skew population with the SLO monitor; the MobileNet arm phase 12's
+# DRQSGD-BF-P0 round at full width over a population of 512.
+FED18_LINEAR = dict(dim=256, batch=4, local_steps=2, population=131_072, cohort=16_384, chunk=1024, lr=0.1)
+# the benchmark record's block (a CPU-mesh memory bound): on the card each
+# block pays its launches whatever its size, so a tick of 128 blocks is
+# host-bound (2.7 s on an H100 80GB HBM3 at 700 W, PERF.md); the arms run 16
+# blocks of 1,024 and the sync arm times one tick at this block too
+FED18_BENCH_CHUNK = 128
+FED18_CODEC = dict(deepreduce="index", index="bloom", bloom_blocked="mod", compress_ratio=0.25, fpr=0.01,
+                   memory="residual", min_compress_size=8)
+FED18_CHURN = dict(resilience=True, fault_plan="3@1,5@2:4", drop_rate=0.05, payload_checksum=True,
+                   chaos_corrupt_rate=0.2)
+FED18_ASYNC = dict(fed_async=True, fed_async_k=16_384, fed_async_alpha=0.5, fed_async_latency="0.5,0.3,0.2")
+POP18_MILD_SKEW = ('{"version": 1, "num_labels": 8, "label_shift": 0.05, "classes": ['
+                   '{"name": "bulk", "weight": 3.0, "data_alpha": 4.0}, '
+                   '{"name": "tail", "weight": 1.0, "data_alpha": 1.0, "data_bias": 2.0}]}')
+PHASE18 = {
+    "fedsim_linear_sync": dict(knobs={}, ticks=4),
+    "fedsim_linear_async": dict(knobs=FED18_ASYNC, ticks=6, stream=True),
+    "fedsim_linear_mt": dict(knobs=dict(FED18_ASYNC, fed_tenants=2), ticks=6, stream=True,
+                             masks=[(True, True)] * 2 + [(True, False)] * 2 + [(True, True)] * 2),
+    "fedsim_linear_pop_slo": dict(knobs=dict(FED18_ASYNC, pop_spec=POP18_MILD_SKEW), ticks=6, slo=True),
+}
+FED18_MOBILENET = dict(population=512, cohort=32, chunk=4, local_steps=4, batch=24, lr=0.2, momentum=0.9,
+                       rounds=3, scan_rounds=1)
+# the MobileNet arm's knobs make its local training chaotic in float32: four
+# steps of SGD 0.2 with momentum 0.9 turn two summation orders of one
+# gradient (a few percent of its largest entry apart, BatchNorm at batch
+# 24) into updates tens of percent apart, so a round batched and the same
+# round one client at a time are held together where they are one
+# function: local training in float64 (within MOBILENET_F64_RTOL of the
+# largest change: the same chaos takes float64's last bits to about 4e-9 of
+# it on the card against the CPU), the compression and the aggregation
+# given the same client updates (within MOBILENET_ROUND_RTOL of the
+# largest update)
+MOBILENET_F64_RTOL = 1e-7
+# the linear arms' card-vs-CPU tick runs at 1/8 of the population, cohort and K
+FED18_CPU_CUT = 8
+MOBILENET_ROUND_RTOL = 1e-6
+
+
+def _fed_law(cfg, n: int, D: int, K: int, T: int) -> int:
+    """The fused all_reduce's operand bytes a tick: sync 4(n+6), async
+    4(n+7+D), +4K with a K-class population, +4D more with per-class latency
+    rows; T tenants T times the single-tenant buffer."""
+    if not cfg.fed_async:
+        return 4 * T * (n + 6 + K)
+    return 4 * T * (n + 7 + D + K + (D if K and "latency" in (cfg.pop_spec or "") else 0))
+
+
+def _fed_to(state, device):
+    """A federated state with every tensor moved to `device` (copied)."""
+    import dataclasses
+
+    import torch
+
+    def move(v):
+        if torch.is_tensor(v):
+            return v.to(device, copy=True)
+        if isinstance(v, dict):
+            return {k: move(x) for k, x in v.items()}
+        if dataclasses.is_dataclass(v):
+            return dataclasses.replace(v, **{f.name: move(getattr(v, f.name)) for f in dataclasses.fields(v)})
+        return v
+
+    return move(state)
+
+
+def _fed_max_err(a, b) -> float:
+    """Max |a - b| over every tensor of two federated states (b on the CPU)."""
+    from deepreduce_tpu_torch.checkpoint import _split_state
+
+    ta, _ = _split_state(a)
+    tb, _ = _split_state(b)
+    return max(float((ta[k].cpu().double() - tb[k].double()).abs().max()) if ta[k].numel() else 0.0 for k in ta)
+
+
+def _fed_close(a, b, what: str, rtol: float = 1e-5, atol: float = 1e-6) -> float:
+    import torch
+
+    from deepreduce_tpu_torch.checkpoint import _split_state
+
+    ta, ha = _split_state(a)
+    tb, hb = _split_state(b)
+    _check(ha == hb and ta.keys() == tb.keys(), f"{what}: state structure differs")
+    for k in ta:
+        x, y = ta[k].cpu(), tb[k].cpu()
+        if x.dtype.is_floating_point:
+            _check(torch.allclose(x, y, rtol=rtol, atol=atol), f"{what}: {k} differs beyond rtol {rtol} atol {atol}")
+        else:
+            _check(torch.equal(x, y), f"{what}: {k} differs")
+    return _fed_max_err(a, b)
+
+
+def _fed_bitwise(a, b) -> bool:
+    from deepreduce_tpu_torch.fedsim.__main__ import _equal
+
+    return _equal(a, b)
+
+
+def _fed_resume(make, state_at, key: int, ticks, final) -> dict:
+    """Save `state_at` (a checkpoint into memory), restore it into a fresh
+    driver's state, replay `ticks` (round indices, with their active masks
+    where given) and hold the result bitwise against `final`."""
+    import io
+
+    import torch
+
+    from deepreduce_tpu_torch import checkpoint
+    from deepreduce_tpu_torch.resilience import stream
+
+    buf = io.BytesIO()
+    checkpoint.save(buf, state_at)
+    nbytes = buf.tell()
+    buf.seek(0)
+    sim, template = make()
+    state = checkpoint.restore(buf, template)
+    for r, mask in ticks:
+        if mask is not None:
+            state = sim.set_active(state, mask)
+        state, _ = sim.step(state, stream.key(key, r))
+    torch.cuda.synchronize()
+    _check(_fed_bitwise(state, final), "the resumed run differs from the uninterrupted one")
+    return {"checkpoint_bytes": nbytes, "replayed_ticks": len(ticks), "bitwise": True}
+
+
+def _fed_linear(arm: str, spec: dict, seed: int, group) -> dict:
+    """One linear arm of phase 18 on the card."""
+    import torch
+
+    from deepreduce_tpu_torch import DeepReduceConfig, FedSim
+    from deepreduce_tpu_torch.collectives import reduce_counts, reset_reduce_counts
+    from deepreduce_tpu_torch.fedsim import FedDraws, synthetic_linear_problem
+    from deepreduce_tpu_torch.fedsim.sim import teacher
+    from deepreduce_tpu_torch.ops import launch_counts, reset_launch_counts
+    from deepreduce_tpu_torch.resilience import stream
+
+    g = FED18_LINEAR
+    knobs = dict(FED18_CODEC, **FED18_CHURN, **spec["knobs"], fed=True, fed_num_clients=g["population"],
+                 fed_clients_per_round=g["cohort"], fed_local_steps=g["local_steps"], fed_client_chunk=g["chunk"],
+                 seed=seed)
+    cfg = DeepReduceConfig(**knobs)
+    fed = cfg.fed_config()
+    p0, data_fn, loss_fn = synthetic_linear_problem(g["dim"], g["batch"], g["local_steps"], device="cuda")
+    w_true = teacher(g["dim"], "cuda")
+    key = seed + 18
+
+    def make(device="cuda", data=data_fn, draws=None, grp=group):
+        sim = FedSim(loss_fn, cfg, fed, g["lr"], data, group=grp, client_chunk=g["chunk"], draws=draws,
+                     device=device)
+        return sim, sim.init({n: p.to(device) for n, p in p0.items()})
+
+    sim, state = make()
+    T = max(cfg.fed_tenants, 1)
+    masks = spec.get("masks", [None] * spec["ticks"])
+    w_err = lambda st: torch.linalg.norm(st.params["w"] - w_true, dim=-1) / torch.linalg.norm(w_true)
+    err0 = w_err(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    reset_reduce_counts()
+    ticks, syncs, mets, errs, saved = [], [], [], [], None
+    # the stream arms run `stream()` between mask flips and up to the
+    # checkpoint after tick `save`; every tick timed by CUDA events
+    save = spec["ticks"] - 1
+    i = 0
+    while i < spec["ticks"]:
+        run = 1
+        if spec.get("stream"):
+            while i + run < spec["ticks"] and masks[i + run] == masks[i] and i + run != save:
+                run += 1
+        if masks[i] is not None:
+            state = sim.set_active(state, masks[i])
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(run + 1)]
+        if spec.get("stream"):
+            (state, hist, _), s = _counting_syncs(
+                lambda: sim.stream(state, key, run, on_tick=lambda t: events[t].record()))
+        else:
+            events[0].record()
+            (state, m), s = _counting_syncs(lambda: sim.step(state, stream.key(key, i)))
+            events[1].record()
+            hist = [m]
+        torch.cuda.synchronize()
+        ticks += [events[t].elapsed_time(events[t + 1]) for t in range(run)]
+        syncs += [s] + [[]] * (run - 1)
+        mets += hist
+        errs.append(w_err(state))
+        i += run
+        if i == save:
+            saved = (i, _fed_to(state, "cuda"))
+    launches = launch_counts()
+    reduces = reduce_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 18 note: {arm} tick ms {[round(t, 1) for t in ticks]}", flush=True)
+    n = g["dim"] + 1
+    D = len(sim.latency_probs) if cfg.fed_async else 0
+    K = sim.pop.num_classes if sim.pop is not None else 0
+    law = _fed_law(cfg, n, D, K, T)
+    _check(reduces["all_reduce"] == spec["ticks"], f"{arm}: {reduces['all_reduce']} all_reduce calls in "
+           f"{spec['ticks']} ticks, expected one a tick")
+    _check(reduces["all_reduce_bytes"] == spec["ticks"] * law, f"{arm}: all_reduce bytes {reduces} against the law "
+           f"{law} a tick")
+    _check(launches["qsgd_encode_rows"] == 0 and launches["qsgd_quantize"] == 0, f"{arm}: kernel launches {launches}")
+    _check(all(bool(torch.isfinite(p).all()) for p in state.params.values()), f"{arm}: non-finite parameters")
+    fails = float(sum(m["checksum_failures"].sum() for m in mets))
+    _check(fails > 0, f"{arm}: no checksum failure caught under chaos")
+    err_first, err_last = float(err0.max()), float(errs[-1].max())
+    _check(err_last < err_first, f"{arm}: w_rel_err did not fall ({err_first} -> {err_last})")
+    res = {
+        "population": g["population"], "cohort": g["cohort"], "chunk": g["chunk"], "tenants": T,
+        "tick_ms_all": ticks, "tick_ms_median": statistics.median(ticks),
+        "host_syncs_per_tick": [len(s) for s in syncs], "sync_call_sites": sorted({x for s in syncs for x in s}),
+        "launches": launches, "all_reduce_per_tick": reduces["all_reduce"] / spec["ticks"],
+        "all_reduce_bytes_per_tick": reduces["all_reduce_bytes"] / spec["ticks"], "all_reduce_bytes_law": law,
+        "peak_mem_bytes": peak, "w_rel_err": [float(e.max()) for e in [err0] + errs],
+        "checksum_failures": fails, "clients_per_tick": [m["clients"].tolist() for m in mets],
+    }
+    if cfg.fed_async:
+        res["staleness_hist"] = [m["staleness_hist"].tolist() for m in mets]
+        res["applied"] = [m["applied"].tolist() for m in mets]
+    if K:
+        res["pop_hist"] = [m["pop_hist"].tolist() for m in mets]
+        _check(all(abs(float(m["pop_hist"].sum()) - float(m["clients"])) < 1e-3 for m in mets),
+               f"{arm}: the class histogram's mass is not the accepted count")
+    if spec.get("slo"):
+        res["slo"] = _fed_slo(cfg, mets, errs)
+    # a mid-run checkpoint and the bitwise replay
+    at, st_at = saved
+    res["resume"] = _fed_resume(make, st_at, key, [(r, masks[r]) for r in range(at, spec["ticks"])], state)
+    # one tick card = CPU on the same draws: the batches made on the CPU,
+    # every other draw the same counter-based stream on both
+    res["card_vs_cpu"] = _fed_linear_card_vs_cpu(spec, cfg, loss_fn, g, key)
+    if arm == "fedsim_linear_sync":
+        res["tick_ms_at_bench_chunk"] = _fed_bench_chunk_tick(cfg, loss_fn, data_fn, g, state, key, spec["ticks"])
+    return res
+
+
+def _fed_bench_chunk_tick(cfg, loss_fn, data_fn, g, state, key: int, r: int) -> list:
+    """Two ticks from `state` in blocks of FED18_BENCH_CHUNK clients (CUDA
+    events), the benchmark record's block size."""
+    import dataclasses
+
+    import torch
+
+    from deepreduce_tpu_torch import FedSim
+    from deepreduce_tpu_torch.resilience import stream
+
+    small = dataclasses.replace(cfg, fed_client_chunk=FED18_BENCH_CHUNK)
+    sim = FedSim(loss_fn, small, small.fed_config(), g["lr"], data_fn, client_chunk=FED18_BENCH_CHUNK,
+                 device="cuda")
+    st = _fed_to(state, "cuda")
+    out = []
+    for t in range(2):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        st, _ = sim.step(st, stream.key(key, r + t))
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def _fed_linear_card_vs_cpu(spec: dict, cfg, loss_fn, g, key: int) -> dict:
+    """One tick on the card and on the CPU from the same state, on the arm's
+    knobs with the population, the cohort and K cut by FED18_CPU_CUT (the
+    CPU's tick at full size would take minutes): two ticks on the card make
+    the state, then one more on each. The batches are made on the CPU for
+    both (the stream's normals may differ in the last bit between the two),
+    every other draw is the same integer stream on both, and local training
+    runs in float64, rounded to float32 (in float32 the matmuls' summation
+    orders differ between the two, and among many clients' top-k selections
+    some near-tie lets that last bit choose). States and metrics within
+    1e-5 relative, 1e-6 absolute."""
+    import dataclasses
+
+    import torch
+    from torch.utils._pytree import tree_map
+
+    from deepreduce_tpu_torch import FedSim
+    from deepreduce_tpu_torch.fedsim import FedDraws, synthetic_linear_problem
+    from deepreduce_tpu_torch.population import sampler
+    from deepreduce_tpu_torch.resilience import stream
+
+    cut = FED18_CPU_CUT
+    knobs = dict(fed_num_clients=cfg.fed_num_clients // cut, fed_clients_per_round=cfg.fed_clients_per_round // cut)
+    if cfg.fed_async:
+        knobs["fed_async_k"] = cfg.fed_async_k // cut
+    small = dataclasses.replace(cfg, **knobs)
+    _, data_cpu, _ = synthetic_linear_problem(g["dim"], g["batch"], g["local_steps"], device="cpu")
+    p0 = {"b": torch.zeros(()), "w": torch.zeros(g["dim"])}
+    keys = {}
+
+    def labels_for(device):
+        if small.pop_spec is None:
+            return None
+        from deepreduce_tpu_torch.population.spec import PopulationSpec
+
+        pop = PopulationSpec.load_any(small.pop_spec)
+        classes = sampler.class_assignments(pop, small.fed_num_clients)
+
+        def labels(rnd, gids, t):
+            g_cpu = gids.cpu()
+            pi = sampler.label_mixtures(pop, g_cpu, classes[g_cpu])
+            return sampler.draw_labels(keys[device](rnd, t), g_cpu, pi, (g["local_steps"], g["batch"])).to(device)
+
+        return FedDraws(labels=labels)
+
+    def sim_on(device):
+        data = lambda gids, rnd, k: tuple(t.to(device) for t in data_cpu(gids.cpu(), rnd, k))  # noqa: E731
+        sim = FedSim(loss_fn, small, small.fed_config(), g["lr"], data, client_chunk=g["chunk"],
+                     draws=labels_for(device), device=device)
+        keys[device] = lambda rnd, t, sim=sim: sim._keys(stream.key(key, rnd), t)["data"]
+
+        def train64(ref, batches, train=sim._local_train):
+            to64 = lambda t: t.double() if t.is_floating_point() else t  # noqa: E731
+            out = train({n: r.double() for n, r in ref.items()}, tree_map(to64, batches))
+            return {n: p.float() for n, p in out.items()}
+
+        sim._local_train = train64
+        return sim, sim.init({n: p.to(device) for n, p in p0.items()})
+
+    card, st = sim_on("cuda")
+    for r in range(2):
+        st, _ = card.step(st, stream.key(key, r))
+    host, _ = sim_on("cpu")
+    out = {"cuda": card.step(_fed_to(st, "cuda"), stream.key(key, 2)),
+           "cpu": host.step(_fed_to(st, "cpu"), stream.key(key, 2))}
+    torch.cuda.synchronize()
+    # a profiled tick at this size (a full tick's ~240,000 kernel events
+    # take the profiler minutes to sort): its launches and idle share
+    prof = _profile_step(lambda: card.step(_fed_to(st, "cuda"), stream.key(key, 2)))
+    (cs, cm), (gs, gm) = out["cpu"], out["cuda"]
+    err = _fed_close(gs, cs, "linear tick card vs CPU")
+    for k in cm:
+        _check(torch.allclose(gm[k].cpu(), cm[k], rtol=1e-5, atol=1e-6), f"card vs CPU metric {k}")
+    blocks = small.fed_clients_per_round // g["chunk"]
+    return {"population": small.fed_num_clients, "cohort": small.fed_clients_per_round, "rtol": 1e-5, "atol": 1e-6,
+            "max_abs_err": err, "clients": gm["clients"].tolist(),
+            "profile": dict({k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share", "kernel_launches")},
+                            blocks=blocks, launches_per_block=prof["kernel_launches"] / blocks)}
+
+
+def _fed_slo(cfg, mets, errs) -> dict:
+    """The SLO monitor (`fedsim check`'s embedded spec) over the tick
+    reports, writing health.jsonl in a temporary directory; the trail
+    replayed bitwise from the monitor state at the middle tick."""
+    import json as _json
+
+    from deepreduce_tpu_torch.fedsim.__main__ import _default_slo_spec, _slo_report
+    from deepreduce_tpu_torch.slo import HealthLog, HealthMonitor, SLOSpec, validate_health_stream
+
+    path = os.path.join(tempfile.mkdtemp(prefix="phase18_"), "health.jsonl")
+    spec = SLOSpec.from_dict(_default_slo_spec(cfg))
+    mon = HealthMonitor(spec, log=HealthLog(path))
+    reports = []
+    for t, (m, e) in enumerate(zip(mets, errs)):
+        rec = {k: (v.tolist() if v.dim() else float(v)) for k, v in m.items()}
+        reports.append(_slo_report(rec, float(e)))
+    mid = len(reports) // 2
+    saved = None
+    for t, rep in enumerate(reports):
+        mon.observe(t, rep)
+        if t + 1 == mid:
+            saved = _json.dumps(mon.state_dict(), sort_keys=True)
+            at = len(mon.events)
+    mon2 = HealthMonitor(spec)
+    mon2.load_state_dict(_json.loads(saved))
+    for t in range(mid, len(reports)):
+        mon2.observe(t, reports[t])
+    validate_health_stream(HealthLog.read(path))
+    _check(mon2.events[at:] == mon.events[at:], "the resumed SLO trail differs")
+    return {"state": mon.state_of(0), "events": len(mon.events), "health_jsonl": path,
+            "healthy": mon.healthy(), "resume_bitwise": True}
+
+
+def _mobilenet18(seed: int):
+    """MobileNetV1 at full width on the card, a functional loss (scratch
+    BatchNorm statistics, so that it runs under vmap) and a batched data
+    function: class prototypes plus noise 2.5 (phase 12's task), labels and
+    noise from the counter-based stream keyed by the round's data key and
+    the client's id."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepreduce_tpu_torch.models import MobileNetV1
+    from deepreduce_tpu_torch.resilience import stream
+
+    g = FED18_MOBILENET
+    model = MobileNetV1(seed=seed).cuda().train()
+    protos = torch.randn(10, 32, 32, 3, generator=torch.Generator().manual_seed(seed + 18)).cuda()
+    e, b = g["local_steps"], g["batch"]
+
+    def loss_fn(p, batch):
+        return F.cross_entropy(model.functional(p, batch[0], scratch_stats=True), batch[1])
+
+    def data_fn(gids, rnd, key):
+        dev = gids.device
+        lab = gids[:, None] * (e * b) + torch.arange(e * b, device=dev)
+        y = (stream.words_at(stream.key(key, 1), lab) % 10).reshape(-1, e, b)
+        pix = gids[:, None] * (e * b * 3072) + torch.arange(e * b * 3072, device=dev)
+        noise = stream.normals(stream.key(key, 2), pix).reshape(-1, e, b, 32, 32, 3)
+        return protos.to(dev)[y] + 2.5 * noise, y
+
+    return model, loss_fn, data_fn
+
+
+def _fed_mobilenet(seed: int, group) -> dict:
+    """Phase 18's MobileNet arm: DRQSGD-BF-P0 rounds batched (blocks of 4)
+    and one by one from the same state, the grouped QSGD launches, card =
+    CPU on one block, the checkpoint replay."""
+    import torch
+
+    # cuDNN's default backward algorithms accumulate with atomics, so a
+    # replayed round would differ in its last bits: deterministic ones here
+    cudnn = torch.backends.cudnn
+    saved_modes = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        return _fed_mobilenet_arm(seed, group)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved_modes
+
+
+def _fed_mobilenet_arm(seed: int, group) -> dict:
+    import torch
+
+    from deepreduce_tpu_torch import DeepReduceConfig, FedSim
+    from deepreduce_tpu_torch.collectives import reduce_counts, reset_reduce_counts
+    from deepreduce_tpu_torch.ops import launch_counts, reset_launch_counts
+    from deepreduce_tpu_torch.ops.qsgd_encode import MAX_SEGMENTS
+    from deepreduce_tpu_torch.resilience import stream
+
+    g = FED18_MOBILENET
+    model, loss_fn, data_fn = _mobilenet18(seed)
+    params = {n: p.detach() for n, p in model.flax_params().items()}
+    n_params = sum(p.numel() for p in params.values())
+    cfg = DeepReduceConfig(**FED_DRQSGD, fed=True, fed_num_clients=g["population"],
+                           fed_clients_per_round=g["cohort"], fed_local_steps=g["local_steps"],
+                           fed_client_chunk=g["chunk"], seed=seed)
+    key = seed + 180
+
+    def make(impl="vmap", device="cuda", grp=group):
+        sim = FedSim(loss_fn, cfg, cfg.fed_config(), g["lr"], data_fn, client_momentum=g["momentum"], group=grp,
+                     client_chunk=g["chunk"], impl=impl, device=device)
+        return sim, sim.init(params)
+
+    res = {"params": n_params}
+    finals = {}
+    for impl in ("vmap", "scan"):
+        sim, state = make(impl)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        reset_reduce_counts()
+        times, syncs, mets, saved = [], [], [], None
+        rounds = g["rounds"] if impl == "vmap" else g["scan_rounds"]  # one by one: the comparison
+        for r in range(rounds):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            (state, m), s = _counting_syncs(lambda: sim.step(state, stream.key(key, r)))
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            syncs.append(s)
+            mets.append(m)
+            if impl == "vmap" and r == g["rounds"] - 2:
+                saved = _fed_to(state, "cuda")
+        launches = launch_counts()
+        reduces = reduce_counts()
+        print(f"phase 18 note: mobilenet {impl} round ms {[round(t, 1) for t in times]}", flush=True)
+        segs_per_client = sum(c.rows_leaf is not None for c in sim.tc_c2s._codecs.values())
+        segs_s2c = sum(c.rows_leaf is not None for c in sim.tc_s2c._codecs.values())
+        blocks = g["cohort"] // g["chunk"] if impl == "vmap" else g["cohort"]
+        per_block = -(-(g["chunk"] if impl == "vmap" else 1) * segs_per_client // MAX_SEGMENTS)
+        want = rounds * (-(-segs_s2c // MAX_SEGMENTS) + blocks * per_block)
+        _check(launches["qsgd_encode_rows"] == want, f"mobilenet {impl}: qsgd_encode_rows {launches}, the packing "
+               f"gives {want}")
+        n = n_params
+        _check(reduces == {"all_reduce": rounds, "all_reduce_bytes": rounds * 4 * (n + 6)},
+               f"mobilenet {impl}: all_reduce {reduces}")
+        _check(all(bool(torch.isfinite(p).all()) for p in state.params.values()), f"mobilenet {impl}: non-finite")
+        res[impl] = {
+            "round_ms_all": times, "round_ms_median": statistics.median(times),
+            "host_syncs_per_round": [len(s) for s in syncs], "sync_call_sites": sorted({x for s in syncs for x in s}),
+            "launches": launches, "qsgd_segments_per_client": segs_per_client,
+            "qsgd_encode_rows_per_round": launches["qsgd_encode_rows"] / rounds,
+            "all_reduce_per_round": reduces["all_reduce"] / rounds,
+            "all_reduce_bytes_per_round": reduces["all_reduce_bytes"] / rounds,
+            "all_reduce_bytes_law": 4 * (n + 6), "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "uplink_bytes": [float(m["uplink_bytes"]) for m in mets],
+        }
+        finals[impl] = (sim, state, saved)
+    _, sv, saved = finals["vmap"]
+    res["launches"] = res["vmap"]["launches"]
+    res["resume"] = _fed_resume(lambda: make("vmap"), saved, key, [(g["rounds"] - 1, None)], sv)
+    del finals
+    torch.cuda.empty_cache()
+    res["block"] = _fed_mobilenet_block(cfg, loss_fn, data_fn, params, key)
+    res["launch_ratio_scan_over_batched"] = res["block"]["launch_ratio_scan_over_batched"]
+    return res
+
+
+def _fed_mobilenet_block(cfg, loss_fn, data_fn, params, key: int) -> dict:
+    """One block of 4 clients on a round's inputs. Local training batched
+    against one client at a time in float64, on the card and against the
+    CPU; given the same client updates (the card's float32 batched local
+    training), the round's compression and aggregation batched against one
+    by one and card against CPU; the block's grouped QSGD call bitwise the
+    plain version and each client's own launch; and the device launches of
+    the block batched and one by one (torch.profiler)."""
+    import copy
+
+    import torch
+    from torch.func import grad, vmap
+
+    from deepreduce_tpu_torch.fedsim import TreeCodec
+    from deepreduce_tpu_torch.fedsim.round import cohort_updates, index_batch, make_client_step
+    from deepreduce_tpu_torch.ops import qsgd_encode_rows
+    from deepreduce_tpu_torch.ops.qsgd_encode import rows_nbytes
+
+    g = FED18_MOBILENET
+    lr, mom, E = g["lr"], g["momentum"], g["local_steps"]
+
+    def trainer(loss, steps=E):
+        def local_train(p, batches):
+            trace = None
+            for s in range(steps):
+                gr = grad(loss)(p, index_batch(batches, s))
+                trace = gr if trace is None else {n: gr[n] + mom * trace[n] for n in gr}
+                p = {n: p[n] - lr * trace[n] for n in p}
+            return p
+
+        return local_train
+
+    gids = torch.arange(4, device="cuda")
+    batch = data_fn(gids, 0, key)
+    res0 = {n: 1e-3 * torch.randn((4,) + tuple(p.shape), generator=torch.Generator().manual_seed(9)).cuda()
+            for n, p in params.items()}
+    out = {}
+
+    # local training in float64: batched = one by one, card = CPU
+    model64, _, _ = _mobilenet18(0)
+    model64 = model64.double()
+    p64 = {n: p.double() for n, p in params.items()}
+    b64 = (batch[0].double(), batch[1])
+    loss64 = lambda p, b: torch.nn.functional.cross_entropy(model64.functional(p, b[0], scratch_stats=True), b[1])
+    train64 = trainer(loss64)
+    bat = vmap(train64, in_dims=(None, 0))(p64, b64)
+    change = max(float((bat[n] - p64[n]).abs().max()) for n in p64)
+    one = max(float((bat[n][c] - train64(p64, index_batch(b64, c))[n]).abs().max()) for c in range(4) for n in p64)
+    # client 0's first local step on the CPU (the CPU's float64 MobileNet is slow)
+    cpu_model = copy.deepcopy(model64).cpu()
+    loss64c = lambda p, b: torch.nn.functional.cross_entropy(cpu_model.functional(p, b[0], scratch_stats=True), b[1])
+    first = trainer(loss64, 1)(p64, index_batch(b64, 0))
+    batc = trainer(loss64c, 1)({n: p.cpu() for n, p in p64.items()}, tuple(t[0].cpu() for t in b64))
+    vs_cpu = max(float((first[n].cpu() - batc[n]).abs().max()) for n in p64)
+    _check(one <= MOBILENET_F64_RTOL * change, f"float64 local training batched vs one by one: {one} vs {change}")
+    _check(vs_cpu <= MOBILENET_F64_RTOL * change, f"float64 local training card vs CPU: {vs_cpu} vs {change}")
+    out["f64_local_training"] = {"max_change": change, "batched_vs_one_by_one": one,
+                                 "card_vs_cpu_one_step": vs_cpu, "rtol": MOBILENET_F64_RTOL}
+    del model64, cpu_model, bat, batc, first
+
+    # the round's compression and aggregation on the same client updates
+    p_end = vmap(trainer(loss_fn), in_dims=(None, 0))(params, batch)
+    tc = TreeCodec("c2s", cfg, device="cuda")
+
+    def compress(impl, device="cuda", tcx=tc):
+        bank = {n: r.to(device, copy=True) for n, r in res0.items()}
+        w = {n: p.to(device) for n, p in params.items()}
+        step = make_client_step(tcx, lambda ref, b: b, w, 0)
+        o = cohort_updates(step, {n: x.to(device) for n, x in p_end.items()}, bank, [0, 1, 2, 3],
+                           update_template=w, impl=impl, chunk=4)
+        return o, step
+
+    (vm, step_v), (sc, _) = compress("vmap"), compress("scan")
+    (cp, _) = compress("vmap", "cpu", TreeCodec("c2s", cfg, device="cpu"))
+    scale = max(float(v.abs().max()) for v in sc[0].values())
+    errs = {}
+    for what, other in (("batched_vs_one_by_one", sc), ("card_vs_cpu", cp)):
+        e = max(max(float((vm[0][n].cpu() - other[0][n].cpu()).abs().max()) for n in params),
+                max(float((vm[1][n].cpu() - other[1][n].cpu()).abs().max()) for n in params))
+        _check(e <= MOBILENET_ROUND_RTOL * scale, f"mobilenet round {what}: {e} against {MOBILENET_ROUND_RTOL} x {scale}")
+        _check(all(float(a) == float(b) for a, b in zip(vm[2], other[2])), f"mobilenet round {what}: wire differs")
+        errs[what] = {"max_abs_err": e, "bitwise": e == 0.0}
+    out["round_given_updates"] = dict(errs, max_update=scale, rtol=MOBILENET_ROUND_RTOL)
+
+    # the grouped call's rows against the plain version and each client's own launch
+    segs = step_v.segments
+    meta = next(c.val_codec.meta for c in tc._codecs.values() if c.rows_leaf is not None)
+    total = max(s.out_offset + rows_nbytes(s.values.shape[0], meta.bucket_size) for s in segs)
+    got, ref = _encode_on_card_and_cpu(segs, total, meta.quantum_num, meta.bucket_size)
+    err = _check_rows(got, ref, segs, meta.bucket_size, meta.quantum_num, "the grouped cross-client table")
+    per_client = torch.zeros(total, dtype=torch.uint8, device="cuda")
+    per = len(segs) // 4  # client c's segments are a run of the table
+    for c in range(4):
+        qsgd_encode_rows(segs[c * per : (c + 1) * per], per_client, quantum_num=meta.quantum_num,
+                         bucket_size=meta.bucket_size, device="cuda")
+    torch.cuda.synchronize()
+    _check(torch.equal(per_client.cpu(), got), "the grouped cross-client launch differs from per-client launches")
+    out["grouped_encode"] = {"clients": 4, "segments": len(segs), "launches": -(-len(segs) // 128),
+                             "max_abs_err": err, "equals_per_client_launches": True}
+
+    # the device launches, local training included: the block batched, and
+    # one client of it alone (the one-by-one block is four of those)
+    def block(impl, n):
+        bank = {k: r[:n].clone() for k, r in res0.items()}
+        step = make_client_step(tc, trainer(loss_fn), params, 0)
+        cohort_updates(step, tuple(t[:n] for t in batch), bank, list(range(n)), update_template=params, impl=impl,
+                       chunk=n)
+
+    prof = {"batched_block_of_4": _profile_step(lambda: block("vmap", 4)),
+            "one_client": _profile_step(lambda: block("scan", 1))}
+    out["profile"] = {
+        what: {k: p[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share", "kernel_launches")}
+        for what, p in prof.items()}
+    out["launch_ratio_scan_over_batched"] = (4 * prof["one_client"]["kernel_launches"]
+                                             / max(prof["batched_block_of_4"]["kernel_launches"], 1))
+    return out
+
+
+def phase_fedsim(seed: int, group) -> dict:
+    """Phase 18: the population-scale federated simulator. Returns {arm:
+    result}; each arm's `launches` are its counted kernel launches."""
+    import torch
+
+    t0 = time.perf_counter()
+    results = {}
+    for arm, spec in PHASE18.items():
+        res = _fed_linear(arm, spec, seed, group)
+        print(f"phase 18 ok: {arm} " + json.dumps(res), flush=True)
+        results[arm] = res
+        torch.cuda.empty_cache()
+    res = _fed_mobilenet(seed, group)
+    print("phase 18 ok: fedsim_mobilenet_drqsgd " + json.dumps(res), flush=True)
+    results["fedsim_mobilenet_drqsgd"] = res
+    # the same rounds one client at a time: the comparison, its launches counted apart
+    results["fedsim_mobilenet_drqsgd_scan"] = {"launches": res["scan"]["launches"]}
+    torch.cuda.empty_cache()
+    print(f"phase 18 time {time.perf_counter() - t0:.1f} s", flush=True)
+    return results
+
+
 def phase_timing(encode: dict, errs: dict, by_arm: dict, quantize: dict) -> None:
-    # each path's run, counted from 0 just before it (phases 5 and 7-17)
+    # each path's run, counted from 0 just before it (phases 5 and 7-18)
     total = lambda name: sum(counts[name] for counts in by_arm.values())
     kernels = [
         _quantize_entry(quantize, total("qsgd_quantize"), errs["qsgd_quantize"]),
@@ -3399,12 +4066,13 @@ def main(argv=None) -> int:
         host15 = phase_host_codecs(args.seed, tokens, dist.group.WORLD, res["cpu_ref_loss0"], args.profile)
         resil16, _ = phase_resilience(args.seed, tokens, dist.group.WORLD, res["cpu_ref_loss0"])
         two_tier17 = phase_two_tier(args.seed, tokens, dist.group.WORLD, res["cpu_ref_loss0"])
+        fedsim18 = phase_fedsim(args.seed, dist.group.WORLD)
     finally:
         dist.destroy_process_group()
     fed = phase_fedavg(args.seed, args.profile)
     table6 = phase_table6(args.seed)
     by_arm = {"drqsgd_bloom": res["launches"]}
-    for phase in (arms, resnet, in_coll, bucketed, zoo, models14, fed, table6, host15, resil16, two_tier17):
+    for phase in (arms, resnet, in_coll, bucketed, zoo, models14, fed, table6, host15, resil16, two_tier17, fedsim18):
         by_arm.update({a: r["launches"] for a, r in phase.items()})
     phase_timing(encode, errs, by_arm, quantize)
     print(f"chip_smoke total {time.perf_counter() - t0:.1f} s", flush=True)

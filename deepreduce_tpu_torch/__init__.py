@@ -50,7 +50,11 @@ machine profiles), and the two-tier exchange (`parallel.
 HierarchicalExchanger`, `cfg.hier`): a dense or int8-quantized slice mean
 over the intra-node group, then the compressed exchange across slices,
 planned by `costmodel.select_hier_plan` where asked, and streamed from the
-backward pass. Collectives run through `collectives.Collectives`: a
+backward pass; and the population-scale federated simulator
+(`fedsim.FedSim`: client-sharded rounds over a residual bank with the
+batched cohort, one fused all_reduce a round, the asynchronous and
+multi-tenant ticks), heterogeneous populations (`population.
+PopulationSpec`) and the SLO health monitor (`slo.HealthMonitor`). Collectives run through `collectives.Collectives`: a
 `torch.distributed` group, an `InProcessGroup` of W lockstep workers in one
 process, or an `InProcessGrid` of slices x workers a slice.
 """
@@ -60,8 +64,10 @@ from deepreduce_tpu_torch.config import ConfigError, DeepReduceConfig, from_para
 from deepreduce_tpu_torch.codecs.registry import PolyFitCodec
 from deepreduce_tpu_torch.comm import GradientExchanger
 from deepreduce_tpu_torch.fedavg import FedAvg, FedAvgState
-from deepreduce_tpu_torch.fedsim import FedConfig, TreeCodec
+from deepreduce_tpu_torch.fedsim import FedConfig, FedSim, FedSimState, TreeCodec
 from deepreduce_tpu_torch.parallel import HierarchicalExchanger
+from deepreduce_tpu_torch.population import PopulationSpec
+from deepreduce_tpu_torch.slo import HealthMonitor, SLOSpec
 from deepreduce_tpu_torch.train import Trainer, TrainState
 from deepreduce_tpu_torch.wrappers import TensorCodec
 
@@ -72,11 +78,16 @@ __all__ = [
     "FedAvg",
     "FedAvgState",
     "FedConfig",
+    "FedSim",
+    "FedSimState",
     "GradientExchanger",
+    "HealthMonitor",
     "HierarchicalExchanger",
     "InProcessGrid",
     "InProcessGroup",
     "PolyFitCodec",
+    "PopulationSpec",
+    "SLOSpec",
     "TensorCodec",
     "TreeCodec",
     "Trainer",

@@ -21,6 +21,11 @@ what an uninterrupted one would).
   stack would silently change meaning under another). A checkpoint without
   a stamp is tolerated. Observability-only knobs are left out of the
   fingerprint (the JAX package's set, kept as it is).
+- The federated simulation's states (`fedsim.FedSimState`, with its
+  async buffer and class ids, and `fedsim.MultiTenantState`) round-trip the
+  same way: every tensor by its field path, copied into a template from
+  `FedSim.init` after the same checks, and the host fields (round and tick
+  counters, the active mask, the per-tenant knobs) restored as saved.
 - Every read and write goes through `resilience.retry.retry_io`.
 """
 
@@ -30,7 +35,7 @@ import dataclasses
 import hashlib
 import json
 import pathlib
-from typing import Dict, Optional, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -103,9 +108,49 @@ def _detached(tensors: Optional[Dict[str, torch.Tensor]]) -> Optional[Dict[str, 
     return None if tensors is None else {n: t.detach() for n, t in tensors.items()}
 
 
-def save(path: str, state: TrainState, *, config: Optional[DeepReduceConfig] = None) -> None:
+def _split_state(state, prefix: str = "") -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+    """A dataclass state's tensors by field path ("params/w",
+    "buffer/delta_sum/w") and its host fields ("round": 3)."""
+    tensors: Dict[str, torch.Tensor] = {}
+    host: Dict[str, Any] = {}
+    for f in dataclasses.fields(state):
+        val, key = getattr(state, f.name), prefix + f.name
+        if torch.is_tensor(val):
+            tensors[key] = val.detach()
+        elif isinstance(val, dict):
+            tensors.update({f"{key}/{n}": t.detach() for n, t in val.items()})
+        elif dataclasses.is_dataclass(val):
+            t, h = _split_state(val, key + "/")
+            tensors.update(t)
+            host.update(h)
+        else:
+            host[key] = val
+    return tensors, host
+
+
+def _with_host(state, host: Dict[str, Any], prefix: str = ""):
+    changes = {}
+    for f in dataclasses.fields(state):
+        val, key = getattr(state, f.name), prefix + f.name
+        if dataclasses.is_dataclass(val):
+            changes[f.name] = _with_host(val, host, key + "/")
+        elif key in host and not torch.is_tensor(val) and not isinstance(val, dict):
+            saved = host[key]
+            changes[f.name] = tuple(tuple(x) if isinstance(x, list) else x for x in saved) if isinstance(
+                saved, list) else saved
+    return dataclasses.replace(state, **changes)
+
+
+def save(path: str, state, *, config: Optional[DeepReduceConfig] = None) -> None:
     """Write `state` (parameters, BatchNorm statistics, optimizer state,
-    residuals, step) to `path`; with `config`, also its stamp."""
+    residuals, step; or a federated state's every field) to `path`; with
+    `config`, also its stamp."""
+    if not isinstance(state, TrainState):
+        tensors, host = _split_state(state)
+        retry_io(lambda: torch.save({"tensors": tensors, "host": json.dumps(host)}, path))
+        if config is not None:
+            _write_stamp(path, config)
+        return
     blob = {
         "params": _detached(state.params),
         "batch_stats": _detached(state.batch_stats),
@@ -143,6 +188,12 @@ def restore(path: str, trainer_or_template: Union[Trainer, TrainState], *,
     if config is not None:
         _check_stamp(path, config)
     template = trainer_or_template
+    if not isinstance(template, (Trainer, TrainState)):
+        own, _ = _split_state(template)
+        device = next(iter(own.values())).device
+        blob = retry_io(lambda: torch.load(path, map_location=device, weights_only=True))
+        _copy_into(own, blob["tensors"], "state")
+        return _with_host(template, json.loads(blob["host"]))
     if isinstance(template, Trainer):
         template = template.init_state()
     device = next(iter(template.params.values())).device

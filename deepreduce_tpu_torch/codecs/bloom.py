@@ -284,23 +284,24 @@ def insert(indices: torch.Tensor, nnz: torch.Tensor, meta: BloomMeta) -> torch.T
     if meta.blocked == "hash":
         idx = torch.where(live, indices, indices[0])
         block, _ = blocked_block_and_mask(idx, meta)
-        bits = torch.zeros(n_words * 32, dtype=torch.int64, device=dev)
+        bits = indices.new_zeros(n_words * 32, dtype=torch.int64)
         for lane in _lanes(idx, meta.num_hash):
-            bits.index_fill_(0, block * 32 + lane, 1)
+            bits = bits.scatter(0, block * 32 + lane, 1)
         return _pack_bits(bits, n_words)
     if not meta.blocked:
         idx = torch.where(live, indices, indices[0])
         pos = hash_positions(idx, hash_seeds(meta.num_hash, dev), meta.m_bits)
-        bits = torch.zeros(meta.m_bits, dtype=torch.int64, device=dev)
-        # index_fill_ takes the 1 as a kernel argument; `bits[pos] = 1` would
-        # copy it from the host and wait for the device
-        bits.index_fill_(0, pos.reshape(-1).long(), 1)
+        bits = indices.new_zeros(meta.m_bits, dtype=torch.int64)
+        # scatter takes the 1 as a kernel argument; `bits[pos] = 1` would
+        # copy it from the host and wait for the device (and the out-of-place
+        # form has a vmap batching rule, the in-place ones loop per client)
+        bits = bits.scatter(0, pos.reshape(-1).long(), 1)
         return _pack_bits(bits, n_words)
     word = indices.to(torch.int64) % n_words
     parked = torch.full_like(word, n_words * 32)
-    bits = torch.zeros(n_words * 32 + 1, dtype=torch.int64, device=dev)
+    bits = indices.new_zeros(n_words * 32 + 1, dtype=torch.int64)
     for lane in _lanes(indices, meta.num_hash):
-        bits.index_fill_(0, torch.where(live, word * 32 + lane, parked), 1)
+        bits = bits.scatter(0, torch.where(live, word * 32 + lane, parked), 1)
     return _pack_bits(bits, n_words)
 
 

@@ -95,13 +95,26 @@ def encode(
     return QSGDPayload(data=data, indices=sp.indices, nnz=sp.nnz)
 
 
-def decode(payload: QSGDPayload, meta: QSGDMeta, shape: Tuple[int, ...]) -> SparseGrad:
+def decode_values(data: torch.Tensor, meta: QSGDMeta) -> torch.Tensor:
+    """f32[..., k] decoded values of wire rows int8[..., payload_len], any
+    leading dimensions (a batch of clients' rows at once: the norms' dtype
+    view has no `torch.func.vmap` rule, so a batched decode reads them here,
+    outside vmap)."""
     b, bs, q = meta.num_buckets, meta.bucket_size, meta.quantum_num
-    rows = payload.data.reshape(b, bs + 4)
-    levels = rows[:, :bs].to(torch.float32)
-    norms = rows[:, bs:].contiguous().view(torch.float32).reshape(b)
+    lead = tuple(data.shape[:-1])
+    rows = data.reshape(lead + (b, bs + 4))
+    levels = rows[..., :bs].to(torch.float32)
+    norms = rows[..., bs:].contiguous().view(torch.float32).reshape(lead + (b,))
     # the JAX package's `norms / q * levels`, compiled: (norms * fl(1/q)) * levels
-    vals = (levels * (norms * reciprocal_f32(q))[:, None]).reshape(-1)[: meta.k]
+    return (levels * (norms * reciprocal_f32(q))[..., None]).reshape(lead + (-1,))[..., : meta.k]
+
+
+def decode(
+    payload: QSGDPayload, meta: QSGDMeta, shape: Tuple[int, ...], *, values: Optional[torch.Tensor] = None
+) -> SparseGrad:
+    """The payload's sparse tensor; `values` are its rows' `decode_values`
+    when the caller has them."""
+    vals = decode_values(payload.data, meta) if values is None else values
     return SparseGrad(values=vals, indices=payload.indices, nnz=payload.nnz, shape=shape)
 
 

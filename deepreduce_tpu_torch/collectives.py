@@ -16,6 +16,12 @@ Three implementations:
   meeting at a barrier inside every collective. The parity tests drive W
   workers with it; sums run in worker order from zero.
 
+`all_reduce_counted(coll, x)` is the all_reduce_sum of a driver whose
+collective traffic is part of its contract (the federated round's one fused
+all_reduce): it counts the calls and their operand bytes
+(`reduce_counts()`), once per worker, as `ops.launch_counts` counts kernel
+launches.
+
 `collectives_for(group)` picks the implementation for what the entry points
 accept as `group`: None, a `torch.distributed.ProcessGroup` or a
 `Collectives`.
@@ -311,6 +317,31 @@ def split_group(group, ici_size: Optional[int]) -> Tuple[Collectives, Collective
         if p == me_p:
             dcn = g
     return ProcessGroupCollectives(ici), ProcessGroupCollectives(dcn)
+
+
+_REDUCE_COUNTS = {"all_reduce": 0, "all_reduce_bytes": 0}
+_REDUCE_LOCK = threading.Lock()
+
+
+def all_reduce_counted(coll: Collectives, x: torch.Tensor) -> torch.Tensor:
+    """`coll.all_reduce_sum(x)`, counted in `reduce_counts()`: one call and
+    x's bytes, on every worker."""
+    with _REDUCE_LOCK:
+        _REDUCE_COUNTS["all_reduce"] += 1
+        _REDUCE_COUNTS["all_reduce_bytes"] += x.numel() * x.element_size()
+    return coll.all_reduce_sum(x)
+
+
+def reduce_counts() -> dict:
+    """The counted all_reduce calls and operand bytes since the last reset."""
+    with _REDUCE_LOCK:
+        return dict(_REDUCE_COUNTS)
+
+
+def reset_reduce_counts() -> None:
+    with _REDUCE_LOCK:
+        for k in _REDUCE_COUNTS:
+            _REDUCE_COUNTS[k] = 0
 
 
 def collectives_for(group) -> Collectives:

@@ -161,6 +161,27 @@ class PayloadLayout:
         stored = tail[..., 0] | (tail[..., 1] << 8) | (tail[..., 2] << 16) | (tail[..., 3] << 24)
         return (stored == checksum_word(rows[..., :pn], self.weights(rows.device))).to(torch.float32)
 
+    def pack_rows(self, leaves) -> torch.Tensor:
+        """B clients' payload leaves (each [B, ...]) -> uint8[B, nbytes],
+        row c `pack` of client c's leaves: one concatenation, then the
+        checksum words of all rows at once."""
+        B = leaves[0].shape[0]
+        parts = [leaf.reshape(B, -1).contiguous().view(torch.uint8) for leaf, nb in zip(leaves, self.leaf_bytes) if nb]
+        if self.checksum:
+            body = torch.cat(parts, dim=1)
+            word = checksum_word(body, self.weights(body.device))
+            parts = [body, u32.to_bits(word.reshape(B, 1)).view(torch.uint8)]
+        return torch.cat(parts, dim=1)
+
+    def unpack_rows(self, rows: torch.Tensor) -> List[torch.Tensor]:
+        """uint8[B, nbytes] -> payload leaves, each [B, ...] (inverse of
+        `pack_rows`)."""
+        B = rows.shape[0]
+        return [
+            rows[:, off : off + nb].contiguous().view(dt).reshape((B,) + shape)
+            for (shape, dt), off, nb in zip(self.specs, self.leaf_offsets, self.leaf_bytes)
+        ]
+
     def unpack(self, buf: torch.Tensor) -> List[torch.Tensor]:
         """uint8[nbytes] -> payload leaves (inverse of pack; the checksum
         word is not read)."""

@@ -18,7 +18,9 @@ approximate P2 policies and its hash-blocked layout; and the host codecs:
 the Huffman index, the C++ library's bloom index with the exact P2 policy
 `conflict_sets` and its integer family under `code`, the Deflate and the
 searched-knot PolyFit value codecs; the unfused exchange, the vmap and ring
-decodes and the resilience subsystem), with the same names and defaults.
+decodes and the resilience subsystem; the federated simulation's knobs
+`fed*`, `fed_async*`, `fed_tenants` / `fed_mt_*`, `pop_*` and `slo_*`),
+with the same names and defaults.
 A value the port does not implement raises `ConfigError` naming
 the knob, so that no run quietly takes another path than the one it asked
 for (for instance `approx_topk=True`: torch has no `approx_max_k`, and
@@ -339,6 +341,43 @@ class DeepReduceConfig:
     # a machine profile (`costmodel.MachineProfile` JSON) the 'auto'
     # selectors price their choice with instead of the static constants
     profile: Optional[str] = None
+    # the federated simulation (fedsim/): population-scale rounds over a
+    # residual bank of `fed_num_clients` clients, `fed_clients_per_round`
+    # sampled a round, each `fed_local_steps` local SGD steps; the server
+    # step `fed_server_lr` times the live mean; the batched cohort in blocks
+    # of `fed_client_chunk` clients (0: one block). Off by default.
+    fed: bool = False
+    fed_num_clients: int = 0
+    fed_clients_per_round: int = 0
+    fed_local_steps: int = 1
+    fed_server_lr: float = 1.0
+    fed_client_chunk: int = 0
+    # asynchronous buffered aggregation (FedBuff-style): an ingest tick that
+    # buffers staleness-weighted deltas, applying once `fed_async_k` live
+    # contributions arrived; 1/(1+tau)^alpha weighting; the latency
+    # distribution over tau = 0, 1, ... ("0.6,0.3,0.1"; "" = zero latency)
+    fed_async: bool = False
+    fed_async_k: int = 0
+    fed_async_alpha: float = 0.0
+    fed_async_latency: str = ""
+    # multi-tenant serving: T populations stacked through the one tick (0 =
+    # the single-tenant driver), with per-tenant K / alpha / latency rows
+    # (';'-separated) / effective cohorts ("" = the global value)
+    fed_tenants: int = 0
+    fed_mt_k: str = ""
+    fed_mt_alpha: str = ""
+    fed_mt_latency: str = ""
+    fed_mt_cohort: str = ""
+    # the heterogeneous population (population/): a `PopulationSpec` file
+    # path or inline JSON object, and its label-universe override (0 keeps
+    # the spec's)
+    pop_spec: Optional[str] = None
+    pop_labels: int = 0
+    # the SLO health monitor (slo/): an `SLOSpec` JSON path, and its window
+    # and hysteresis overrides (0 keeps the spec's)
+    slo_spec: Optional[str] = None
+    slo_window: int = 0
+    slo_hysteresis: int = 0
 
     def __post_init__(self):
         checked = dict(_SUPPORTED, **(_SUPPORTED_CODEC if self.deepreduce is not None else {}))
@@ -373,6 +412,7 @@ class DeepReduceConfig:
         self._check_buckets()
         self._check_resilience()
         self._check_hier()
+        self._check_fed()
         if self.profile is not None and "auto" not in (self.rs_mode, self.hier_ici, self.hier_dcn):
             raise ConfigError(
                 "profile-needs-auto-selector",
@@ -486,6 +526,7 @@ class DeepReduceConfig:
         if self.stream_exchange and self.hier and not (
             self.communicator == "allgather" and self.hier_ici == "dense" and self.hier_dcn == "config"
             and self.decode_strategy in ("loop", "vmap")
+            and not self.fed and not self.fed_async and self.fed_tenants == 0
         ):
             raise ConfigError(
                 "stream-vs-hier",
@@ -493,6 +534,13 @@ class DeepReduceConfig:
                 "bucketed allgather across slices (communicator='allgather', hier_ici='dense', "
                 "hier_dcn='config', decode_strategy 'loop' or 'vmap'): this config restructures a leg the "
                 "backward hooks run",
+            )
+        if self.stream_exchange and self.fed:
+            raise ConfigError(
+                "stream-vs-fed",
+                "stream_exchange=True hooks the Trainer's per-step backward pass; the federated round (fed=True) "
+                "aggregates client deltas through its own batched path and would silently ignore it — drop one "
+                "of the two",
             )
 
     def _check_resilience(self) -> None:
@@ -521,6 +569,9 @@ class DeepReduceConfig:
                 and not self.stream_exchange
                 and self.decode_strategy == "loop"
                 and self.bucket_bytes is None
+                and not self.fed
+                and not self.fed_async
+                and self.fed_tenants == 0
             )
             if not reowned:
                 raise ConfigError(
@@ -590,6 +641,216 @@ class DeepReduceConfig:
                 f"compressor={self.compressor!r}, deepreduce={self.deepreduce!r}; use hier_dcn='config' to run "
                 "this codec stack across slices as it is",
             )
+
+    def _check_fed(self) -> None:
+        """The federated simulation's fences, in the JAX package's order and
+        under its codes: the round geometry, the knobs the round would
+        silently ignore, the async, multi-tenant, population and SLO knobs."""
+        fed_engaged = [
+            name for name, default in (("fed_num_clients", 0), ("fed_clients_per_round", 0), ("fed_local_steps", 1),
+                                       ("fed_server_lr", 1.0), ("fed_client_chunk", 0))
+            if getattr(self, name) != default
+        ]
+        if fed_engaged and not self.fed:
+            raise ConfigError(
+                "fed-knobs-disengaged",
+                f"{', '.join(fed_engaged)} configure the federated simulation subsystem and would be silently "
+                "ignored with fed=False — set fed=True (or drop the knob(s))",
+            )
+        if self.fed:
+            for code, ok, msg in (
+                ("fed-population-range", self.fed_num_clients > 0,
+                 f"fed=True requires a positive fed_num_clients population, got {self.fed_num_clients}"),
+                ("fed-cohort-range", self.fed_clients_per_round > 0,
+                 f"fed=True requires a positive fed_clients_per_round cohort, got {self.fed_clients_per_round}"),
+                ("fed-cohort-exceeds-population", self.fed_clients_per_round <= self.fed_num_clients,
+                 f"fed_clients_per_round={self.fed_clients_per_round} exceeds fed_num_clients="
+                 f"{self.fed_num_clients} — cohorts are sampled without replacement"),
+                ("fed-local-steps-range", self.fed_local_steps > 0,
+                 f"fed_local_steps must be positive, got {self.fed_local_steps}"),
+                ("fed-server-lr-range", self.fed_server_lr > 0,
+                 f"fed_server_lr must be positive, got {self.fed_server_lr}"),
+                ("fed-client-chunk-range", self.fed_client_chunk >= 0,
+                 f"fed_client_chunk must be >= 0 (0 = one batched block), got {self.fed_client_chunk}"),
+                ("fed-chunk-divides-cohort",
+                 not (self.fed_client_chunk > 0 and self.fed_clients_per_round % self.fed_client_chunk),
+                 f"fed_client_chunk={self.fed_client_chunk} must divide fed_clients_per_round="
+                 f"{self.fed_clients_per_round} (the chunked cohort needs equal blocks)"),
+                ("fed-vs-hier", not self.hier,
+                 "fed=True aggregates client deltas through the fedsim round's single fused all_reduce; the "
+                 "hierarchical two-leg exchange (hier=True) would be silently ignored — drop one of the two"),
+                ("fed-vs-communicator", self.communicator == "allgather",
+                 f"communicator={self.communicator!r} selects a gathered-worker exchange the federated round "
+                 "never runs (its aggregate is ONE fused all_reduce; compression is the TreeCodec pair) — keep "
+                 "the default communicator='allgather' with fed=True"),
+                ("fed-vs-buckets", self.bucket_bytes is None,
+                 "bucket_bytes partitions the fused gathered-worker exchange; the federated round compresses per "
+                 "leaf through the path-keyed TreeCodec and would silently ignore it — use bucket_bytes=None "
+                 "with fed=True"),
+                ("fed-vs-decode-strategy", self.decode_strategy == "loop",
+                 f"decode_strategy={self.decode_strategy!r} restructures the gathered-worker decode of the flat "
+                 "exchange; the federated round decodes one summed TreeCodec payload and would silently ignore "
+                 "it — keep the default 'loop' with fed=True"),
+            ):
+                if not ok:
+                    raise ConfigError(code, msg)
+        from deepreduce_tpu_torch.fedsim.round import (
+            parse_class_latency,
+            parse_latency,
+            parse_tenant_floats,
+            parse_tenant_latency,
+        )
+
+        async_engaged = [name for name, default in (("fed_async_k", 0), ("fed_async_alpha", 0.0),
+                                                    ("fed_async_latency", "")) if getattr(self, name) != default]
+        if async_engaged and not self.fed_async:
+            raise ConfigError(
+                "fed-async-knobs-disengaged",
+                f"{', '.join(async_engaged)} configure the asynchronous buffered aggregation and would be silently "
+                "ignored with fed_async=False — set fed_async=True (or drop the knob(s))",
+            )
+        if self.fed_async:
+            if not self.fed:
+                raise ConfigError(
+                    "fed-async-needs-fed",
+                    "fed_async=True buffers the federated round's client deltas across ingest ticks — there is no "
+                    "round to buffer without fed=True (set the fed_* geometry too)",
+                )
+            if self.fed_async_k < 1:
+                raise ConfigError("fed-async-k-range",
+                                  f"fed_async=True requires a positive apply threshold fed_async_k, got {self.fed_async_k}")
+            if self.fed_async_alpha < 0:
+                raise ConfigError(
+                    "fed-async-alpha-range",
+                    f"fed_async_alpha is a down-weighting exponent 1/(1+tau)^alpha and must be >= 0, got "
+                    f"{self.fed_async_alpha}",
+                )
+            try:
+                parse_latency(self.fed_async_latency)
+            except ValueError as e:
+                raise ConfigError("fed-async-latency-syntax", str(e)) from e
+        if self.fed_tenants < 0:
+            raise ConfigError("fed-mt-tenants-range",
+                              f"fed_tenants must be >= 0 (0 = single-tenant driver), got {self.fed_tenants}")
+        mt_engaged = [n for n in ("fed_mt_k", "fed_mt_alpha", "fed_mt_latency", "fed_mt_cohort") if getattr(self, n) != ""]
+        if mt_engaged and self.fed_tenants < 1:
+            raise ConfigError(
+                "fed-mt-knobs-disengaged",
+                f"{', '.join(mt_engaged)} configure per-tenant knobs of the multi-tenant federated driver and would "
+                "be silently ignored with fed_tenants=0 — set fed_tenants >= 1 (or drop the knob(s))",
+            )
+        if self.fed_tenants >= 1:
+            if not self.fed:
+                raise ConfigError(
+                    "fed-mt-needs-fed",
+                    "fed_tenants >= 1 stacks T federated populations through the one round tick — there is no round "
+                    "to stack without fed=True (set the fed_* geometry too)",
+                )
+            async_knobs = [n for n in ("fed_mt_k", "fed_mt_alpha", "fed_mt_latency") if getattr(self, n) != ""]
+            if async_knobs and not self.fed_async:
+                raise ConfigError(
+                    "fed-mt-async-knobs",
+                    f"{', '.join(async_knobs)} configure the per-tenant buffered-async knobs (K / alpha / latency) "
+                    "and would be silently ignored with fed_async=False — set fed_async=True (or drop the knob(s))",
+                )
+            T = self.fed_tenants
+            try:
+                ks = parse_tenant_floats(self.fed_mt_k, T, "fed_mt_k", float(self.fed_async_k))
+            except ValueError as e:
+                raise ConfigError("fed-mt-k-syntax", str(e)) from e
+            if self.fed_async and any(k < 1 for k in ks):
+                raise ConfigError("fed-mt-k-syntax",
+                                  f"fed_mt_k={self.fed_mt_k!r}: every per-tenant apply threshold must be >= 1")
+            try:
+                alphas = parse_tenant_floats(self.fed_mt_alpha, T, "fed_mt_alpha", self.fed_async_alpha)
+            except ValueError as e:
+                raise ConfigError("fed-mt-alpha-syntax", str(e)) from e
+            if any(a < 0 for a in alphas):
+                raise ConfigError("fed-mt-alpha-syntax",
+                                  f"fed_mt_alpha={self.fed_mt_alpha!r}: every per-tenant staleness exponent must be >= 0")
+            try:
+                parse_tenant_latency(self.fed_mt_latency, T, self.fed_async_latency)
+            except ValueError as e:
+                raise ConfigError("fed-mt-latency-syntax", str(e)) from e
+            try:
+                cohorts = parse_tenant_floats(self.fed_mt_cohort, T, "fed_mt_cohort", float(self.fed_clients_per_round))
+            except ValueError as e:
+                raise ConfigError("fed-mt-cohort-syntax", str(e)) from e
+            if any(c < 1 or c > self.fed_clients_per_round or c != int(c) for c in cohorts):
+                raise ConfigError(
+                    "fed-mt-cohort-syntax",
+                    f"fed_mt_cohort={self.fed_mt_cohort!r}: every per-tenant effective cohort must be an integer in "
+                    f"[1, fed_clients_per_round={self.fed_clients_per_round}]",
+                )
+        if self.pop_labels != 0 and self.pop_spec is None:
+            raise ConfigError(
+                "pop-knobs-disengaged",
+                f"pop_labels={self.pop_labels} overrides the population spec's label universe and would be "
+                "silently ignored with pop_spec=None — set pop_spec (or drop the knob)",
+            )
+        if self.pop_spec is not None:
+            if not self.fed:
+                raise ConfigError(
+                    "pop-needs-fed",
+                    "pop_spec assigns the federated client population to heterogeneity classes — there is no "
+                    "population to classify with fed=False (set the fed_* geometry too)",
+                )
+            if self.fed_tenants >= 1:
+                raise ConfigError(
+                    "pop-vs-mt",
+                    "pop_spec with fed_tenants >= 1: per-class and per-tenant heterogeneity do not compose yet — "
+                    "the class-id vector is sharded with the single-tenant residual bank. Run populations "
+                    "single-tenant (or drop pop_spec)",
+                )
+            if self.pop_labels < 0 or self.pop_labels == 1:
+                raise ConfigError("pop-labels-range",
+                                  f"pop_labels must be 0 (keep the spec value) or >= 2, got {self.pop_labels}")
+            from deepreduce_tpu_torch.population.spec import PopulationSpec
+
+            spec = PopulationSpec.load_any(self.pop_spec)
+            if spec.latency_on and not self.fed_async:
+                raise ConfigError(
+                    "pop-knobs-disengaged",
+                    "the population spec carries per-class latency row(s), which configure the async staleness "
+                    "draw and would be silently ignored with fed_async=False — set fed_async=True (or drop the "
+                    "class latency rows)",
+                )
+            if spec.latency_on:
+                try:
+                    parse_class_latency([c.latency for c in spec.classes], self.fed_async_latency)
+                except ConfigError:
+                    raise
+                except ValueError as e:
+                    raise ConfigError("pop-latency-syntax", str(e)) from e
+        slo_engaged = [n for n in ("slo_window", "slo_hysteresis") if getattr(self, n) != 0]
+        if slo_engaged and self.slo_spec is None:
+            raise ConfigError(
+                "slo-knobs-disengaged",
+                f"{', '.join(slo_engaged)} override the SLO spec windows and would be silently ignored with "
+                "slo_spec=None — set slo_spec (or drop the knob(s))",
+            )
+        if self.slo_spec is not None:
+            if not self.fed:
+                raise ConfigError(
+                    "slo-needs-fed",
+                    "slo_spec configures the serving health monitor, which consumes the federated tick report "
+                    "stream — it has nothing to watch with fed=False",
+                )
+            if self.slo_window < 0:
+                raise ConfigError("slo-window-range",
+                                  f"slo_window must be >= 0 (0 keeps the spec value), got {self.slo_window}")
+            if self.slo_hysteresis < 0:
+                raise ConfigError("slo-hysteresis-range",
+                                  f"slo_hysteresis must be >= 0 (0 keeps the spec value), got {self.slo_hysteresis}")
+
+    def fed_config(self):
+        """The round-geometry view of the fed_* knobs."""
+        if not self.fed:
+            raise ValueError("fed_config() requires fed=True")
+        from deepreduce_tpu_torch.fedsim.round import FedConfig
+
+        return FedConfig(num_clients=self.fed_num_clients, clients_per_round=self.fed_clients_per_round,
+                         local_steps=self.fed_local_steps, server_lr=self.fed_server_lr)
 
     def codec_params(self) -> Dict[str, Any]:
         return {

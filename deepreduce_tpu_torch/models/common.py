@@ -231,14 +231,21 @@ class FlaxNamed:
         must match."""
         _load_named(self.flax_batch_stats(), stats, "batch_stats")
 
-    def functional(self, params: Dict[str, torch.Tensor], *inputs) -> torch.Tensor:
+    def functional(self, params: Dict[str, torch.Tensor], *inputs, scratch_stats: bool = False) -> torch.Tensor:
         """The forward with `params` (every parameter, under its flax name) in
         place of the module's own (`torch.func.functional_call`), as flax's
         `model.apply({"params": params}, ...)`: what a federated client
-        differentiates. BatchNorm statistics stay the module's buffers."""
+        differentiates. BatchNorm statistics stay the module's buffers; with
+        `scratch_stats` a training-mode forward writes them into scratch
+        tensors made from the input instead, and the module's own stay
+        as they are: the forward is then functional in its statistics and
+        runs under `torch.func.vmap` (a batch of clients)."""
         names = {n.replace(".", "/") for n, _ in self.named_parameters()}
         if set(params) != names:
             raise KeyError(f"parameter names differ: missing {sorted(names - set(params))}, "
                            f"unexpected {sorted(set(params) - names)}")
         own = {n.replace("/", "."): t for n, t in params.items()}
+        if scratch_stats:
+            # made from the input, which a batch of clients always batches
+            own.update({n: inputs[0].new_zeros(b.shape, dtype=b.dtype) for n, b in self.named_buffers()})
         return torch.func.functional_call(self, own, inputs)

@@ -9,7 +9,9 @@ independent Bernoulli event per (step, worker, salt) with its own rate.
 The events and the byte draws come from the counter-based stream keyed by
 (seed, tag 0x0C405, salt, step, worker) (`resilience.stream`): the events
 are drawn on the host, so a step whose events do not fire launches
-nothing, and the byte draws on the buffer's device. With the checksum on,
+nothing, and the byte draws on the buffer's device. `perturb_rows` perturbs
+a block of workers' buffers at once (the federated round's batched
+cohort), with the same draws made on the device for every row. With the checksum on,
 the receiver detects the damage and the payload decodes to an exact zero.
 """
 
@@ -67,6 +69,39 @@ class ChaosInjector:
         sel = stream.words(self._key(step, worker, salt, _SELECT), n, device) < stream.threshold(self.corrupt_frac)
         noise = 1 + stream.words(self._key(step, worker, salt, _NOISE), n, device) % 255
         return {"sel": sel, "noise": noise.to(torch.uint8)}
+
+    def perturb_rows(self, rows: torch.Tensor, *, step: int, workers: torch.Tensor, salt: int = 0) -> torch.Tensor:
+        """uint8[B, n] buffers of workers `workers` (int64[B] on their
+        device) perturbed at once: row b is `perturb(rows[b], step=step,
+        worker=workers[b], salt=salt)`, bit for bit, with the events and
+        the byte draws made on the device (no host sync, no per-row launch)."""
+        n = rows.shape[1]
+        if n == 0:
+            return rows
+        pre = stream.key(self.seed, CHAOS_TAG, salt, step)
+        # the key chain's last two words on the device: the worker, the sub-stream
+        kw = stream.fmix32_chain(pre, workers)
+
+        def sub_key(sub):
+            return stream.fmix32_chain(kw, sub)
+
+        def fires(sub, rate):
+            if rate <= 0.0:
+                return torch.zeros(rows.shape[0], dtype=torch.bool, device=rows.device)
+            return stream.words_at_keys(sub_key(sub), torch.zeros_like(workers)) < stream.threshold(rate)
+
+        pos = torch.arange(n, device=rows.device)
+        out = rows
+        if self.corrupt_rate > 0.0:
+            sel = stream.words_at_keys(sub_key(_SELECT)[:, None], pos[None, :]) < stream.threshold(self.corrupt_frac)
+            noise = (1 + stream.words_at_keys(sub_key(_NOISE)[:, None], pos[None, :]) % 255).to(torch.uint8)
+            out = torch.where(fires(_CORRUPT, self.corrupt_rate)[:, None] & sel, out ^ noise, out)
+        zero = torch.zeros((), dtype=rows.dtype, device=rows.device)
+        if self.truncate_rate > 0.0:
+            out = torch.where(fires(_TRUNCATE, self.truncate_rate)[:, None] & (pos >= n // 2)[None, :], zero, out)
+        if self.drop_rate > 0.0:
+            out = torch.where(fires(_DROP, self.drop_rate)[:, None], zero, out)
+        return out
 
     def perturb(self, buf: torch.Tensor, *, step: int, worker: int, salt: int = 0,
                 draws: Optional[Dict[str, object]] = None) -> torch.Tensor:

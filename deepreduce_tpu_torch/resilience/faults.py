@@ -13,7 +13,8 @@ are functions of host data every worker holds (the config, the step):
   counter-based stream keyed by (seed, tag 0x0FA17, step), never by the
   worker, so every worker derives the same mask without a collective.
 
-The mask is built on the device from those host flags without a copy.
+The mask is built on the device without a copy: the plan's flags filled in
+place, the dropout drawn there from the same stream.
 """
 
 from __future__ import annotations
@@ -102,7 +103,11 @@ def participation_mask(
     if fault_plan is not None:
         gone = FaultPlan.parse(fault_plan).dropped(step, W)
         live = [ok and w not in gone for w, ok in enumerate(live)]
-    if drop_rate > 0.0:
-        kept = dropout_live(W, step, seed, drop_rate) if draws is None else [bool(x) for x in draws]
-        live = [a and b for a, b in zip(live, kept)]
-    return live_mask(live, device)
+    if drop_rate > 0.0 and draws is not None:
+        live = [a and bool(b) for a, b in zip(live, draws)]
+    mask = live_mask(live, device)
+    if drop_rate > 0.0 and draws is None:
+        # `dropout_live`'s draws, made on the device: no per-worker launch
+        k = stream.key(seed, DROPOUT_TAG, step)
+        mask = mask & (stream.words(k, W, mask.device) < stream.threshold(1.0 - float(drop_rate)))
+    return mask

@@ -13,6 +13,8 @@ with them is the distribution, and the parity tests inject JAX's events.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from deepreduce_tpu_torch import u32
@@ -49,6 +51,46 @@ def words(k: int, n: int, device) -> torch.Tensor:
     the same values `word` gives."""
     i = torch.arange(n, dtype=torch.int64, device=device)
     return fmix32(fmix32(u32.mul_lo(i, _GOLDEN) ^ k))
+
+
+def fmix32_chain(h, word):
+    """One link of `key`'s chain, `fmix32(h ^ word)`, where `h` or `word`
+    (or both) may be int64 tensors: a key whose last words vary over a
+    tensor (one worker a row) is made on the device."""
+    if torch.is_tensor(h) or torch.is_tensor(word):
+        return fmix32((h ^ word) & _MASK32)
+    return _fmix32_int(h ^ (int(word) & _MASK32))
+
+
+def words_at_keys(k: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """The 32-bit words of the streams `k` (an int64 tensor of keys) at
+    `positions`, broadcast against each other: `words_at` with a key a row."""
+    return fmix32(fmix32(u32.mul_lo(positions, _GOLDEN) ^ k))
+
+
+def words_at(k: int, positions: torch.Tensor) -> torch.Tensor:
+    """The 32-bit words of stream `k` at the int64 `positions` (any shape),
+    on their device: `words` at arbitrary positions."""
+    return fmix32(fmix32(u32.mul_lo(positions, _GOLDEN) ^ k))
+
+
+def to_uniform(w: torch.Tensor) -> torch.Tensor:
+    """float32 uniforms in [0, 1) from 32-bit words: the top 24 bits, exact."""
+    return (w >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def uniforms(k: int, n: int, device) -> torch.Tensor:
+    """f32[n] uniforms in [0, 1) at positions 0..n-1 of stream `k`."""
+    return to_uniform(words(k, n, device))
+
+
+def normals(k: int, positions: torch.Tensor) -> torch.Tensor:
+    """float32 standard normals at the int64 `positions` of stream `k`
+    (Box-Muller over the words at 2p and 2p + 1), on their device."""
+    u1 = to_uniform(words_at(k, 2 * positions))
+    u2 = to_uniform(words_at(k, 2 * positions + 1))
+    r = torch.sqrt(-2.0 * torch.log1p(-u1))
+    return r * torch.cos((2.0 * math.pi) * u2)
 
 
 def threshold(p: float) -> int:

@@ -54,14 +54,14 @@ class SparseGrad:
         live = torch.arange(self.k, device=self.values.device) < self.nnz
         vals = torch.where(live, self.values, torch.zeros_like(self.values))
         idxs = torch.where(live, self.indices, torch.zeros_like(self.indices)).long()
-        dense = torch.zeros(self.dense_size, dtype=self.values.dtype, device=self.values.device)
-        return dense.index_add_(0, idxs, vals).reshape(self.shape)
+        dense = self.values.new_zeros(self.dense_size)
+        return dense.scatter_add_(0, idxs, vals).reshape(self.shape)
 
 
 def fit_length(vals: torch.Tensor, n: int) -> torch.Tensor:
     """Zero-pad or truncate a value table to exactly `n` slots."""
     if vals.shape[0] < n:
-        out = torch.zeros(n, dtype=vals.dtype, device=vals.device)
+        out = vals.new_zeros(n)
         out[: vals.shape[0]] = vals
         return out
     return vals[:n]
@@ -75,9 +75,7 @@ def scatter_ascending(
     budget = vals.shape[0]
     slots = torch.arange(budget, device=vals.device)
     tgt = torch.where(slots < nsel, pos.long(), d + slots)
-    out = torch.zeros(d + budget, dtype=vals.dtype, device=vals.device)
-    out[tgt] = vals
-    return out[:d]
+    return vals.new_zeros(d + budget).scatter(0, tgt, vals)[:d]
 
 
 def num_slots(dense_size: int, compress_ratio: float) -> int:
@@ -321,15 +319,15 @@ def _prefix_positions(mask: torch.Tensor, budget: int) -> Tuple[torch.Tensor, to
     d = mask.shape[0]
     dev = mask.device
     g_count = (d + 31) // 32
-    padded = torch.zeros(g_count * 32, dtype=torch.int64, device=dev)
+    padded = mask.new_zeros(g_count * 32, dtype=torch.int64)
     padded[:d] = mask.to(torch.int64)
     hw = (padded.view(g_count, 32) << torch.arange(32, device=dev)).sum(dim=1)
     cnt = u32.popcount(hw)
     cs = torch.cumsum(cnt, 0)
     p_ex = cs - cnt
     count = torch.clamp(cs[-1], max=budget)
-    markers = torch.zeros(budget + 1, dtype=torch.int64, device=dev)
-    markers.index_add_(0, torch.clamp(p_ex, max=budget), torch.ones_like(p_ex))
+    markers = mask.new_zeros(budget + 1, dtype=torch.int64)
+    markers.scatter_add_(0, torch.clamp(p_ex, max=budget), torch.ones_like(p_ex))
     g_of_s = torch.clamp(torch.cumsum(markers, 0)[:budget] - 1, 0, g_count - 1)
     t = torch.arange(budget, device=dev) - p_ex[g_of_s]
     b = _select_bit(hw[g_of_s], t)

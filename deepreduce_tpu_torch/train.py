@@ -36,7 +36,7 @@ from torch import nn
 from deepreduce_tpu_torch.collectives import collectives_for, split_group
 from deepreduce_tpu_torch.comm import GradientExchanger
 from deepreduce_tpu_torch.comm_stream import StreamingExchange
-from deepreduce_tpu_torch.config import DeepReduceConfig
+from deepreduce_tpu_torch.config import ConfigError, DeepReduceConfig
 from deepreduce_tpu_torch.device import DeviceLike, resolve_device
 from deepreduce_tpu_torch.exchange import build_exchanger, wrap_streaming
 from deepreduce_tpu_torch.metrics import WireStats
@@ -96,6 +96,13 @@ class Trainer:
         group: Optional[dist.ProcessGroup] = None,
         loss_fn: Optional[Callable] = None,
     ):
+        if cfg.fed:
+            raise ConfigError(
+                "fed-vs-trainer",
+                "fed=True configures the federated simulation (deepreduce_tpu_torch.fedsim); the Trainer runs the "
+                "data-parallel gradient exchange and would silently ignore every fed_* knob — build a FedSim (or "
+                "drop fed=True)",
+            )
         self.device = resolve_device(device)
         self.model = model.to(self.device).train()
         self.cfg = cfg

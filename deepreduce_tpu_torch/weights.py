@@ -12,6 +12,11 @@ contracted as they are, so nothing is transposed on the way.
 ResNet-50, DenseNet-40, VGG16, BERT). Tests use this so that both packages
 compute the same function; a model's `load_flax_params` checks the name
 set and every shape.
+
+The federated simulation's state carries over too: `fedsim_state_from_jax`
+and `multitenant_state_from_jax` turn a JAX `FedSimState` (with its
+`AsyncBuffer` and class ids) or `MultiTenantState`, given as numpy arrays,
+into the port's, a worker's stratum of the residual bank included.
 """
 
 from __future__ import annotations
@@ -60,3 +65,68 @@ def params_from_flax(tree: Any) -> Dict[str, torch.Tensor]:
     """The nested flax `params` dict of MobileNetV1 or NeuMF (or any model of
     the port) -> name -> float32 CPU tensor for its `load_flax_params`."""
     return params_from_jax(flatten_flax(tree))
+
+
+def _tree(tree: Any) -> Dict[str, torch.Tensor]:
+    return {n: torch.from_numpy(np.array(a)) for n, a in flatten_flax(tree).items()}
+
+
+def _buffer_from_jax(buf: Any):
+    from deepreduce_tpu_torch.fedsim.sim import AsyncBuffer
+
+    def scalar(x, dtype=torch.float32):
+        return torch.from_numpy(np.array(x)).to(dtype)
+
+    return AsyncBuffer(
+        delta_sum=_tree(buf.delta_sum),
+        weight=scalar(buf.weight), count=scalar(buf.count), k=scalar(buf.k),
+        version=scalar(buf.version, torch.int64),
+        hist=None if buf.hist is None else _tree(buf.hist),
+        stale_sum=scalar(buf.stale_sum), stale_max=scalar(buf.stale_max), pending=scalar(buf.pending),
+    )
+
+
+def fedsim_state_from_jax(state: Any, *, num_workers: int = 1, rank: int = 0):
+    """A JAX `FedSimState` (its leaves as numpy arrays, e.g. after
+    `jax.device_get`) -> the port's `fedsim.FedSimState` of worker `rank`
+    of `num_workers` on the CPU: params, w_ref, the worker's stratum of the
+    residual bank and of the class ids, the async buffer, the round. The
+    JAX package's telemetry accumulators have no counterpart yet and are
+    dropped."""
+    from deepreduce_tpu_torch.fedsim.sim import FedSimState
+
+    def stratum(x):
+        n = x.shape[0] // num_workers
+        return x[rank * n : (rank + 1) * n].clone()
+
+    bank = None if state.residuals is None else {n: stratum(t) for n, t in _tree(state.residuals).items()}
+    classes = None
+    if state.classes is not None:
+        classes = stratum(torch.from_numpy(np.array(state.classes)).to(torch.int32))
+    return FedSimState(
+        params=_tree(state.params), w_ref=_tree(state.w_ref), residuals=bank, round=int(np.asarray(state.round)),
+        buffer=None if state.buffer is None else _buffer_from_jax(state.buffer), classes=classes,
+    )
+
+
+def multitenant_state_from_jax(state: Any, *, num_workers: int = 1, rank: int = 0):
+    """A JAX `MultiTenantState` (numpy leaves) -> the port's
+    `fedsim.MultiTenantState` of worker `rank` on the CPU: every stacked
+    [T, ...] tensor, the bank's client dimension cut to the worker's
+    stratum, the per-tenant knobs and counters as host values."""
+    from deepreduce_tpu_torch.fedsim.sim import MultiTenantState
+
+    def stratum(x):
+        n = x.shape[1] // num_workers
+        return x[:, rank * n : (rank + 1) * n].clone()
+
+    bank = None if state.residuals is None else {n: stratum(t) for n, t in _tree(state.residuals).items()}
+    host = lambda x: None if x is None else tuple(np.asarray(x).tolist())  # noqa: E731
+    latency = None if state.latency is None else tuple(tuple(r) for r in np.asarray(state.latency).tolist())
+    return MultiTenantState(
+        params=_tree(state.params), w_ref=_tree(state.w_ref), residuals=bank,
+        round=tuple(int(r) for r in np.asarray(state.round)),
+        buffer=None if state.buffer is None else _buffer_from_jax(state.buffer),
+        active=tuple(bool(a) for a in np.asarray(state.active)), alpha=host(state.alpha), latency=latency,
+        cohort=host(state.cohort), tick=int(np.asarray(state.tick)),
+    )

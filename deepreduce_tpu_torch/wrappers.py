@@ -321,10 +321,13 @@ class TensorCodec:
         """True when a codec of this tensor runs on the host."""
         return any(c is not None and c.host for c in (self.idx_codec, self.val_codec))
 
-    def decode(self, payload: Any, *, step: int = 0, host_payload: Any = None) -> torch.Tensor:
+    def decode(
+        self, payload: Any, *, step: int = 0, host_payload: Any = None, values: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
         """payload -> dense tensor. `host_payload`: the same payload with its
         leaves on the host, read by a host codec's decode (None: it copies
-        what it reads)."""
+        what it reads). `values`: the QSGD rows' `qsgd.decode_values`, when
+        the caller decoded them (the batched cohort does, outside vmap)."""
         if self.dense_fallback:
             return payload.tensor.reshape(self.shape)
         if not self.compressed:
@@ -333,6 +336,11 @@ class TensorCodec:
         def host_kw(codec, part):
             return {"host_payload": part} if codec.host else {}
 
+        if values is not None:
+            if self.rows_leaf is None:
+                raise ValueError("values= carries decoded QSGD rows; this tensor's value codec is not QSGD")
+            if self.idx_codec is None:
+                return qsgd.decode(payload, self.val_codec.meta, self.shape, values=values).to_dense()
         if self.idx_codec is None:
             return self.val_codec.decode(payload, self.shape, **host_kw(self.val_codec, host_payload)).to_dense()
         if self.val_codec is None:
@@ -345,7 +353,10 @@ class TensorCodec:
         vpay = self.val_codec.restore_for_both(payload.value_payload, mapping)
         host_parts = (None, None) if host_payload is None else (host_payload.index_payload, host_payload.value_payload)
         # values in the codec's order
-        vsp = self.val_codec.decode(vpay, self.shape, **host_kw(self.val_codec, host_parts[1]))
+        if values is not None:
+            vsp = qsgd.decode(vpay, self.val_codec.meta, self.shape, values=values)
+        else:
+            vsp = self.val_codec.decode(vpay, self.shape, **host_kw(self.val_codec, host_parts[1]))
         if not self.idx_codec.decodes_dense:
             # the selection list in slot order, paired with the codec's order
             # through its indices (the JAX package's generic 'both' decode)

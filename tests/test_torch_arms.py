@@ -17,7 +17,7 @@ import torch
 import torch.multiprocessing as mp
 from conftest import shared_mesh
 from jax.sharding import PartitionSpec as P
-from test_torch_slice import _assert_same_wire, _grad_tree, _jax_flat_params, _jax_uniforms, _t
+from test_torch_slice import _assert_same_wire, _grad_tree, _jax_flat_params, _jax_uniforms, _t, jax_trainer_state
 
 from deepreduce_tpu import sparse as jsparse
 from deepreduce_tpu.codecs import bloom as jbloom
@@ -540,7 +540,7 @@ def test_two_step_wordlstm_trainer_matches_jax(arm):
 
     jtr = JTrainer(JWordLSTM(vocab_size=vocab, embed_dim=embed, hidden_dim=hidden), jcfg,
                    optax.sgd(lr, momentum=mom), shared_mesh(1))
-    jstate = jtr.init_state(jax.random.PRNGKey(0), batches[0])
+    jstate = jax_trainer_state(jtr, jax.random.PRNGKey(0), batches[0], shared_mesh(1))
     flat0 = _jax_flat_params(jstate.params)
     tmodel = WordLSTM(vocab, embed, hidden)
     tmodel.load_flax_params(params_from_jax(flat0))

@@ -747,3 +747,80 @@ def test_hierarchical_exchange_card_equals_cpu(cuda, arm):
         for n in shapes:
             assert torch.equal(gagg[n].cpu(), cagg[n]) and torch.equal(gres[n].cpu(), cres[n]), (r, n)
             assert torch.equal(gagg[n], out["cuda"][r - r % P][0][n]), (r, n)
+
+
+def _qsgd_tree(n_leaves, seed):
+    """A tree of `n_leaves` QSGD leaves under DRQSGD-BF-P0 (FedAvg's knobs)."""
+    from deepreduce_tpu_torch import DeepReduceConfig
+
+    cfg = DeepReduceConfig(compressor="topk", compress_ratio=0.1, deepreduce="both", index="bloom", value="qsgd",
+                           policy="p0", fpr=0.02, bloom_blocked="mod", memory="residual", min_compress_size=500,
+                           seed=seed)
+    gen = torch.Generator().manual_seed(seed)
+    shapes = {f"Block_{i}/kernel": (600 + 97 * (i % 11),) for i in range(n_leaves)}
+    return cfg, shapes, gen
+
+
+@pytest.mark.parametrize("n_leaves,clients,launches", [(57, 2, 1), (57, 4, 2), (3, 8, 1)])
+def test_grouped_cross_client_encode_equals_per_client_launches_and_plain(cuda, n_leaves, clients, launches):
+    """A block of clients' QSGD segments in one call (ceil(B S / 128)
+    launches): bitwise each client's own one-launch encode of its tree, and
+    the plain version's rows on the same values."""
+    from deepreduce_tpu_torch.fedsim import TreeCodec
+    from deepreduce_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    cfg, shapes, gen = _qsgd_tree(n_leaves, 7)
+    tree = {n: torch.randn((clients,) + s, generator=gen) for n, s in shapes.items()}
+    tc, tc_cpu = TreeCodec("c2s", cfg, device="cuda"), TreeCodec("c2s", cfg, device="cpu")
+    workers = list(range(3, 3 + clients))
+    reset_launch_counts()
+    parts, _, spec, segs = tc.encode_batched({n: t.cuda() for n, t in tree.items()}, None, step=5, workers=workers)
+    torch.cuda.synchronize()
+    assert launch_counts()["qsgd_encode_rows"] == launches and len(segs) == clients * n_leaves
+    cparts, _, _, _ = tc_cpu.encode_batched(tree, None, step=5, workers=workers)
+    for c, w in enumerate(workers):
+        single, _, _ = tc.encode_tree({n: t[c].cuda() for n, t in tree.items()}, None, step=5, worker=w)
+        for i, p in enumerate(single):
+            leaves = p.leaves()
+            for j, leaf in enumerate(leaves):
+                assert torch.equal(parts[i][j][c], leaf), (c, i, j)
+                assert torch.equal(parts[i][j][c].cpu(), cparts[i][j][c]), (c, i, j)
+
+
+def test_fedsim_round_card_equals_cpu(cuda):
+    """Two batched DRQSGD rounds of the linear problem under churn and chaos
+    with checksums: the card's state and metrics within 1e-5 of the CPU's
+    on the same draws. The batches are made on the CPU for both and local
+    training runs in float64 (rounded to float32), so that no top-k near-tie
+    is decided by a last bit the two devices' float32 sums differ in."""
+    from torch.utils._pytree import tree_map
+
+    from deepreduce_tpu_torch import DeepReduceConfig
+    from deepreduce_tpu_torch.fedsim import FedSim, synthetic_linear_problem
+
+    knobs = dict(compressor="topk", compress_ratio=0.25, deepreduce="both", index="bloom", value="qsgd",
+                 policy="p0", bloom_blocked="mod", memory="residual", min_compress_size=8, fed=True,
+                 fed_num_clients=64, fed_clients_per_round=8, fed_local_steps=2, resilience=True,
+                 fault_plan="3@1", drop_rate=0.05, payload_checksum=True, chaos_corrupt_rate=0.2)
+    cfg = DeepReduceConfig(**knobs)
+    p0, data_cpu, loss_fn = synthetic_linear_problem(600, 4, 2, device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        data = lambda gids, rnd, key, dev=dev: tuple(t.to(dev) for t in data_cpu(gids.cpu(), rnd, key))
+        sim = FedSim(loss_fn, cfg, cfg.fed_config(), 0.1, data, client_chunk=4, device=dev)
+
+        def train64(ref, batches, train=sim._local_train):
+            out64 = train({n: r.double() for n, r in ref.items()}, tree_map(lambda t: t.double(), batches))
+            return {n: p.float() for n, p in out64.items()}
+
+        sim._local_train = train64
+        st = sim.init({n: p.to(dev) for n, p in p0.items()})
+        for r in range(2):
+            st, m = sim.step(st, r)
+        out[dev] = (st, m)
+    (cs, cm), (gs, gm) = out["cpu"], out["cuda"]
+    for n in cs.params:
+        torch.testing.assert_close(gs.params[n].cpu(), cs.params[n], rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(gs.residuals[n].cpu(), cs.residuals[n], rtol=1e-5, atol=1e-6)
+    for k in cm:
+        torch.testing.assert_close(gm[k].cpu(), cm[k], rtol=1e-5, atol=1e-6)

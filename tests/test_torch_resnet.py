@@ -21,7 +21,7 @@ import pytest
 import torch
 import torch.multiprocessing as mp
 from conftest import shared_mesh
-from test_torch_slice import _jax_flat_params, _jax_uniforms, _t
+from test_torch_slice import _jax_flat_params, _jax_uniforms, _t, jax_trainer_state, jit_init
 
 import flax.linen as fnn
 from deepreduce_tpu.comm import GradientExchanger as JExchanger
@@ -176,8 +176,8 @@ def test_two_step_resnet20_trainer_matches_jax(arm):
     knobs = {**QUICKSTART, **ARMS[arm], "seed": 3}
     jcfg, tcfg = JConfig(**knobs), port.DeepReduceConfig(**knobs)
     batches = _batches(2, seed=8)
-    jtr = JTrainer(JResNet20(), jcfg, optax.sgd(LR, momentum=MOMENTUM), shared_mesh(1))
-    jstate = jtr.init_state(jax.random.PRNGKey(0), batches[0])
+    jtr = JTrainer(jit_init(JResNet20()), jcfg, optax.sgd(LR, momentum=MOMENTUM), shared_mesh(1))
+    jstate = jax_trainer_state(jtr, jax.random.PRNGKey(0), batches[0], shared_mesh(1))
     ttr = port.Trainer(_port_model(jstate.params, jstate.batch_stats), tcfg, lr=LR, momentum=MOMENTUM, device="cpu")
     tstate = ttr.init_state()
     assert sorted(tstate.batch_stats) == list(_jax_flat_params(jstate.batch_stats))

@@ -22,7 +22,7 @@ import torch
 from conftest import shared_mesh
 from jax.sharding import PartitionSpec as P
 from test_torch_qar import QAR
-from test_torch_slice import _jax_flat_params, _t
+from test_torch_slice import _jax_flat_params, _t, jax_trainer_state
 
 from deepreduce_tpu import costmodel as jcostmodel
 from deepreduce_tpu import sparse as jsparse
@@ -374,7 +374,7 @@ def test_two_step_wordlstm_trainer_matches_jax(route):
     batches = [(tokens[i, :, :-1], tokens[i, :, 1:]) for i in range(2)]
     jtr = JTrainer(JWordLSTM(vocab_size=VOCAB, embed_dim=EMBED, hidden_dim=HIDDEN), jcfg,
                    optax.sgd(LR, momentum=MOMENTUM), shared_mesh(1))
-    jstate = jtr.init_state(jax.random.PRNGKey(0), batches[0])
+    jstate = jax_trainer_state(jtr, jax.random.PRNGKey(0), batches[0], shared_mesh(1))
     tmodel = WordLSTM(VOCAB, EMBED, HIDDEN)
     tmodel.load_flax_params(params_from_jax(_jax_flat_params(jstate.params)))
     ttr = port.Trainer(tmodel, tcfg, lr=LR, momentum=MOMENTUM, device="cpu")

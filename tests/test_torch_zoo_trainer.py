@@ -10,7 +10,7 @@ import optax
 import pytest
 from conftest import shared_mesh
 from test_torch_codecs_zoo import _cfgs, _jax_uniforms
-from test_torch_slice import _jax_flat_params, _t
+from test_torch_slice import _jax_flat_params, _t, jax_trainer_state
 
 from deepreduce_tpu.models.lstm import WordLSTM as JWordLSTM
 from deepreduce_tpu.sparse import per_tensor_key
@@ -32,7 +32,7 @@ def test_two_step_wordlstm_trainer_matches_jax(arm):
     batches = [(tokens[i, :, :-1], tokens[i, :, 1:]) for i in range(2)]
     jtr = JTrainer(JWordLSTM(vocab_size=vocab, embed_dim=embed, hidden_dim=hidden), jcfg,
                    optax.sgd(lr, momentum=mom), shared_mesh(1))
-    jstate = jtr.init_state(jax.random.PRNGKey(0), batches[0])
+    jstate = jax_trainer_state(jtr, jax.random.PRNGKey(0), batches[0], shared_mesh(1))
     flat0 = _jax_flat_params(jstate.params)
     tmodel = WordLSTM(vocab, embed, hidden)
     tmodel.load_flax_params(params_from_jax(flat0))

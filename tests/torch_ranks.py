@@ -79,3 +79,42 @@ def run_trainer_rank(rank: int, world: int, store_path: str, out_path: str, knob
         torch.save(out, out_path)
     finally:
         dist.destroy_process_group()
+
+
+def run_fedsim_rank(rank: int, world: int, store_path: str, out_path: str, knobs, rounds: int, tables) -> None:
+    """`rounds` rounds of `fedsim.FedSim` on the linear problem (dimension
+    16, batch 4) over a gloo group, drawing the given draws: `tables` holds
+    the cohort by (round, worker), the churn flags and the chaos draws by
+    round, and each sampled client's batch by (round, global id). Saves this
+    rank's final state (params, its stratum of the bank), the rounds'
+    metrics and the counted all_reduce calls."""
+    from deepreduce_tpu_torch import collectives
+    from deepreduce_tpu_torch.fedsim import FedDraws, FedSim
+
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world), rank=rank, world_size=world)
+    try:
+        cfg = port.DeepReduceConfig(**knobs)
+
+        def data_fn(gids, rnd, key):
+            xs, ys = zip(*(tables["batches"][rnd, g] for g in gids.tolist()))
+            return torch.stack(xs), torch.stack(ys)
+
+        def loss_fn(p, b):
+            x, y = b
+            return torch.mean((x @ p["w"] + p["b"] - y) ** 2)
+
+        draws = FedDraws(cohort=lambda r, w, t: tables["cohort"][r, w],
+                         participation=lambda r, t: tables["participation"][r],
+                         chaos=lambda r, t: tables["chaos"][r])
+        sim = FedSim(loss_fn, cfg, cfg.fed_config(), 0.1, data_fn, group=dist.group.WORLD, client_chunk=2,
+                     draws=draws, device="cpu")
+        state = sim.init({"b": torch.zeros(()), "w": torch.zeros(16)})
+        collectives.reset_reduce_counts()
+        metrics = []
+        for r in range(rounds):
+            state, m = sim.step(state, r)
+            metrics.append(m)
+        torch.save(({"params": state.params, "residuals": state.residuals}, metrics, collectives.reduce_counts()),
+                   out_path)
+    finally:
+        dist.destroy_process_group()
