@@ -197,8 +197,8 @@ Phases, one line each; any failure raises and exits non-zero:
      live count 3, failures) and one exchange of full-width gradients with
      loop card = CPU bitwise (failures, the masked mean over 3 live), vmap
      bitwise loop and ring within its reordering bound; and
-     `python -m deepreduce_tpu_torch.resilience check` (8 in-process
-     workers on the card) with its four checks true. No hop or gather
+     `python -m deepreduce_tpu_torch.resilience check --steps 12` (8
+     in-process workers on the card) with its four checks true. No hop or gather
      crosses between cards: one card.
  17. the sparse_rs sketch and auto routes and the two-tier exchange on the
      full-width WordLSTM: at W = 1 through the same NCCL group, 3 steps an
@@ -237,6 +237,30 @@ Phases, one line each; any failure raises and exits non-zero:
      and on the same client updates), the grouped cross-client encode
      bitwise its plain version and its per-client launches, and the device
      launches of a profiled tick or block.
+ 19. telemetry, the adaptive controller and the calibrated cost model through
+     the same NCCL group: `telemetry_flagship` (DRQSGD-BF-P0 on the full-width
+     WordLSTM from phase 5's weights, telemetry every 3 steps, 9 steps, spans
+     on) against the same 9 steps with telemetry off: 0 host syncs a step,
+     one device-to-host copy a fetch, one qsgd_encode_rows launch a step in
+     both, the device launches a step of one profiled step of each, the
+     accumulator's steps, wire bits and saturations equal to the float32 sums
+     of the steps' WireStats bitwise, step 5's rel_volume phase 5's, the first
+     step's err_cos / err_l2 card vs CPU within ERR19_ATOL; `ctrl_flagship`
+     (the controller on the ladder 0.05 / 0.1 / 0.2, hysteresis 1, its band
+     set from the first window's err_cos so that the first decision moves up,
+     written as a tracking run with trace.json and decisions.jsonl): a valid
+     trail with a switch, exchangers built == rungs visited, each rung's
+     payload bytes the JAX package's (`CTRL19_PAYLOAD`) and its table bitwise
+     its plain version, one launch a step on every rung, a checkpoint after
+     step 6 restored into a fresh trainer and replayed: trail and parameters
+     bitwise; `tracked_run` (the telemetry CLI's summary, trace and calibrate
+     over that run's directory in subprocesses; the fitted profile valid;
+     `apply_profile` of the static profile a no-op on an rs_mode='auto'
+     trainer, of the fitted one a record with exchangers built == plans
+     visited, then a step); `fedsim_telemetry_*` (phase 18's four linear arms
+     with telemetry at 1/8 size, 2 ticks: 0 host syncs, one all_reduce a
+     tick at the byte law, the accumulator's rows, per tenant, equal to the
+     tick reports, the summary carrying the JAX package's telemetry keys).
 `--profile` adds one profiled training step after phase 5, after each arm
 of phases 7, 8, 9, 10, 11, 14 and 15, and one profiled round after each arm
 of phase 12: the device's busy and idle share over the step or round, its
@@ -2937,10 +2961,12 @@ def phase_resilience(seed: int, tokens, group, ref_loss: float):
     arms.update(_inproc16(seed, tokens3))
     extras["inproc_exchange"] = _inproc_exchange16(seed)
     print("phase 16 ok: inproc_exchange " + json.dumps(extras["inproc_exchange"]), flush=True)
-    # the CLI, as a user runs it: 8 in-process workers on the card
+    # the CLI, as a user runs it: 8 in-process workers on the card, for 12
+    # steps (its fault plan drops worker 2 in steps 5 to 8; the default 24
+    # took 95-141 s of the script's time limit)
     t0 = time.perf_counter()
-    cli = sp.run([sys.executable, "-m", "deepreduce_tpu_torch.resilience", "check"], capture_output=True, text=True,
-                 timeout=900, cwd=os.path.dirname(os.path.abspath(__file__)))
+    cli = sp.run([sys.executable, "-m", "deepreduce_tpu_torch.resilience", "check", "--steps", "12"],
+                 capture_output=True, text=True, timeout=900, cwd=os.path.dirname(os.path.abspath(__file__)))
     _check(cli.returncode == 0, f"resilience check exited {cli.returncode}: {cli.stdout[-2000:]} {cli.stderr[-2000:]}")
     report = json.loads(cli.stdout)
     _check(report["ok"] and all(report["checks"].values()) and report["device"].startswith("cuda"),
@@ -3993,8 +4019,455 @@ def phase_fedsim(seed: int, group) -> dict:
     return results
 
 
+# -- phase 19: telemetry, the adaptive controller, the calibrated cost model -- #
+
+TELE19_EVERY = 3  # the accumulators' fetch cadence (telemetry_every)
+TELE19_STEPS = 9
+CTRL19_LADDER = "0.05,0.1,0.2"  # around the flagship's ratio 0.1
+# the JAX package's payload_bytes of each rung's flagship config on the
+# full-width WordLSTM (`test_phase19_rung_payload_bytes_match_jax`)
+CTRL19_PAYLOAD = {0.05: 638_072, 0.1: 1_189_616, 0.2: 2_286_400}
+CTRL19_CKPT_AT = 6  # the ctrl run checkpoints after this step and replays the rest
+# the first step's err_cos / err_l2 on the card against the CPU: the two
+# gradients differ in their last bits (cuBLAS against the CPU's BLAS), and
+# top-k may then take another entry at a near-tie; both errors are O(1)
+ERR19_ATOL = 1e-3
+# step 5's rel_volume against phase 5's last step's: the same weights,
+# batches and config, one float32 ratio each
+REL19_RTOL = 1e-6
+FED19_TICKS = 2
+
+
+def _f32_running(values) -> float:
+    """The float32 running sum of `values` from 0, as the accumulator adds."""
+    import numpy as np
+
+    acc = np.float32(0.0)
+    for v in values:
+        acc = np.float32(acc + np.float32(v))
+    return float(acc)
+
+
+def _telemetry_flagship(seed: int, tokens, group, phase5: dict) -> dict:
+    """DRQSGD-BF-P0 with telemetry off (phase 5's config) and on, from the
+    same weights and batches: launches, host syncs, the counters against
+    the per-step WireStats, and the first step's errors card vs CPU."""
+    import torch
+
+    from deepreduce_tpu_torch import Trainer
+    from deepreduce_tpu_torch.models import WordLSTM
+    from deepreduce_tpu_torch.ops import launch_counts, reset_launch_counts
+    from deepreduce_tpu_torch.telemetry import spans
+
+    tok = tokens.cuda()
+    batches = lambda i: (tok[i, :, :-1], tok[i, :, 1:])  # noqa: E731
+    steps = TELE19_STEPS
+    expected = {"qsgd_quantize": 0, "qsgd_encode_rows": steps}
+
+    off = Trainer(WordLSTM(seed=seed), _flagship_cfg(seed), lr=0.1, momentum=0.9, device="cuda", group=group)
+    st_off = off.init_state()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    st_off, losses_off, dev_off, _, _, syncs_off = _run_steps(off, st_off, batches, steps)
+    launches_off = launch_counts()
+    _check(launches_off == expected, f"telemetry off: launches {launches_off}, expected {expected}")
+    _check(not any(syncs_off), f"telemetry off: host syncs in the step: {syncs_off}")
+
+    spans.configure(enabled=True, reset=True)
+    cfg = _flagship_cfg(seed, telemetry=True, telemetry_every=TELE19_EVERY)
+    on = Trainer(WordLSTM(seed=seed), cfg, lr=0.1, momentum=0.9, device="cuda", group=group)
+    st = on.init_state()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    losses, dev_ms, syncs, wires, fetch_syncs, windows = [], [], [], [], [], []
+    first_acc = None
+    for i in range(steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        st, loss, wire, s = _step_counting_syncs(on, st, batches(i))
+        end.record()
+        end.synchronize()
+        dev_ms.append(start.elapsed_time(end))
+        syncs.append(s)
+        wires.append(wire)
+        losses.append(float(loss))
+        if i == 0:
+            first_acc = on.telemetry  # the accumulator is never written in place
+        if (i + 1) % TELE19_EVERY == 0:
+            summ, fs = _counting_syncs(on.telemetry_summary)
+            fetch_syncs.append(fs)
+            windows.append(summ)
+    launches = launch_counts()
+    span_events = len(spans.get_tracer().events)
+    spans.configure(enabled=False, reset=True)
+    _check(launches == expected, f"telemetry on: launches {launches}, expected {expected}")
+    _check(not any(syncs), f"telemetry on: host syncs in the step: {syncs}")
+    _check(all(len(fs) == 1 for fs in fetch_syncs), f"a fetch made {[len(fs) for fs in fetch_syncs]} host copies")
+    _check(losses[0] == losses_off[0], f"telemetry changed the first loss: {losses[0]} vs {losses_off[0]}")
+
+    vals = on.telemetry.fetch()
+    sums = {f: _f32_running(float(getattr(w, f)) for w in wires)
+            for f in ("index_bits", "value_bits", "dense_bits", "saturated")}
+    _check(vals["steps"] == float(steps), f"accumulated steps {vals['steps']}")
+    for f, v in sums.items():
+        _check(vals[f] == v, f"accumulated {f} {vals[f]} != the float32 sum of the steps' WireStats {v}")
+    derived = on.telemetry.derive(vals)
+    # the same trajectory as phase 5's: its last step's rel_volume again
+    rel5, n5 = phase5["rel_volume"], phase5["steps"]
+    rel_step = float(wires[n5 - 1].rel_volume())
+    _check(abs(rel_step - rel5) <= REL19_RTOL * rel5, f"step {n5}'s rel_volume {rel_step} vs phase 5's {rel5}")
+
+    # the first step on the CPU from the same weights and batch
+    cpu = Trainer(WordLSTM(seed=seed), cfg, lr=0.1, momentum=0.9, device="cpu")
+    st_cpu = cpu.init_state()
+    cpu.step(st_cpu, (tokens[0, :, :-1], tokens[0, :, 1:]))
+    card0, cpu0 = first_acc.fetch(), cpu.telemetry.fetch()
+    err_diff = {k: abs(card0[k] - cpu0[k]) for k in ("err_cos", "err_l2")}
+    _check(all(d <= ERR19_ATOL for d in err_diff.values()),
+           f"first step card vs CPU: {({k: (card0[k], cpu0[k]) for k in err_diff})}, atol {ERR19_ATOL}")
+    turns = _telemetry_turns(off, st_off, on, st, batches)
+    res = {
+        "steps": steps, "telemetry_every": TELE19_EVERY, "launches": launches, "launches_off": launches_off,
+        "launches_per_step_phase5": {k: v / phase5["steps"] for k, v in phase5["launches"].items()},
+        "step_ms_in_turns": turns,
+        "host_syncs_per_step": [len(s) for s in syncs], "host_copies_per_fetch": [len(f) for f in fetch_syncs],
+        "step_ms_median": {"off": statistics.median(dev_off[1:]), "on": statistics.median(dev_ms[1:])},
+        "step_ms_all": {"off": dev_off, "on": dev_ms}, "counters_bitwise": sorted(sums) + ["steps"],
+        "rel_volume": derived["rel_volume"], f"rel_volume_step{n5}": rel_step, "rel_volume_phase5": rel5,
+        "measured_fpr": derived["measured_fpr"],
+        "window_err_cos": [w["window_compress_err_cos"] for w in windows],
+        "window_err_l2": [w["window_compress_err_l2"] for w in windows],
+        "residual_l2_per_step": derived["residual_l2_per_step"],
+        "first_step": {"card": {k: card0[k] for k in err_diff}, "cpu": {k: cpu0[k] for k in err_diff},
+                       "abs_diff": err_diff, "atol": ERR19_ATOL},
+        "span_events": span_events,
+    }
+
+    def profile() -> dict:
+        """One profiled step of each trainer: device launches and busy ms
+        (run last: after a profile the host's launches slow down)."""
+        p_off = _profile_step(lambda: off.step(st_off, batches(0)))
+        p_on = _profile_step(lambda: on.step(st, batches(0)))
+        return {"device_launches_per_step": {"off": p_off["kernel_launches"], "on": p_on["kernel_launches"],
+                                             "added": p_on["kernel_launches"] - p_off["kernel_launches"]},
+                "device_busy_ms": {"off": p_off["device_busy_ms"], "on": p_on["device_busy_ms"]},
+                "device_idle_share": {"off": p_off["device_idle_share"], "on": p_on["device_idle_share"]}}
+
+    return res, profile
+
+
+def _telemetry_turns(off, st_off, on, st_on, batches, rounds: int = 4) -> dict:
+    """Step times (CUDA events) of the telemetry-off trainer, the
+    telemetry-on one and the latter with spans on, in turns (off, on,
+    spans, then the reverse, `rounds` times, two steps each): medians in
+    ms. The trainers' counts and states are not checked after this."""
+    import torch
+
+    from deepreduce_tpu_torch.telemetry import spans
+
+    times = {"off": [], "on": [], "on_spans": []}
+    states = {"off": st_off, "on": st_on}
+    order = ["off", "on", "on_spans"]
+    for r in range(rounds):
+        for mode in order if r % 2 == 0 else order[::-1]:
+            tr, key = (off, "off") if mode == "off" else (on, "on")
+            spans.configure(enabled=mode == "on_spans", reset=True)
+            for i in range(2):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                states[key], _, _ = tr.step(states[key], batches(i))
+                end.record()
+                end.synchronize()
+                times[mode].append(start.elapsed_time(end))
+    spans.configure(enabled=False, reset=True)
+    return {m: statistics.median(t) for m, t in times.items()}
+
+
+def _ctrl_flagship(seed: int, tokens, group, err_cos: float, root: str) -> dict:
+    """The flagship under the controller on CTRL19_LADDER, its band set so
+    that the first window votes up, written as a tracking run (metrics,
+    trace.json, decisions.jsonl); a checkpoint after CTRL19_CKPT_AT steps
+    restored into a fresh trainer and replayed."""
+    import dataclasses
+
+    import torch
+
+    from deepreduce_tpu_torch import Trainer, checkpoint, tracking
+    from deepreduce_tpu_torch.controller import DecisionLog, validate_decision
+    from deepreduce_tpu_torch.models import WordLSTM
+    from deepreduce_tpu_torch.ops import launch_counts, reset_launch_counts
+    from deepreduce_tpu_torch.telemetry import spans
+
+    tok = tokens.cuda()
+    batches = lambda i: (tok[i, :, :-1], tok[i, :, 1:])  # noqa: E731
+    steps = TELE19_STEPS
+    target = min(1.0, err_cos + 0.05)
+    cfg = _flagship_cfg(seed, telemetry=True, telemetry_every=TELE19_EVERY, ctrl=True, ctrl_ladder=CTRL19_LADDER,
+                        ctrl_hysteresis=1, ctrl_target_err_cos=target, ctrl_headroom=0.02)
+    run = tracking.Run(root, name="ctrl_flagship", tags=["chip_smoke", "phase19"],
+                       config={"workers": 1, "model": "WordLSTM", **dataclasses.asdict(cfg)})
+    spans.configure(enabled=True, reset=True)
+    trainer = Trainer(WordLSTM(seed=seed), cfg, lr=0.1, momentum=0.9, device="cuda", group=group)
+    trainer.attach_decision_log(run.dir / "decisions.jsonl")
+    st = trainer.init_state()
+    ckpt = os.path.join(root, "ctrl.pt")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    per_step, rungs, syncs, losses, dev_ms = [], [], [], [], []
+    for i in range(steps):
+        before = launch_counts()["qsgd_encode_rows"]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        with spans.span("train/step"):
+            (st, loss, wire), s = _counting_syncs(lambda: trainer.step(st, batches(i)))
+        end.record()
+        end.synchronize()
+        dev_ms.append(start.elapsed_time(end))
+        per_step.append(launch_counts()["qsgd_encode_rows"] - before)
+        rungs.append(trainer.controller.index)
+        syncs.append(s)
+        losses.append(float(loss))
+        rec = {"loss": losses[-1], "rel_volume": float(wire.rel_volume())}
+        if i % TELE19_EVERY == 0 or i == steps - 1:
+            rec.update({f"telemetry.{k}": v for k, v in trainer.telemetry_summary().items()})
+        run.log(rec, step=i)
+        if i + 1 == CTRL19_CKPT_AT:
+            checkpoint.save(ckpt, {"state": st, "telemetry": trainer.telemetry, "ctrl": trainer.controller_state()},
+                            config=cfg)
+    launches = launch_counts()
+    spans.save(run.dir / "trace.json")
+    span_events = len(spans.get_tracer().events)
+    spans.configure(enabled=False, reset=True)
+    run.finish({"telemetry": trainer.telemetry_summary(), "steps": steps})
+    final = {n: p.detach().clone() for n, p in st.params.items()}
+
+    _check(launches == {"qsgd_quantize": 0, "qsgd_encode_rows": steps}, f"ctrl: launches {launches}")
+    _check(per_step == [1] * steps, f"ctrl: qsgd_encode_rows launches a step {per_step}")
+    boundary = [i for i in range(steps) if i and i % TELE19_EVERY == 0]
+    _check(not any(syncs[i] for i in range(steps) if i not in boundary),
+           f"ctrl: host syncs off the fetch boundaries: {syncs}")
+    _check(all(math.isfinite(l) for l in losses), f"ctrl: losses {losses}")
+    trail = DecisionLog.read(run.dir / "decisions.jsonl")
+    for rec in trail:
+        validate_decision(rec)
+    _check(len(trail) == len(boundary) and trainer.controller.switches >= 1,
+           f"ctrl: {len(trail)} decisions, {trainer.controller.switches} switches")
+    visited = set(rungs) | {trainer.controller.ladder.index_near(cfg.compress_ratio)}
+    _check(set(trainer.visited_ladder_indices) == visited,
+           f"ctrl: exchangers built {trainer.visited_ladder_indices}, rungs visited {sorted(visited)}")
+    rung_rows = {}
+    for idx in trainer.visited_ladder_indices:
+        ex = trainer._exchanger_cache[idx]
+        ratio = trainer.controller.ladder[idx].ratio
+        _check(ex.payload_bytes() == CTRL19_PAYLOAD[ratio], f"rung {ratio}: payload_bytes {ex.payload_bytes()}")
+        segs = _main_path_table(ex, seed=190 + idx)
+        got, ref = _encode_on_card_and_cpu(segs, ex.fused_nbytes, ex.cfg.quantum_num, ex.cfg.bucket_size)
+        err = _check_rows(got, ref, segs, ex.cfg.bucket_size, ex.cfg.quantum_num, f"rung {ratio}'s table")
+        rung_rows[str(ratio)] = {"payload_bytes": ex.payload_bytes(), "segments": len(segs), "max_abs_err": err,
+                                 "steps": sum(1 for r in rungs if r == idx)}
+
+    # the resume: a fresh trainer (other weights) restored and replayed
+    fresh = Trainer(WordLSTM(seed=seed + 1), cfg, lr=0.1, momentum=0.9, device="cuda", group=group)
+    resume_log = os.path.join(root, "resume_decisions.jsonl")
+    fresh.attach_decision_log(resume_log)
+    restored = checkpoint.restore(ckpt, {"state": fresh.init_state(), "telemetry": None, "ctrl": None}, config=cfg)
+    st2 = restored["state"]
+    fresh.telemetry = restored["telemetry"]
+    fresh.load_controller_state(restored["ctrl"])
+    for i in range(st2.step, steps):
+        st2, _, _ = fresh.step(st2, batches(i))
+    torch.cuda.synchronize()
+    tail = [json.dumps(r, sort_keys=True) for r in trail if r["step"] >= CTRL19_CKPT_AT]
+    replay = [json.dumps(r, sort_keys=True) for r in DecisionLog.read(resume_log)]
+    _check(tail == replay, f"ctrl: the resumed trail {replay} differs from the uninterrupted one {tail}")
+    same = [n for n in final if torch.equal(final[n], st2.params[n])]
+    _check(len(same) == len(final), f"ctrl: resumed parameters differ: {sorted(set(final) - set(same))}")
+    return {
+        "ladder": CTRL19_LADDER, "target_err_cos": target, "headroom": 0.02, "hysteresis": 1, "steps": steps,
+        "launches": launches, "launches_per_step": per_step, "rung_by_step": rungs, "step_ms_all": dev_ms,
+        "visited_ladder_indices": list(trainer.visited_ladder_indices), "rungs": rung_rows,
+        "host_syncs_per_step": [len(s) for s in syncs], "sync_call_sites": sorted({x for s in syncs for x in s}),
+        "decisions": [{k: r[k] for k in ("step", "trigger", "rationale", "old_ratio", "new_ratio", "err_cos")}
+                      for r in trail],
+        "switches": trainer.controller.switches, "effective_ratio": trainer.controller.effective_ratio(),
+        "resume": {"checkpoint_after_step": CTRL19_CKPT_AT, "replayed_decisions": len(replay),
+                   "trail_bitwise": True, "params_bitwise": len(same)},
+        "losses": losses, "span_events": span_events, "run_dir": str(run.dir),
+    }
+
+
+def _tracked_run(seed: int, group, run_dir: str, root: str) -> dict:
+    """The port's telemetry CLI (summary, trace, calibrate) over the ctrl
+    run's directory; the fitted profile validated and applied."""
+    import torch
+
+    from deepreduce_tpu_torch import DeepReduceConfig, Trainer, costmodel
+    from deepreduce_tpu_torch.models import WordLSTM
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    prof_path = os.path.join(root, "profile.json")
+    outs = {}
+    for cmd in (["summary", run_dir], ["trace", run_dir, "--out", os.path.join(root, "merged_trace.json")],
+                ["calibrate", run_dir, "--out", prof_path]):
+        p = subprocess.run([sys.executable, "-m", "deepreduce_tpu_torch.telemetry", *cmd], cwd=here,
+                           capture_output=True, text=True, timeout=300)
+        _check(p.returncode == 0, f"telemetry {cmd[0]} exited {p.returncode}: {p.stderr[-2000:]}")
+        outs[cmd[0]] = p.stdout
+    prof = costmodel.load_profile(prof_path)  # validates the schema
+    costmodel.validate_profile(prof.to_record())
+    cfg = DeepReduceConfig(communicator="sparse_rs", compressor="topk", deepreduce=None, memory="residual",
+                           rs_mode="auto", compress_ratio=0.1, seed=seed)
+    trainer = Trainer(WordLSTM(seed=seed), cfg, lr=0.1, momentum=0.9, device="cuda", group=group)
+    st = trainer.init_state()
+    ex0 = trainer.exchanger
+    static = trainer.apply_profile(costmodel.static_profile())
+    _check(not static["switched"] and trainer.exchanger is ex0 and len(trainer.visited_plan_keys) == 1,
+           f"the static profile is not a no-op: {static}")
+    fitted = trainer.apply_profile(prof)
+    plans = len(trainer.visited_plan_keys)
+    _check(plans == (2 if fitted["switched"] else 1) and trainer._plan_key_of(trainer.exchanger) == fitted["new"],
+           f"apply_profile: {fitted}, plans visited {trainer.visited_plan_keys}")
+    tok = _tokens(seed, 1, 64, 20, 10_004).cuda()
+    st, loss, _ = trainer.step(st, (tok[0, :, :-1], tok[0, :, 1:]))
+    _check(math.isfinite(float(loss)), f"the step under the fitted profile: loss {float(loss)}")
+    torch.cuda.synchronize()
+    rec = prof.to_record()
+    return {
+        "cli": {k: len(v.splitlines()) for k, v in outs.items()}, "calibrate_stdout": outs["calibrate"][-1500:],
+        "profile": {k: rec[k] for k in ("bw_dcn_bytes_per_s", "bw_ici_bytes_per_s", "t_enc_s", "t_dec_s",
+                                        "compute_time_s", "fitted", "fixed")},
+        "routes": rec["routes"], "measured_step_s": rec["source"]["measured_step_s"],
+        "static_no_op": static, "apply_fitted": {k: (list(v) if isinstance(v, tuple) else v)
+                                                 for k, v in fitted.items()},
+        "plans_visited": [list(k) for k in trainer.visited_plan_keys], "exchangers_built": plans,
+    }
+
+
+def _fedsim_telemetry_arm(arm: str, spec: dict, seed: int, group) -> dict:
+    """One of phase 18's linear arms at 1/8 size with telemetry on, for
+    FED19_TICKS ticks: syncs, the all_reduce law, and the accumulator's rows
+    against the tick reports."""
+    import torch
+
+    from deepreduce_tpu_torch import DeepReduceConfig, FedSim
+    from deepreduce_tpu_torch.collectives import reduce_counts, reset_reduce_counts
+    from deepreduce_tpu_torch.fedsim import synthetic_linear_problem
+    from deepreduce_tpu_torch.ops import launch_counts, reset_launch_counts
+    from deepreduce_tpu_torch.resilience import stream
+    from deepreduce_tpu_torch.telemetry.device_metrics import MetricAccumulators, hist_quantile
+
+    g, cut = FED18_LINEAR, FED18_CPU_CUT
+    knobs = dict(FED18_CODEC, **FED18_CHURN, **spec["knobs"], fed=True, fed_num_clients=g["population"] // cut,
+                 fed_clients_per_round=g["cohort"] // cut, fed_local_steps=g["local_steps"],
+                 fed_client_chunk=g["chunk"], seed=seed, telemetry=True)
+    if "fed_async_k" in knobs:
+        knobs["fed_async_k"] //= cut
+    cfg = DeepReduceConfig(**knobs)
+    fed = cfg.fed_config()
+    p0, data_fn, loss_fn = synthetic_linear_problem(g["dim"], g["batch"], g["local_steps"], device="cuda")
+    sim = FedSim(loss_fn, cfg, fed, g["lr"], data_fn, group=group, client_chunk=g["chunk"], device="cuda")
+    state = sim.init(p0)
+    masks = [(True, True), (True, False)] if cfg.fed_tenants else [None] * FED19_TICKS
+    key = seed + 19
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    reset_reduce_counts()
+    syncs, mets = [], []
+    for i in range(FED19_TICKS):
+        if masks[i] is not None:
+            state = sim.set_active(state, masks[i])
+        (state, m), s = _counting_syncs(lambda: sim.step(state, stream.key(key, i)))
+        syncs.append(s)
+        mets.append(m)
+    torch.cuda.synchronize()
+    launches, reduces = launch_counts(), reduce_counts()
+    T = max(cfg.fed_tenants, 1)
+    D = len(sim.latency_probs) if cfg.fed_async else 0
+    K = sim.pop.num_classes if sim.pop is not None else 0
+    law = _fed_law(cfg, g["dim"] + 1, D, K, T)
+    _check(not any(syncs), f"{arm}: host syncs in a telemetry tick: {syncs}")
+    _check(reduces["all_reduce"] == FED19_TICKS and reduces["all_reduce_bytes"] == FED19_TICKS * law,
+           f"{arm}: all_reduce {reduces}, law {law} a tick")
+    C = fed.clients_per_round
+    acc = state.telemetry
+    rows = acc.vec.cpu()
+    checked = []
+    for t in range(T):
+        row = MetricAccumulators(rows[t] if T > 1 else rows, acc.num_buckets, acc.num_stale_levels,
+                                 acc.num_pop_classes).fetch()
+        pick = (lambda m, k: m[k][t]) if T > 1 else (lambda m, k: m[k])  # noqa: E731
+        live = [float(pick(m, "clients")) for m in mets]
+        want = {
+            "steps": _f32_running(1.0 if masks[i] is None or masks[i][t] else 0.0 for i in range(FED19_TICKS)),
+            "live_workers": _f32_running(live),
+            "checksum_failures": _f32_running(float(pick(m, "checksum_failures")) for m in mets),
+            "dropped_steps": _f32_running(1.0 if (masks[i] is None or masks[i][t]) and live[i] < C else 0.0
+                                          for i in range(FED19_TICKS)),
+        }
+        for k, v in want.items():
+            _check(row[k] == v, f"{arm} tenant {t}: accumulated {k} {row[k]} != the ticks' {v}")
+        if D:
+            hist = [_f32_running(float(pick(m, "staleness_hist")[d]) for m in mets) for d in range(D)]
+            _check(row["staleness_hist"] == hist, f"{arm} tenant {t}: staleness_hist {row['staleness_hist']} != {hist}")
+            der = MetricAccumulators.derive(row)
+            for q, name in ((0.50, "staleness_p50"), (0.95, "staleness_p95"), (0.99, "staleness_p99")):
+                _check(der[name] == hist_quantile(hist, q), f"{arm}: {name}")
+        if K:
+            hist = [_f32_running(float(pick(m, "pop_hist")[c]) for m in mets) for c in range(K)]
+            _check(row["pop_hist"] == hist, f"{arm}: pop_hist {row['pop_hist']} != {hist}")
+            total = max(sum(hist), 1.0)
+            _check(MetricAccumulators.derive(row)["pop_shares"] == [h / total for h in hist], f"{arm}: pop_shares")
+        checked.append({k: row[k] for k in want})
+    summ = sim.summary(state)
+    want_keys = set(MetricAccumulators.derive(acc.sum_tenants().fetch() if T > 1 else acc.fetch())) | {
+        "uplink_bytes_per_round"}
+    _check(want_keys <= set(summ), f"{arm}: summary lacks {sorted(want_keys - set(summ))}")
+    return {"population": fed.num_clients, "cohort": C, "tenants": T, "ticks": FED19_TICKS, "launches": launches,
+            "host_syncs_per_tick": [len(s) for s in syncs], "all_reduce_per_tick": reduces["all_reduce"] / FED19_TICKS,
+            "all_reduce_bytes_per_tick": reduces["all_reduce_bytes"] / FED19_TICKS, "all_reduce_bytes_law": law,
+            "rows": checked, "summary_keys": len(summ),
+            "summary": {k: summ[k] for k in ("rel_volume", "live_workers_per_step", "checksum_failures",
+                                             "uplink_bytes_per_round") if k in summ}}
+
+
+def phase_telemetry(seed: int, group, phase5: dict) -> dict:
+    """Phase 19: the flagship with telemetry, under the controller, its
+    tracking run through the telemetry CLI and calibrate, and phase 18's
+    linear arms with telemetry. Returns {arm: result}; each arm's
+    `launches` are its counted kernel launches."""
+    import shutil
+
+    import torch
+
+    t0 = time.perf_counter()
+    tokens = _tokens(seed, TELE19_STEPS, 64, 20, 10_004)
+    results = {}
+    res, profile = _telemetry_flagship(seed, tokens, group, phase5)
+    print("phase 19 ok: telemetry_flagship " + json.dumps(res), flush=True)
+    results["telemetry_flagship"] = res
+    root = tempfile.mkdtemp(prefix="chip_smoke_phase19_")
+    try:
+        ctrl = _ctrl_flagship(seed, tokens, group, res["window_err_cos"][0], root)
+        print("phase 19 ok: ctrl_flagship " + json.dumps(ctrl), flush=True)
+        results["ctrl_flagship"] = ctrl
+        tracked = _tracked_run(seed, group, ctrl["run_dir"], root)
+        print("phase 19 ok: tracked_run " + json.dumps(tracked), flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    for arm, spec in PHASE18.items():
+        name = arm.replace("fedsim_linear", "fedsim_telemetry")
+        res = _fedsim_telemetry_arm(arm, spec, seed, group)
+        print(f"phase 19 ok: {name} " + json.dumps(res), flush=True)
+        results[name] = res
+        torch.cuda.empty_cache()
+    print("phase 19 ok: telemetry_flagship profiled " + json.dumps(profile()), flush=True)
+    print(f"phase 19 time {time.perf_counter() - t0:.1f} s", flush=True)
+    return results
+
+
 def phase_timing(encode: dict, errs: dict, by_arm: dict, quantize: dict) -> None:
-    # each path's run, counted from 0 just before it (phases 5 and 7-18)
+    # each path's run, counted from 0 just before it (phases 5 and 7-19)
     total = lambda name: sum(counts[name] for counts in by_arm.values())
     kernels = [
         _quantize_entry(quantize, total("qsgd_quantize"), errs["qsgd_quantize"]),
@@ -4067,12 +4540,15 @@ def main(argv=None) -> int:
         resil16, _ = phase_resilience(args.seed, tokens, dist.group.WORLD, res["cpu_ref_loss0"])
         two_tier17 = phase_two_tier(args.seed, tokens, dist.group.WORLD, res["cpu_ref_loss0"])
         fedsim18 = phase_fedsim(args.seed, dist.group.WORLD)
+        res["steps"] = args.steps
+        tele19 = phase_telemetry(args.seed, dist.group.WORLD, res)
     finally:
         dist.destroy_process_group()
     fed = phase_fedavg(args.seed, args.profile)
     table6 = phase_table6(args.seed)
     by_arm = {"drqsgd_bloom": res["launches"]}
-    for phase in (arms, resnet, in_coll, bucketed, zoo, models14, fed, table6, host15, resil16, two_tier17, fedsim18):
+    for phase in (arms, resnet, in_coll, bucketed, zoo, models14, fed, table6, host15, resil16, two_tier17, fedsim18,
+                  tele19):
         by_arm.update({a: r["launches"] for a, r in phase.items()})
     phase_timing(encode, errs, by_arm, quantize)
     print(f"chip_smoke total {time.perf_counter() - t0:.1f} s", flush=True)

@@ -26,6 +26,14 @@ what an uninterrupted one would).
   same way: every tensor by its field path, copied into a template from
   `FedSim.init` after the same checks, and the host fields (round and tick
   counters, the active mask, the per-tenant knobs) restored as saved.
+- A run with telemetry or the adaptive controller saves
+  `{"state": TrainState, "telemetry": MetricAccumulators, "ctrl":
+  Trainer.controller_state()}`, the JAX driver's checkpoint dict
+  (`benchmarks/train.py`); `restore` with such a dict of templates returns
+  the same dict. The counters round-trip bitwise and the controller's
+  state exactly, so a resumed run replays the decision trail bitwise. A
+  federated state's accumulators (its `telemetry` field) round-trip with
+  the state.
 - Every read and write goes through `resilience.retry.retry_io`.
 """
 
@@ -41,6 +49,7 @@ import torch
 
 from deepreduce_tpu_torch.config import DeepReduceConfig
 from deepreduce_tpu_torch.resilience.retry import retry_io
+from deepreduce_tpu_torch.telemetry.device_metrics import MetricAccumulators
 from deepreduce_tpu_torch.train import Trainer, TrainState
 
 # config fields that change what is observed, never what is computed: a
@@ -117,6 +126,8 @@ def _split_state(state, prefix: str = "") -> Tuple[Dict[str, torch.Tensor], Dict
         val, key = getattr(state, f.name), prefix + f.name
         if torch.is_tensor(val):
             tensors[key] = val.detach()
+        elif isinstance(val, MetricAccumulators):
+            tensors[key + "/vec"] = val.vec.detach()
         elif isinstance(val, dict):
             tensors.update({f"{key}/{n}": t.detach() for n, t in val.items()})
         elif dataclasses.is_dataclass(val):
@@ -134,31 +145,55 @@ def _with_host(state, host: Dict[str, Any], prefix: str = ""):
         val, key = getattr(state, f.name), prefix + f.name
         if dataclasses.is_dataclass(val):
             changes[f.name] = _with_host(val, host, key + "/")
-        elif key in host and not torch.is_tensor(val) and not isinstance(val, dict):
+        elif key in host and not torch.is_tensor(val) and not isinstance(val, (dict, MetricAccumulators)):
             saved = host[key]
             changes[f.name] = tuple(tuple(x) if isinstance(x, list) else x for x in saved) if isinstance(
                 saved, list) else saved
     return dataclasses.replace(state, **changes)
 
 
-def save(path: str, state, *, config: Optional[DeepReduceConfig] = None) -> None:
-    """Write `state` (parameters, BatchNorm statistics, optimizer state,
-    residuals, step; or a federated state's every field) to `path`; with
-    `config`, also its stamp."""
-    if not isinstance(state, TrainState):
-        tensors, host = _split_state(state)
-        retry_io(lambda: torch.save({"tensors": tensors, "host": json.dumps(host)}, path))
-        if config is not None:
-            _write_stamp(path, config)
-        return
-    blob = {
+def _host_tree(x):
+    """A controller state (numpy values) as plain Python, which
+    `torch.load(weights_only=True)` reads back."""
+    if isinstance(x, dict):
+        return {k: _host_tree(v) for k, v in x.items()}
+    return x.tolist() if hasattr(x, "tolist") else x
+
+
+def _train_blob(state: TrainState) -> Dict[str, Any]:
+    return {
         "params": _detached(state.params),
         "batch_stats": _detached(state.batch_stats),
         "optimizer": state.optimizer.state_dict(),
         "residuals": _detached(state.residuals),
         "step": state.step,
     }
-    retry_io(lambda: torch.save(blob, path))
+
+
+def save(path: str, state, *, config: Optional[DeepReduceConfig] = None) -> None:
+    """Write `state` (parameters, BatchNorm statistics, optimizer state,
+    residuals, step; or a federated state's every field; or a dict
+    `{"state": TrainState, "telemetry": MetricAccumulators or None,
+    "ctrl": controller state}`) to `path`; with `config`, also its stamp."""
+    if isinstance(state, dict):
+        blob = {"run": _train_blob(state["state"])}
+        acc = state.get("telemetry")
+        if acc is not None:
+            blob["telemetry"] = {"vec": acc.vec.detach(),
+                                 "geometry": [acc.num_buckets, acc.num_stale_levels, acc.num_pop_classes]}
+        if state.get("ctrl") is not None:
+            blob["ctrl"] = _host_tree(state["ctrl"])
+        retry_io(lambda: torch.save(blob, path))
+        if config is not None:
+            _write_stamp(path, config)
+        return
+    if not isinstance(state, TrainState):
+        tensors, host = _split_state(state)
+        retry_io(lambda: torch.save({"tensors": tensors, "host": json.dumps(host)}, path))
+        if config is not None:
+            _write_stamp(path, config)
+        return
+    retry_io(lambda: torch.save(_train_blob(state), path))
     if config is not None:
         _write_stamp(path, config)
 
@@ -179,14 +214,28 @@ def _copy_into(own: Dict[str, torch.Tensor], saved: Dict[str, torch.Tensor], wha
             t.copy_(saved[name])
 
 
-def restore(path: str, trainer_or_template: Union[Trainer, TrainState], *,
-            config: Optional[DeepReduceConfig] = None) -> TrainState:
+def restore(path: str, trainer_or_template: Union[Trainer, TrainState, dict], *,
+            config: Optional[DeepReduceConfig] = None):
     """The state saved at `path`, copied into `trainer_or_template`: a
     `TrainState` from `Trainer.init_state` on the same config, or a
     `Trainer` (whose `init_state` builds it). With `config`, fail fast if
-    the stamped fingerprint differs."""
+    the stamped fingerprint differs. Given a dict `{"state": template,
+    ...}` (a checkpoint `save` wrote from such a dict), returns `{"state":
+    TrainState, "telemetry": MetricAccumulators or None, "ctrl": the
+    controller state or None}`, the counters on the state's device."""
     if config is not None:
         _check_stamp(path, config)
+    if isinstance(trainer_or_template, dict):
+        template = trainer_or_template["state"]
+        if isinstance(template, Trainer):
+            template = template.init_state()
+        device = next(iter(template.params.values())).device
+        blob = retry_io(lambda: torch.load(path, map_location=device, weights_only=True))
+        out = {"state": _restore_train(template, blob["run"]), "telemetry": None, "ctrl": blob.get("ctrl")}
+        if "telemetry" in blob:
+            C, D, K = blob["telemetry"]["geometry"]
+            out["telemetry"] = MetricAccumulators(blob["telemetry"]["vec"].clone(), C, D, K)
+        return out
     template = trainer_or_template
     if not isinstance(template, (Trainer, TrainState)):
         own, _ = _split_state(template)
@@ -198,6 +247,10 @@ def restore(path: str, trainer_or_template: Union[Trainer, TrainState], *,
         template = template.init_state()
     device = next(iter(template.params.values())).device
     blob = retry_io(lambda: torch.load(path, map_location=device, weights_only=True))
+    return _restore_train(template, blob)
+
+
+def _restore_train(template: TrainState, blob: Dict[str, Any]) -> TrainState:
     _copy_into(template.params, blob["params"], "parameter")
     _copy_into(template.batch_stats, blob["batch_stats"], "batch_stats")
     if (template.residuals is None) != (blob["residuals"] is None):

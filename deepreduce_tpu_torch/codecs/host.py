@@ -8,7 +8,8 @@ same numpy, zlib or C++ there, and returns its static-shape payload or
 decoded leaves to the device (`to_device`: a non-blocking copy from
 pageable memory, staged before it returns, so the host buffer may go at
 once). Each host call sits in a `torch.profiler.record_function` range
-named `host/<codec>.<stage>` (`span`), so a profile shows it.
+named `host/<codec>.<stage>` (`span`, through `telemetry.spans.annotate`:
+on whether or not the tracer is), so a profile shows it.
 
 A decode reads its in-band lengths from a host copy of the payload it is
 given (`host=`, the exchange's one copy of each gathered row); without one
@@ -19,7 +20,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
+
+from deepreduce_tpu_torch.telemetry.spans import annotate
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:
@@ -46,4 +48,4 @@ def scalar(x: int, device: torch.device) -> torch.Tensor:
 
 
 def span(name: str):
-    return record_function(f"host/{name}")
+    return annotate(f"host/{name}")

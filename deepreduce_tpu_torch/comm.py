@@ -75,6 +75,7 @@ from deepreduce_tpu_torch.metrics import WireStats, combine, ring_wire_bytes
 from deepreduce_tpu_torch.numerics import mean_of_sum
 from deepreduce_tpu_torch.resilience.chaos import ChaosInjector
 from deepreduce_tpu_torch.sparse import per_tensor_stream
+from deepreduce_tpu_torch.telemetry.spans import span
 from deepreduce_tpu_torch.wrappers import TensorCodec, encode_group
 
 Tree = Dict[str, torch.Tensor]
@@ -235,12 +236,15 @@ class FusedBuffer:
         worker: int,
         uniforms: Optional[Tree] = None,
         units: Optional[List[str]] = None,
+        payloads_out: Optional[dict] = None,
+        route: str = "fused",
     ) -> Dict[str, WireStats]:
         """Write the payloads of `units` (default: all) of `tensors` (unit ->
         tensor) into their spans of `buf`, each sealed with its checksum
         word; returns each unit's wire stats. `uniforms` (unit -> f32, CPU
         only) replaces the QSGD draws of the named units (the parity tests'
-        hook)."""
+        hook); `payloads_out`, when a dict, receives the payloads by unit
+        (for `fp_totals`); `route` labels the telemetry spans."""
         units = self.units if units is None else units
         group = []
         for u in units:
@@ -249,15 +253,32 @@ class FusedBuffer:
             group.append((u, self.codecs[u], tensors[u], rows_lo))
         # every unit's index stage, then one grouped QSGD launch that writes
         # the rows straight into the buffer; the other leaves follow them
-        payloads, _ = encode_group(group, buf, step=step, worker=worker, uniforms=uniforms)
+        with span("exchange/encode", route=route):
+            payloads, _ = encode_group(group, buf, step=step, worker=worker, uniforms=uniforms)
         stats = {}
-        for u in units:
-            codec, layout, lo = self.codecs[u], self.layouts[u], self.offsets[u]
-            skip = () if codec.rows_leaf is None else (codec.rows_leaf,)
-            layout.write_into(buf[lo : lo + layout.nbytes], payloads[u].leaves(), skip=skip)
-            layout.seal(buf[lo : lo + layout.nbytes])
-            stats[u] = codec.wire_stats(payloads[u])
+        with span("exchange/pack", route=route):
+            for u in units:
+                codec, layout, lo = self.codecs[u], self.layouts[u], self.offsets[u]
+                skip = () if codec.rows_leaf is None else (codec.rows_leaf,)
+                layout.write_into(buf[lo : lo + layout.nbytes], payloads[u].leaves(), skip=skip)
+                layout.seal(buf[lo : lo + layout.nbytes])
+                stats[u] = codec.wire_stats(payloads[u])
+        if payloads_out is not None:
+            payloads_out.update(payloads)
         return stats
+
+    def fp_totals(self, payloads: dict, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The measured bloom false positives over the units' payloads and
+        their not-selected universe (0-d float32, summed in unit order from
+        zero, as the JAX package sums them; zeros without a bloom index)."""
+        fp_c = fp_u = torch.zeros((), dtype=torch.float32, device=device)
+        for u, codec in self.codecs.items():
+            stats = codec.fp_stats(payloads[u])
+            if stats is None:
+                continue
+            fp_c = fp_c + stats[0]
+            fp_u = fp_u + stats[1]
+        return fp_c, fp_u
 
     @property
     def host_units(self) -> List[str]:
@@ -367,6 +388,7 @@ class GradientExchanger:
         device: DeviceLike = "cuda",
         group: Optional[Union[dist.ProcessGroup, Collectives]] = None,
         profile: Optional[costmodel.MachineProfile] = None,
+        bucket_points=None,
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -420,9 +442,16 @@ class GradientExchanger:
             _check_bucketable(cfg)
             from deepreduce_tpu_torch.comm_bucket import BucketedExchanger
 
-            self.bucketed = BucketedExchanger(self.shapes, cfg, device=self.device)
+            self.bucketed = BucketedExchanger(self.shapes, cfg, device=self.device, points=bucket_points)
             self.fused = self.bucketed.fused
         else:
+            if bucket_points is not None:
+                raise ConfigError(
+                    "build-bucket-points-need-buckets",
+                    "bucket_points is the adaptive controller's per-bucket (ratio, fpr) vector for the bucketed "
+                    "exchange and would be silently ignored without bucket_bytes — set bucket_bytes, or "
+                    "bucket_points=None",
+                )
             # the in-collective routes compress the flat gradient themselves
             self.fused = FusedBuffer({} if self.in_collective else {
                 n: TensorCodec(self.shapes[n], cfg, name=n, device=self.device) for n in self.names
@@ -491,14 +520,17 @@ class GradientExchanger:
         step: int,
         worker: int,
         uniforms: Optional[Tree] = None,
+        payloads_out: Optional[dict] = None,
     ) -> Tuple[torch.Tensor, Tree, WireStats]:
         """(uint8[B] fused buffer, compensated grads, combined wire stats)
         of one worker, each payload sealed with its checksum word when the
         checksum is on. `uniforms` (unit -> f32, CPU only) replaces the
-        QSGD draws of the named units (the parity tests' hook)."""
+        QSGD draws of the named units (the parity tests' hook);
+        `payloads_out` receives the payloads by unit."""
         compensated = self.compensate(grads, residuals)
         buf = torch.empty(self.fused_nbytes, dtype=torch.uint8, device=self.device)
-        stats = self.fused.encode(self.units_of(compensated), buf, step=step, worker=worker, uniforms=uniforms)
+        stats = self.fused.encode(self.units_of(compensated), buf, step=step, worker=worker, uniforms=uniforms,
+                                  payloads_out=payloads_out)
         return buf, compensated, combine(stats)
 
     def perturb(self, buf: torch.Tensor, *, step: int, salt: int = 0, draws: Optional[dict] = None) -> torch.Tensor:
@@ -506,7 +538,8 @@ class GradientExchanger:
         injector delivers it (itself without chaos)."""
         if self.chaos is None:
             return buf
-        return self.chaos.perturb(buf, step=step, worker=self.rank, salt=salt, draws=draws)
+        with span("resilience/chaos"):
+            return self.chaos.perturb(buf, step=step, worker=self.rank, salt=salt, draws=draws)
 
     # -- 2. gather ------------------------------------------------------- #
 
@@ -618,11 +651,15 @@ class GradientExchanger:
     ) -> Tuple[Tree, Optional[Tree], WireStats]:
         """(aggregated dense grads, new residuals, this worker's wire stats).
 
-        `collect`, when a dict, receives the sparse_rs route's observables
-        (see `sparse_rs.exchange`), the bucketed exchange's per-bucket
-        saturation flags (`bucket_saturated`) and, with the checksum, the
-        failures over the gathered rows (`checksum_failures`), as device
-        tensors. `mask` (bool[W] on the device, the same on every worker) is
+        `collect`, when a dict, receives the telemetry observables as device
+        tensors: this worker's measured bloom false positives and their
+        universe (`fp_count`, `fp_universe`; zeros where no payload has a
+        bloom index), the sparse_rs route's observables (see
+        `sparse_rs.exchange`), the bucketed exchange's per-bucket saturation
+        flags (`bucket_saturated`) and, with the checksum, the failures over
+        the gathered rows (`checksum_failures`). The false positives cost a
+        query of every bloom filter over its universe: pass `collect` only
+        with telemetry on. `mask` (bool[W] on the device, the same on every worker) is
         the participation mask: a False worker's decode is weighted 0 in
         the sum and in its own decode (so its residual keeps its whole
         compensated gradient) and the mean divides by the live count.
@@ -641,8 +678,12 @@ class GradientExchanger:
         if mask is not None:
             weights = mask.to(torch.float32)
             denom = torch.clamp(weights.sum(), min=1.0)
-        if collect is not None and self.checksum:
-            collect.setdefault("checksum_failures", torch.zeros((), dtype=torch.float32, device=self.device))
+        if collect is not None:
+            zero = torch.zeros((), dtype=torch.float32, device=self.device)
+            collect.setdefault("fp_count", zero)
+            collect.setdefault("fp_universe", zero)
+            if self.checksum:
+                collect.setdefault("checksum_failures", zero)
         if self.in_collective:
             return self.exchange_in_collective(grads, residuals, step=step, uniforms=uniforms, collect=collect,
                                                mask=mask)
@@ -650,18 +691,20 @@ class GradientExchanger:
             return self.exchange_dense(grads, weights, denom), residuals, self.dense_wire_stats()
         own = self.rank if residuals is not None else None
         draws = chaos_draws or {}
+        payloads = {} if collect is not None else None
         if self.bucketed is not None:
             compensated = self.compensate(grads, residuals)
             totals, owns, stats, fails = self.bucketed.run(
                 self.units_of(compensated), self.coll, step=step, worker=self.rank, own=own, uniforms=uniforms,
                 weights=weights, perturb=lambda buf, b: self.perturb(buf, step=step, salt=b, draws=draws.get(b)),
+                payloads_out=payloads,
             )
             if collect is not None:
                 collect["bucket_saturated"] = self.bucketed.saturation_vector(stats)
             stats = combine(stats)
         else:
             buf, compensated, stats = self.encode_worker(grads, residuals, step=step, worker=self.rank,
-                                                         uniforms=uniforms)
+                                                         uniforms=uniforms, payloads_out=payloads)
             if not cfg.fused:
                 totals, owns, fails = self._exchange_per_tensor(buf, own, step=step, weights=weights)
             else:
@@ -669,9 +712,14 @@ class GradientExchanger:
                 if cfg.decode_strategy == "ring":
                     totals, owns, fails = self._exchange_ring(buf, own is not None, step=step, weights=weights)
                 else:
-                    totals, owns, fails = self.decode_totals(self.gather(buf), own=own, step=step, weights=weights)
-        if fails is not None and collect is not None:
-            collect["checksum_failures"] = fails
+                    with span("exchange/allgather", route="fused"):
+                        gathered = self.gather(buf)
+                    with span("exchange/decode", route="fused"):
+                        totals, owns, fails = self.decode_totals(gathered, own=own, step=step, weights=weights)
+        if collect is not None:
+            collect["fp_count"], collect["fp_universe"] = self.fused.fp_totals(payloads, self.device)
+            if fails is not None:
+                collect["checksum_failures"] = fails
         mean, own_dec = self.mean_and_own(totals, owns if own is not None else None, self.num_workers, denom)
         agg, new_residuals = self.finish(grads, compensated, mean, own_dec)
         return agg, new_residuals, stats
@@ -681,8 +729,9 @@ class GradientExchanger:
     ) -> Tuple[Tree, Tree, Optional[torch.Tensor]]:
         """The ring decode (`comm_ring.py`) of the fused buffer: (unit ->
         sum, unit -> own decode, the checksum failures or None)."""
-        total, own = ring_decode_exchange(buf, lambda row: self.decode_fused_row(row, step=step), self.coll,
-                                          need_own=need_own, row_weights=weights)
+        with span("exchange/ring"):
+            total, own = ring_decode_exchange(buf, lambda row: self.decode_fused_row(row, step=step), self.coll,
+                                              need_own=need_own, row_weights=weights)
         units = self.fused.units
         fails = total[len(units)] if self.checksum else None
         return dict(zip(units, total)), dict(zip(units, own or ())), fails
@@ -751,13 +800,19 @@ class GradientExchanger:
     ) -> Tuple[Tree, Optional[Tree], WireStats]:
         """compensate -> flatten -> `route_flat` -> unflatten; the residual
         keeps what this worker did not transmit (qar keeps none)."""
-        compensated = self.compensate(grads, residuals)
-        mean, own, stats = self.route_flat(self._flatten(compensated), step=step, uniforms=uniforms, collect=collect,
-                                           mask=mask)
-        new_residuals = None
-        if residuals is not None:
-            new_residuals = memory.update(compensated, self._unflatten(own, grads))
-        return self._unflatten(mean, grads), new_residuals, stats
+        qar_route = self.cfg.communicator == "qar"
+        route = "qar" if qar_route else self._rs_mode
+        with span("exchange/encode", route=route):
+            compensated = self.compensate(grads, residuals)
+            flat = self._flatten(compensated)
+        with span("exchange/qar" if qar_route else "exchange/sparse_rs"):
+            mean, own, stats = self.route_flat(flat, step=step, uniforms=uniforms, collect=collect, mask=mask)
+        with span("exchange/decode", route=route):
+            new_residuals = None
+            if residuals is not None:
+                new_residuals = memory.update(compensated, self._unflatten(own, grads))
+            agg = self._unflatten(mean, grads)
+        return agg, new_residuals, stats
 
     def route_flat(
         self,

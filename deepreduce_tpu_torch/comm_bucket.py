@@ -44,6 +44,7 @@ from deepreduce_tpu_torch.device import DeviceLike, resolve_device
 from deepreduce_tpu_torch.metrics import WireStats
 from deepreduce_tpu_torch.resilience.chaos import ChaosInjector
 from deepreduce_tpu_torch.sparse import bucket_num_slots
+from deepreduce_tpu_torch.telemetry.spans import span
 from deepreduce_tpu_torch.wrappers import TensorCodec
 
 Tree = Dict[str, torch.Tensor]
@@ -154,9 +155,16 @@ def partition_buckets(
 class BucketedExchanger:
     """Per-bucket encode -> all_gather -> decode, built by
     `GradientExchanger` when `cfg.bucket_bytes` is set. `shapes` maps the
-    tensor names, in the exchanger's (sorted) order, to their shapes."""
+    tensor names, in the exchanger's (sorted) order, to their shapes.
 
-    def __init__(self, shapes: Dict[str, Tuple[int, ...]], cfg: DeepReduceConfig, *, device: DeviceLike = "cuda"):
+    `points` (one (ratio, fpr-or-None) pair per bucket, in spec order: the
+    adaptive controller's per-bucket operating points) overrides the
+    config's ratio and fpr for each bucket's codec and slot budget. The
+    partition depends on (name, size, bucket_bytes) alone, so every rung of
+    a ladder has the same buckets in the same order."""
+
+    def __init__(self, shapes: Dict[str, Tuple[int, ...]], cfg: DeepReduceConfig, *, device: DeviceLike = "cuda",
+                 points=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.shapes = dict(shapes)
@@ -164,11 +172,22 @@ class BucketedExchanger:
         self.specs: Tuple[BucketSpec, ...] = tuple(partition_buckets(
             names, [math.prod(shapes[n]) for n in names], cfg.bucket_bytes, order=cfg.bucket_order
         ))
-        self.fused = FusedBuffer({
-            s.label: TensorCodec((s.total,), cfg, name=s.label, slots=bucket_num_slots(s.sizes, cfg.compress_ratio),
-                                 device=self.device)
-            for s in self.specs
-        }, checksum=cfg.payload_checksum)
+        if points is not None and len(points) != len(self.specs):
+            raise ValueError(
+                f"points must carry one (ratio, fpr) per bucket: got {len(points)} for {len(self.specs)} buckets"
+            )
+        self.points = None if points is None else tuple(
+            (float(r), None if f is None else float(f)) for r, f in points
+        )
+        codecs = {}
+        for b, spec in enumerate(self.specs):
+            ratio, cfg_b = cfg.compress_ratio, cfg
+            if self.points is not None:
+                ratio, fpr = self.points[b]
+                cfg_b = dataclasses.replace(cfg, compress_ratio=ratio, **({} if fpr is None else {"fpr": fpr}))
+            codecs[spec.label] = TensorCodec((spec.total,), cfg_b, name=spec.label,
+                                             slots=bucket_num_slots(spec.sizes, ratio), device=self.device)
+        self.fused = FusedBuffer(codecs, checksum=cfg.payload_checksum)
         self.bucket_of = {n: b for b, s in enumerate(self.specs) for n in s.names}
 
     def concat_bucket(self, tensors: Tree, spec: BucketSpec) -> torch.Tensor:
@@ -203,6 +222,7 @@ class BucketedExchanger:
         uniforms: Optional[Tree] = None,
         weights: Optional[torch.Tensor] = None,
         perturb: Optional[Callable[[torch.Tensor, int], torch.Tensor]] = None,
+        payloads_out: Optional[dict] = None,
     ) -> Tuple[Tree, Optional[Tree], Dict[str, WireStats], Optional[torch.Tensor]]:
         """The whole bucketed exchange of this worker's bucket super-tensors
         (label -> f32): one encode of every bucket into one buffer (each
@@ -213,9 +233,10 @@ class BucketedExchanger:
         `weights` (f32[W]) the participation mask. Returns (label -> sum
         over workers, label -> decode of row `own` or None, label -> wire
         stats, the checksum failures summed over the buckets or None), in
-        spec order."""
+        spec order; `payloads_out` receives the payloads by label."""
         buf = torch.empty(self.fused.nbytes, dtype=torch.uint8, device=self.device)
-        stats = self.fused.encode(buckets, buf, step=step, worker=worker, uniforms=uniforms)
+        stats = self.fused.encode(buckets, buf, step=step, worker=worker, uniforms=uniforms,
+                                  payloads_out=payloads_out, route="bucketed")
         spans = [buf[self.fused.span(s.label)] for s in self.specs]
         if perturb is not None:
             spans = [perturb(x, b) for b, x in enumerate(spans)]
@@ -226,24 +247,30 @@ class BucketedExchanger:
 
         def decode(b: int, handle: Gathered) -> None:
             label = self.specs[b].label
-            rows = handle.wait()
-            gates = None
-            if self.fused.checksum:
-                gates = self.fused.layouts[label].verify(rows)
-                fails.append(((1.0 - gates) if weights is None else (1.0 - gates) * weights).sum())
-            totals[label], owns[label] = self.fused.decode_sum(label, rows, own, step=step, weights=weights,
-                                                               gates=gates, batch=batch)
+            with span(f"exchange/bucket/{label}"), span("exchange/decode", route="bucketed"):
+                rows = handle.wait()
+                gates = None
+                if self.fused.checksum:
+                    gates = self.fused.layouts[label].verify(rows)
+                    fails.append(((1.0 - gates) if weights is None else (1.0 - gates) * weights).sum())
+                totals[label], owns[label] = self.fused.decode_sum(label, rows, own, step=step, weights=weights,
+                                                                   gates=gates, batch=batch)
+
+        def gather(x: torch.Tensor) -> Gathered:
+            with span("exchange/allgather", route="bucketed"):
+                return coll.all_gather_async(x)
 
         count = len(self.specs)
         if self.cfg.bucket_pipeline and count:
-            nxt = coll.all_gather_async(spans[0])
+            nxt = gather(spans[0])
             for b in range(count):
                 cur = nxt
                 if b + 1 < count:
-                    nxt = coll.all_gather_async(spans[b + 1])  # started before bucket b's decode
+                    nxt = gather(spans[b + 1])  # started before bucket b's decode
                 decode(b, cur)
         else:
-            handles = [coll.all_gather_async(x) for x in spans]
+            with span("exchange/allgather", route="bucketed"):
+                handles = [coll.all_gather_async(x) for x in spans]
             for b in range(count):
                 decode(b, handles[b])
         total_fails = None
@@ -263,12 +290,14 @@ class BucketedExchanger:
         step: int,
         worker: int,
         uniforms: Optional[Tree] = None,
+        payloads_out: Optional[dict] = None,
     ) -> Tuple[Gathered, WireStats]:
         """Bucket b of the streamed schedule: concatenate its (compensated)
         members, encode it into its span of `buf` (one grouped QSGD launch
         for this bucket) and start its gather. Returns the gather in flight
         and the bucket's wire stats; `decode_sum` reads the gather later.
-        The streamed schedule threads no chaos or checksum state."""
+        The streamed schedule threads no chaos or checksum state.
+        `payloads_out` receives the bucket's payload by label."""
         if self.fused.checksum or ChaosInjector.from_config(self.cfg) is not None:
             raise ValueError(
                 "the streamed schedule does not thread chaos or checksum state (the config rejects "
@@ -277,8 +306,10 @@ class BucketedExchanger:
         spec = self.specs[b]
         dense = self.concat_bucket(tensors, spec)
         stats = self.fused.encode({spec.label: dense}, buf, step=step, worker=worker, uniforms=uniforms,
-                                  units=[spec.label])
-        return coll.all_gather_async(buf[self.fused.span(spec.label)]), stats[spec.label]
+                                  units=[spec.label], payloads_out=payloads_out, route="bucketed")
+        with span("exchange/allgather", route="bucketed"):
+            handle = coll.all_gather_async(buf[self.fused.span(spec.label)])
+        return handle, stats[spec.label]
 
     def saturation_vector(self, stats_per: Dict[str, WireStats]) -> torch.Tensor:
         """f32[C] per-bucket saturation flags in spec order."""

@@ -56,6 +56,7 @@ from torch import nn
 from deepreduce_tpu_torch.metrics import WireStats, combine
 from deepreduce_tpu_torch.numerics import mean_of_sum
 from deepreduce_tpu_torch.parallel.hierarchical import HierarchicalExchanger
+from deepreduce_tpu_torch.telemetry.spans import span
 
 Tree = Dict[str, torch.Tensor]
 
@@ -100,12 +101,13 @@ class StreamingExchange:
         `batch`. Returns (loss, this worker's raw gradients, the aggregate,
         the new residuals or None, this worker's wire stats). `uniforms`
         (bucket label -> f32, CPU only) replaces the QSGD draws; `collect`,
-        when a dict, receives the per-bucket saturation flags
+        when a dict, receives the measured bloom false positives
+        (`fp_count`, `fp_universe`) and the per-bucket saturation flags
         (`bucket_saturated`), as `GradientExchanger.exchange` gives them."""
         ex = self.exchanger
         if sorted(params) != ex.names:
             raise ValueError("params must hold exactly the tensors the exchanger was built for")
-        run = _Dispatch(self, residuals, step=step, uniforms=uniforms)
+        run = _Dispatch(self, residuals, step=step, uniforms=uniforms, payloads=collect is not None)
         hooks = []
         try:
             try:
@@ -131,9 +133,11 @@ class StreamingExchange:
             rows = handle.wait()
             if main is not None:
                 rows.record_stream(main)
-            totals[spec.label], owns[spec.label] = self.bucketed.fused.decode_sum(spec.label, rows, own, step=step,
-                                                                                  batch=batch)
+            with span(f"exchange/bucket/{spec.label}"), span("exchange/decode", route="bucketed"):
+                totals[spec.label], owns[spec.label] = self.bucketed.fused.decode_sum(spec.label, rows, own,
+                                                                                      step=step, batch=batch)
         if collect is not None:
+            collect["fp_count"], collect["fp_universe"] = self.bucketed.fused.fp_totals(run.payloads, ex.device)
             collect["bucket_saturated"] = self.bucketed.saturation_vector(stats)
         mean, own_dec = ex.mean_and_own(totals, owns if own is not None else None, ex.num_workers)
         agg, new_residuals = ex.finish(run.grads, run.compensated, mean, own_dec)
@@ -149,8 +153,10 @@ class _Dispatch:
     gradients seen, and the buckets sent so far (strictly in spec order)."""
 
     def __init__(self, stream: StreamingExchange, residuals: Optional[Tree], *, step: int,
-                 uniforms: Optional[Tree]):
+                 uniforms: Optional[Tree], payloads: bool = False):
         self.stream = stream
+        # each bucket's payload by label, for the false-positive count
+        self.payloads: Optional[dict] = {} if payloads else None
         self.residuals = residuals
         self.step = step
         self.uniforms = uniforms
@@ -217,16 +223,20 @@ class _Dispatch:
                 reads += [self.residuals[n] for n in spec.names]
             for t in reads:
                 t.record_stream(side)
-        with torch.cuda.stream(side) if side is not None else contextlib.nullcontext():
+        with torch.cuda.stream(side) if side is not None else contextlib.nullcontext(), \
+                span(f"exchange/bucket/{spec.label}"):
             hier = stream.hier
             if hier is not None and hier.per_slice > 1:
                 bucketed = stream.bucketed
-                summed = hier.ici.all_reduce_sum(bucketed.concat_bucket(grads, spec))
+                with span("exchange/ici"):
+                    summed = hier.ici.all_reduce_sum(bucketed.concat_bucket(grads, spec))
                 grads = bucketed.split_bucket(spec, mean_of_sum(summed, hier.per_slice))
-            comp = ex.compensate(grads, self.residuals)
-            self.inflight[b] = stream.bucketed.run_streaming_bucket(
-                b, comp, self.buf, ex.coll, step=self.step, worker=ex.rank, uniforms=self.uniforms
-            )
+            with span("exchange/dcn") if hier is not None else contextlib.nullcontext():
+                comp = ex.compensate(grads, self.residuals)
+                self.inflight[b] = stream.bucketed.run_streaming_bucket(
+                    b, comp, self.buf, ex.coll, step=self.step, worker=ex.rank, uniforms=self.uniforms,
+                    payloads_out=self.payloads,
+                )
         if side is not None:
             # the main stream reads the compensated gradient after the wait
             for t in comp.values():

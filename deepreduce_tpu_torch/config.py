@@ -19,8 +19,11 @@ the Huffman index, the C++ library's bloom index with the exact P2 policy
 `conflict_sets` and its integer family under `code`, the Deflate and the
 searched-knot PolyFit value codecs; the unfused exchange, the vmap and ring
 decodes and the resilience subsystem; the federated simulation's knobs
-`fed*`, `fed_async*`, `fed_tenants` / `fed_mt_*`, `pop_*` and `slo_*`),
-with the same names and defaults.
+`fed*`, `fed_async*`, `fed_tenants` / `fed_mt_*`, `pop_*` and `slo_*`;
+`telemetry` / `telemetry_every` and the adaptive controller's `ctrl*`),
+with the same names and defaults. Of the JAX package's fields only
+`use_pallas` is missing: it picks the TPU kernel's Pallas route, and the
+port runs its CUDA kernels on the card.
 A value the port does not implement raises `ConfigError` naming
 the knob, so that no run quietly takes another path than the one it asked
 for (for instance `approx_topk=True`: torch has no `approx_max_k`, and
@@ -315,6 +318,13 @@ class DeepReduceConfig:
     # the reference's 'micro-benchmark' mode: `TensorCodec.micro_benchmark`
     # prints its per-stage times and relative volumes (observability only)
     micro_benchmark: bool = False
+    # telemetry (telemetry/): the Trainer's on-device `MetricAccumulators`
+    # (and the FedSim state's), added to every step without a host sync and
+    # fetched to the host every `telemetry_every` steps. Off by default:
+    # the telemetry-off step runs exactly the ops it runs without the
+    # subsystem.
+    telemetry: bool = False
+    telemetry_every: int = 10
     # the resilience subsystem (resilience/): a participation mask from
     # i.i.d. dropout at `drop_rate` and the `fault_plan` schedule
     # ('worker@start:stop' or 'worker@step', comma-separated), a checksum
@@ -378,6 +388,21 @@ class DeepReduceConfig:
     slo_spec: Optional[str] = None
     slo_window: int = 0
     slo_hysteresis: int = 0
+    # the adaptive compression controller (controller/): every
+    # `telemetry_every` steps the Trainer hands the fetched accumulators'
+    # window to a host-side controller that moves compress_ratio / fpr one
+    # rung along `ctrl_ladder` ('ratio' or 'ratio@fpr' entries, strictly
+    # increasing ratios). It votes up below `ctrl_target_err_cos` or above
+    # `ctrl_saturation_ceiling` saturated payloads a step, down above the
+    # target plus `ctrl_headroom`, and moves after `ctrl_hysteresis`
+    # consecutive votes one way. One exchanger per rung visited. Needs
+    # telemetry=True; off by default.
+    ctrl: bool = False
+    ctrl_ladder: str = "0.005,0.01,0.02,0.05"
+    ctrl_target_err_cos: float = 0.97
+    ctrl_headroom: float = 0.015
+    ctrl_saturation_ceiling: float = 1e9
+    ctrl_hysteresis: int = 2
 
     def __post_init__(self):
         checked = dict(_SUPPORTED, **(_SUPPORTED_CODEC if self.deepreduce is not None else {}))
@@ -413,12 +438,21 @@ class DeepReduceConfig:
         self._check_resilience()
         self._check_hier()
         self._check_fed()
-        if self.profile is not None and "auto" not in (self.rs_mode, self.hier_ici, self.hier_dcn):
-            raise ConfigError(
-                "profile-needs-auto-selector",
-                f"profile={self.profile!r} prices the 'auto' selections and would be silently ignored with every "
-                "selector explicit: set rs_mode='auto' or hier_ici/hier_dcn='auto' (or drop profile)",
-            )
+        self._check_ctrl()
+        if self.profile is not None:
+            if "auto" not in (self.rs_mode, self.hier_ici, self.hier_dcn):
+                raise ConfigError(
+                    "profile-needs-auto-selector",
+                    f"profile={self.profile!r} prices the 'auto' selections and would be silently ignored with "
+                    "every selector explicit: set rs_mode='auto' or hier_ici/hier_dcn='auto' (or drop profile)",
+                )
+            if self.ctrl:
+                raise ConfigError(
+                    "profile-vs-ctrl",
+                    "profile and ctrl=True both own the operating point: the controller moves compress_ratio "
+                    "along its ladder while the profile re-prices the 'auto' route choice at that ratio, so "
+                    "the two would fight — use one or the other",
+                )
 
     def _check_host_codecs(self) -> None:
         """The pairings the JAX package refuses: the exact P2 policy off the
@@ -492,6 +526,8 @@ class DeepReduceConfig:
             )
         if self.decode_batch < 1:
             raise ConfigError("decode-batch-range", f"decode_batch must be >= 1, got {self.decode_batch}")
+        if self.telemetry_every < 1:
+            raise ConfigError("telemetry-every-range", f"telemetry_every must be >= 1, got {self.telemetry_every}")
 
     def _check_buckets(self) -> None:
         """The bucketed and streamed exchange's fences, under the JAX
@@ -526,7 +562,7 @@ class DeepReduceConfig:
         if self.stream_exchange and self.hier and not (
             self.communicator == "allgather" and self.hier_ici == "dense" and self.hier_dcn == "config"
             and self.decode_strategy in ("loop", "vmap")
-            and not self.fed and not self.fed_async and self.fed_tenants == 0
+            and not self.ctrl and not self.fed and not self.fed_async and self.fed_tenants == 0
         ):
             raise ConfigError(
                 "stream-vs-hier",
@@ -842,6 +878,57 @@ class DeepReduceConfig:
             if self.slo_hysteresis < 0:
                 raise ConfigError("slo-hysteresis-range",
                                   f"slo_hysteresis must be >= 0 (0 keeps the spec value), got {self.slo_hysteresis}")
+
+    def _check_ctrl(self) -> None:
+        """The adaptive controller's fences, in the JAX package's order and
+        under its codes."""
+        ctrl_engaged = [
+            name for name in ("ctrl_ladder", "ctrl_target_err_cos", "ctrl_headroom", "ctrl_saturation_ceiling",
+                              "ctrl_hysteresis")
+            if getattr(self, name) != getattr(type(self), name)
+        ]
+        if ctrl_engaged and not self.ctrl:
+            raise ConfigError(
+                "ctrl-knobs-disengaged",
+                f"{', '.join(ctrl_engaged)} configure the adaptive compression controller and would be silently "
+                "ignored with ctrl=False — set ctrl=True (or drop the knob(s))",
+            )
+        if not self.ctrl:
+            return
+        if not self.telemetry:
+            raise ConfigError(
+                "ctrl-needs-telemetry",
+                "ctrl=True requires telemetry=True: the controller consumes the MetricAccumulators fetch and adds "
+                "no syncs of its own",
+            )
+        if self.compressor == "none":
+            raise ConfigError(
+                "ctrl-needs-compressor",
+                "ctrl=True has nothing to tune with compressor='none' (no sparsifier budget); pick a sparsifying "
+                "compressor",
+            )
+        if self.hier or self.fed:
+            raise ConfigError(
+                "ctrl-vs-hier-fed",
+                "ctrl=True drives the flat GradientExchanger only — it cannot rebuild the hierarchical or "
+                "federated pipelines per rung (hier=False, fed=False required)",
+            )
+        for code, knob, ok, what in (
+            ("ctrl-target-range", "ctrl_target_err_cos", 0.0 < self.ctrl_target_err_cos <= 1.0, "must be in (0, 1]"),
+            ("ctrl-headroom-range", "ctrl_headroom", self.ctrl_headroom >= 0.0, "must be >= 0"),
+            ("ctrl-saturation-range", "ctrl_saturation_ceiling", self.ctrl_saturation_ceiling >= 0.0,
+             "must be >= 0"),
+            ("ctrl-hysteresis-range", "ctrl_hysteresis", self.ctrl_hysteresis >= 1, "must be >= 1"),
+        ):
+            if not ok:
+                raise ConfigError(code, f"{knob} {what}, got {getattr(self, knob)}")
+        # the ladder's syntax at construction (ladder.py imports this module)
+        from deepreduce_tpu_torch.controller.ladder import Ladder
+
+        try:
+            Ladder.parse(self.ctrl_ladder)
+        except ValueError as e:
+            raise ConfigError("ctrl-ladder-syntax", str(e)) from e
 
     def fed_config(self):
         """The round-geometry view of the fed_* knobs."""

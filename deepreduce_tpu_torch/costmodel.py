@@ -1,17 +1,16 @@
 """The cost model of the exchange routes, copied from
-`deepreduce_tpu/costmodel.py` (lines 1-1255: the machine profiles, the
+`deepreduce_tpu/costmodel.py` (all of it: the machine profiles, the
 flat and W-aware step-time models, the federated round estimators, the
 sparse_rs wire accounting with its `sketch` row, the `rs_mode='auto'`
-selector `select_rs_mode`, and the two-tier ICI x DCN model with its
-planner `select_hier_plan`), so that the port imports nothing of the JAX
-package. The code below is the JAX package's, unchanged: every selector
-picks what the JAX package picks and every byte count equals its own
-(`tests/test_torch_costmodel.py` holds them equal with `==`), and a
-profile the JAX package wrote (`PROFILE_SCHEMA`) loads here.
-
-Not copied yet: `calibrate` and its span tables (`CAL_*_SPANS`,
-`span_self_times*`, `drop_warmup`), which fit a profile from a telemetry
-run directory; they wait for the port's telemetry.
+selector `select_rs_mode`, the two-tier ICI x DCN model with its planner
+`select_hier_plan`, and `calibrate` with its span tables, which fits a
+profile from a tracking run directory the port's telemetry writes), so
+that the port imports nothing of the JAX package. The code below is the
+JAX package's, unchanged: every selector picks what the JAX package picks
+and every byte count equals its own (`tests/test_torch_costmodel.py` holds
+them equal with `==`), a profile the JAX package wrote (`PROFILE_SCHEMA`)
+loads here, and `calibrate` fits the record the JAX package fits from the
+same run directory (`tests/test_torch_calibrate.py`).
 
 What follows is the JAX module's own description.
 
@@ -48,7 +47,8 @@ import dataclasses
 import hashlib
 import json
 import math
-from typing import Any, Dict, Optional, Tuple
+import pathlib
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 # 100 Mbps in bytes/s — the paper's federated uplink assumption, and the
 # default link every committed bench record uses.
@@ -1268,3 +1268,339 @@ def select_hier_plan(
         "modeled_step_s": table[f"{best[0]}+{best[1]}"],
         "table": table,
     }
+
+# ---------------------------------------------------------------------------
+# Calibration: fit a MachineProfile from a tracking run directory.
+#
+# The fit joins three telemetry artifacts every `--telemetry` run writes:
+#   trace.json    — host-side span X-events. Spans wrapping traced code fire
+#                   ONCE PER TRACE (their durations are trace-time, inflated
+#                   ~10x over a compiled step), while the driver's
+#                   `train/step` span fires every step with real wall time.
+#   summary.json  — the on-device accumulators' derived rows, including the
+#                   per-axis wire counters `dcn_bytes_per_step` /
+#                   `ici_bytes_per_step`.
+#   metrics.jsonl — per-step records; consecutive `ts` deltas are the step-
+#                   time fallback when the run has no train/step spans.
+#
+# The decomposition is share-based: per-span-name SELF time (container time
+# minus children — streaming runs nest the exchange spans inside
+# train/forward_backward) is bucketed into encode / decode / DCN-wire /
+# ICI-wire / compute / other categories, and each category's share of the
+# trace-time pool is apportioned against the measured (warmup-dropped) mean
+# step time. The identifiability assumption this rests on: RELATIVE span
+# durations at trace time track relative durations at run time — trace-time
+# inflation cancels in the shares. Predicted step time is the sum of the
+# apportioned components, so the fit reproduces the measured step time
+# exactly by construction; the CLI tolerance gate checks the round trip
+# through the model formulas (bw inverted, then wire recomputed).
+#
+# Parameters a run cannot identify (no decode spans, zero ICI bytes, ...)
+# are held at the static constants and listed under `fixed` — a profile is
+# honest about what it measured.
+# ---------------------------------------------------------------------------
+
+# leaf spans charged to each model parameter. Everything not listed (and
+# not excluded) lands in the residual "other" component, which calibrate()
+# carries through so the decomposition stays exact.
+CAL_ENCODE_SPANS = frozenset({
+    "exchange/encode", "exchange/pack",
+    "sparse_rs/select", "sparse_rs/quantize", "sparse_rs/adaptive-quantize",
+    "sparse_rs/sketch",
+})
+CAL_DECODE_SPANS = frozenset({
+    "exchange/decode", "sparse_rs/unsketch", "sparse_rs/reduce",
+})
+CAL_WIRE_DCN_SPANS = frozenset({
+    "exchange/allgather", "exchange/ring", "exchange/qar",
+    "sparse_rs/route", "sparse_rs/allgather", "sparse_rs/psum",
+    "sparse_rs/reduce-scatter", "sparse_rs/norm-pmax",
+})
+CAL_WIRE_ICI_SPANS = frozenset({"exchange/ici"})
+CAL_COMPUTE_SPANS = frozenset({"train/forward_backward"})
+# spans that are not per-step work at all: the driver's step timer (it is
+# the measurement target, not a component) and the one-time program build
+CAL_EXCLUDED_SPANS = frozenset({"train/step", "train/build"})
+
+
+def drop_warmup(xs: Sequence[float], k: float = 4.0) -> List[float]:
+    """Strip the leading run of compile-skewed samples: with the median of
+    the trailing half as the steady-state scale, drop leading samples more
+    than `k` times it. Robust to MULTIPLE warmup steps (a telemetry run
+    compiles once per distinct program — streaming runs show two) where a
+    drop-first-only policy is not. Always keeps at least one sample."""
+    xs = list(xs)
+    if len(xs) <= 1:
+        return xs
+    tail = sorted(xs[len(xs) // 2:])
+    ref = tail[len(tail) // 2]
+    i = 0
+    while i < len(xs) - 1 and xs[i] > k * ref:
+        i += 1
+    return xs[i:]
+
+
+def _span_route(e: Dict[str, Any]) -> str:
+    """The event's route attribution ("" when unlabeled)."""
+    args = e.get("args")
+    if isinstance(args, dict) and isinstance(args.get("route"), str):
+        return args["route"]
+    return ""
+
+
+def span_self_times_by_route(events) -> Dict[Tuple[str, str], float]:
+    """Per-(span-name, route) SELF time in seconds from Chrome-trace "X"
+    events: each span's duration minus its direct children's, computed with
+    a per-(pid, tid) interval stack — so a container like
+    train/forward_backward is not double-charged for the exchange spans a
+    streaming run nests inside it, and a wire span nested inside a labeled
+    encode span keeps its time out of that route's encode row. Unlabeled
+    spans key under route ""."""
+    by_tid: Dict[Any, List[Tuple[float, float, str, str]]] = {}
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        ts, dur = e.get("ts"), e.get("dur")
+        if not isinstance(ts, (int, float)) or not isinstance(dur, (int, float)):
+            continue
+        key = (e.get("pid"), e.get("tid"))
+        by_tid.setdefault(key, []).append(
+            (float(ts), float(dur), str(e.get("name", "")), _span_route(e))
+        )
+    self_us: Dict[Tuple[str, str], float] = {}
+    for evs in by_tid.values():
+        # parents sort before children: earlier start first, longer first on
+        # ties (a child can share its parent's start timestamp)
+        evs.sort(key=lambda t: (t[0], -t[1]))
+        stack: List[Tuple[float, Tuple[str, str]]] = []  # (end_ts, key)
+        for ts, dur, name, route in evs:
+            while stack and ts >= stack[-1][0]:
+                stack.pop()
+            k = (name, route)
+            self_us[k] = self_us.get(k, 0.0) + dur
+            if stack:
+                parent = stack[-1][1]
+                self_us[parent] = self_us.get(parent, 0.0) - dur
+            stack.append((ts + dur, k))
+    return {k: us * 1e-6 for k, us in self_us.items()}
+
+
+def span_self_times(events) -> Dict[str, float]:
+    """Per-span-name SELF time in seconds — `span_self_times_by_route`
+    aggregated over the route attribution (the pre-v2 view; adding route
+    labels to spans cannot change these totals)."""
+    out: Dict[str, float] = {}
+    for (name, _route), s in span_self_times_by_route(events).items():
+        out[name] = out.get(name, 0.0) + s
+    return out
+
+
+def _read_json(path: pathlib.Path) -> Dict[str, Any]:
+    if not path.exists():
+        return {}
+    with open(path) as f:
+        return json.load(f)
+
+
+def calibrate(
+    run_dir, *, include_warmup: bool = False, warmup_k: float = 4.0
+) -> MachineProfile:
+    """Fit a MachineProfile from one tracking run dir (see the section
+    comment above for the decomposition). Deterministic: the profile is a
+    pure function of the run dir's committed files — no wall clock enters
+    the record, so re-running on a committed run dir is bitwise stable.
+    Raises ValueError when the run lacks the telemetry the fit needs."""
+    run = pathlib.Path(run_dir)
+    cfg_rec = _read_json(run / "config.json")
+    if not cfg_rec:
+        raise ValueError(f"{run}: no config.json — not a tracking run dir")
+    config = cfg_rec.get("config", {}) or {}
+    W = int(config.get("workers", cfg_rec.get("workers", 1)) or 1)
+    trace = _read_json(run / "trace.json")
+    events = [e for e in trace.get("traceEvents", []) if e.get("ph") == "X"]
+    if not events:
+        raise ValueError(
+            f"{run}: no span trace (trace.json) — re-run with --telemetry "
+            "to record the spans the fit decomposes"
+        )
+    routed_s = span_self_times_by_route(events)
+    self_s: Dict[str, float] = {}
+    for (name, _route), s in routed_s.items():
+        self_s[name] = self_s.get(name, 0.0) + s
+
+    # --- measured step time: train/step spans, else metrics.jsonl ts ---- #
+    step_durs = sorted(
+        (float(e["ts"]), float(e["dur"]) * 1e-6)
+        for e in events
+        if e.get("name") == "train/step"
+        and isinstance(e.get("ts"), (int, float))
+        and isinstance(e.get("dur"), (int, float))
+    )
+    samples = [dur for _, dur in step_durs]
+    step_source = "train/step spans"
+    if not samples:
+        ts: List[float] = []
+        mpath = run / "metrics.jsonl"
+        if mpath.exists():
+            with open(mpath) as f:
+                for line in f:
+                    line = line.strip()
+                    if line:
+                        rec = json.loads(line)
+                        if isinstance(rec.get("ts"), (int, float)):
+                            ts.append(float(rec["ts"]))
+        samples = [b - a for a, b in zip(ts, ts[1:]) if b >= a]
+        step_source = "metrics.jsonl ts deltas"
+    if not samples:
+        raise ValueError(
+            f"{run}: no step-time samples (no train/step spans and no "
+            "metrics.jsonl timestamps)"
+        )
+    n_total = len(samples)
+    kept = samples if include_warmup else drop_warmup(samples, k=warmup_k)
+    if len(kept) < 4:
+        raise ValueError(
+            f"{run}: too few step-time samples to fit from — the run has "
+            f"{n_total} sample(s), {len(kept)} left after the warmup drop; "
+            "the share-based fit needs >= 4 post-warmup samples "
+            "(re-run with more steps)"
+        )
+    T = sum(kept) / len(kept)
+    if T <= 0.0:
+        raise ValueError(f"{run}: measured mean step time is not positive")
+
+    # --- trace-time shares -> apportioned per-step component seconds ---- #
+    pool = {
+        name: s
+        for name, s in self_s.items()
+        if name not in CAL_EXCLUDED_SPANS and s > 0.0
+    }
+    total_tr = sum(pool.values())
+
+    def _cat(names) -> float:
+        return sum(s for n, s in pool.items() if n in names)
+
+    enc_tr = _cat(CAL_ENCODE_SPANS)
+    dec_tr = _cat(CAL_DECODE_SPANS)
+    wdcn_tr = _cat(CAL_WIRE_DCN_SPANS)
+    wici_tr = _cat(CAL_WIRE_ICI_SPANS)
+    comp_tr = _cat(CAL_COMPUTE_SPANS)
+    other_tr = total_tr - (enc_tr + dec_tr + wdcn_tr + wici_tr + comp_tr)
+    scale = T / total_tr if total_tr > 0.0 else 0.0
+    enc_s, dec_s = enc_tr * scale, dec_tr * scale
+    wdcn_s, wici_s = wdcn_tr * scale, wici_tr * scale
+    comp_s, other_s = comp_tr * scale, other_tr * scale
+
+    # --- per-route encode/decode rows (the v2 `routes` table) ----------- #
+    # labeled encode/decode self-time buckets per route BEFORE the share
+    # fit; the same trace-time -> step-time scale apportions each bucket,
+    # so the route rows sum (up to the decode-multiplicity convention) to
+    # the global enc_s/dec_s they were split out of.
+    enc_tr_route: Dict[str, float] = {}
+    dec_tr_route: Dict[str, float] = {}
+    for (name, route), s in routed_s.items():
+        if not route or s <= 0.0:
+            continue
+        if name in CAL_ENCODE_SPANS:
+            enc_tr_route[route] = enc_tr_route.get(route, 0.0) + s
+        elif name in CAL_DECODE_SPANS:
+            dec_tr_route[route] = dec_tr_route.get(route, 0.0) + s
+    route_samples: Dict[str, int] = {}
+    for e in events:
+        nm, route = str(e.get("name", "")), _span_route(e)
+        if route and (nm in CAL_ENCODE_SPANS or nm in CAL_DECODE_SPANS):
+            route_samples[route] = route_samples.get(route, 0) + 1
+    routes: Dict[str, Dict[str, float]] = {}
+    for label in sorted(set(enc_tr_route) | set(dec_tr_route)):
+        routes[label] = {
+            "t_enc_s": enc_tr_route.get(label, 0.0) * scale,
+            "t_dec_s": dec_tr_route.get(label, 0.0)
+            * scale
+            / _route_decodes_per_step(label, W),
+            "samples": route_samples.get(label, 1),
+        }
+
+    # --- wire counters (per-worker injection bytes per step) ------------ #
+    telem = _read_json(run / "summary.json").get("telemetry") or {}
+    dcn_bytes = float(telem.get("dcn_bytes_per_step", 0.0) or 0.0)
+    ici_bytes = float(telem.get("ici_bytes_per_step", 0.0) or 0.0)
+
+    # --- invert the model where identifiable, hold constants where not -- #
+    fitted: List[str] = []
+    fixed: List[str] = []
+    t_enc = 0.0
+    if enc_tr > 0.0:
+        t_enc = enc_s
+        fitted.append("t_enc")
+    else:
+        fixed.append("t_enc")
+    t_dec = 0.0
+    if dec_tr > 0.0:
+        # the model charges W decodes per step (own + W-1 remote rows)
+        t_dec = dec_s / W
+        fitted.append("t_dec")
+    else:
+        fixed.append("t_dec")
+    bw_dcn = BW_100MBPS
+    if wdcn_tr > 0.0 and dcn_bytes > 0.0 and W > 1:
+        # allgather ring: wire_s = (W-1) * injection_bytes / bw
+        bw_dcn = (W - 1) * dcn_bytes / wdcn_s
+        fitted.append("bw_dcn")
+    else:
+        fixed.append("bw_dcn")
+    bw_ici = BW_ICI_10GBPS
+    if wici_tr > 0.0 and ici_bytes > 0.0:
+        bw_ici = ici_bytes / wici_s
+        fitted.append("bw_ici")
+    else:
+        fixed.append("bw_ici")
+    compute_time = 0.0
+    if comp_tr > 0.0:
+        compute_time = comp_s
+        fitted.append("compute_time")
+    else:
+        fixed.append("compute_time")
+
+    # round trip through the model formulas: fitted bandwidths re-price the
+    # observed bytes, fixed components keep their apportioned seconds
+    wire_dcn_pred = (
+        allgather_time(dcn_bytes, W, bw_dcn) if "bw_dcn" in fitted else wdcn_s
+    )
+    wire_ici_pred = ici_bytes / bw_ici if "bw_ici" in fitted else wici_s
+    predicted = (
+        t_enc + wire_dcn_pred + wire_ici_pred + W * t_dec + compute_time + other_s
+    )
+    cfg_digest = hashlib.sha256(
+        json.dumps(config, sort_keys=True).encode()
+    ).hexdigest()[:16]
+    source = {
+        "run": run.name,
+        "config_digest": cfg_digest,
+        "workers": W,
+        "step_time_source": step_source,
+        "include_warmup": bool(include_warmup),
+        "steps_total": n_total,
+        "steps_measured": len(kept),
+        "warmup_dropped": n_total - len(kept),
+        "measured_step_s": T,
+        "predicted_step_s": predicted,
+        "encode_s": enc_s,
+        "decode_s": dec_s,
+        "wire_dcn_s": wdcn_s,
+        "wire_ici_s": wici_s,
+        "compute_s": comp_s,
+        "other_s": other_s,
+        "dcn_bytes_per_step": dcn_bytes,
+        "ici_bytes_per_step": ici_bytes,
+    }
+    return MachineProfile(
+        bw_dcn=bw_dcn,
+        bw_ici=bw_ici,
+        t_enc_s=t_enc,
+        t_dec_s=t_dec,
+        compute_time_s=compute_time,
+        fitted=tuple(fitted),
+        fixed=tuple(fixed),
+        routes=routes,
+        source=source,
+    )

@@ -42,7 +42,6 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 from torch.utils._pytree import tree_leaves
 
 from deepreduce_tpu_torch.config import DeepReduceConfig
@@ -58,6 +57,7 @@ from deepreduce_tpu_torch.fedsim.round import (
 )
 from deepreduce_tpu_torch.metrics import WireStats, combine
 from deepreduce_tpu_torch.numerics import fma_f32, reciprocal_f32
+from deepreduce_tpu_torch.telemetry.spans import span
 
 Tree = Dict[str, torch.Tensor]
 
@@ -183,7 +183,7 @@ class FedAvg:
         # S2C: the model delta against the receivers' state w_ref, so that
         # undelivered mass reappears in the next round's delta
         delta = tree_sub(state.params, state.w_ref)
-        with record_function("fedavg/s2c"):
+        with span("fedavg/s2c"):
             dec_delta, _, wire_s2c = self.tree_codecs["s2c"].compress_tree(
                 delta, None, step=state.round, worker=0, uniforms=uniforms.get("s2c")
             )
@@ -194,7 +194,7 @@ class FedAvg:
         client_step = make_client_step(
             self.tree_codecs["c2s"], self._local_train, w_ref, state.round, uniforms=uniforms.get("c2s")
         )
-        with record_function("fedavg/clients"):
+        with span("fedavg/clients"):
             upd_sum, _, wire4, live = cohort_updates(
                 client_step, client_batches, state.c2s_residuals, range(C), rows=ids_dev,
                 update_template=state.params, participation=participation,

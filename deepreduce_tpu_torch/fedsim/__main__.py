@@ -22,8 +22,11 @@ population with per-class latency rows, `--slo` the SLO health monitor
 bitwise after the resume) and `--tenants T` the multi-tenant tick (a tenant
 leaving and rejoining, its state frozen meanwhile, a mid-fill checkpoint
 resumed bitwise, a restore under another tenant count refused). It writes
-`metrics.jsonl` (one row a round) and, with `--slo`, `health.jsonl` under
-the run directory, and prints a JSON report; exit 0 iff every check holds.
+a `tracking.Run` directory (`config.json`, `metrics.jsonl` with one row a
+round, `summary.json` with the round rates and the telemetry accumulators'
+rows, which `python -m deepreduce_tpu_torch.telemetry summary` renders)
+and, with `--slo`, `health.jsonl` there, and prints a JSON report; exit 0
+iff every check holds.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ import argparse
 import json
 import pathlib
 import sys
+
+from deepreduce_tpu_torch import tracking
 
 
 def _build_cfg(**overrides):
@@ -45,6 +50,7 @@ def _build_cfg(**overrides):
         fpr=0.01,
         memory="residual",
         min_compress_size=8,
+        telemetry=True,
     )
     base.update(overrides)
     return DeepReduceConfig(**base)
@@ -155,20 +161,6 @@ def _host(m) -> dict:
     return {k: v.tolist() if v.dim() else float(v) for k, v in m.items()}
 
 
-class _Run:
-    """The run directory: metrics.jsonl, one row a round."""
-
-    def __init__(self, track_dir: str, name: str):
-        self.dir = pathlib.Path(track_dir) / name
-        self.dir.mkdir(parents=True, exist_ok=True)
-        self.metrics = self.dir / "metrics.jsonl"
-        self.metrics.write_text("")
-
-    def log(self, row: dict) -> None:
-        with self.metrics.open("a") as f:
-            f.write(json.dumps(row, sort_keys=True) + "\n")
-
-
 def _sims(args, cfg, run_dir):
     """One `FedSim` per worker (in-process workers on the CPU, one worker on
     the card) and the linear problem."""
@@ -216,7 +208,8 @@ def _run_check(args):
 
     cfg = _build_cfg(**check_overrides(args))
     fed = cfg.fed_config()
-    run = _Run(args.track_dir, "check")
+    run = tracking.Run(args.track_dir, name="check", config={"fed": fed.__dict__, "codec": cfg.codec_params()},
+                       tags=["fedsim", "check"])
     group, build, dim = _sims(args, cfg, run.dir)
     sims, states = build()
     w_true = teacher(dim, args.device)
@@ -278,6 +271,7 @@ def _run_check(args):
     resumed_equal = all(_equal(a, b) for a, b in zip(states, states2))
 
     summary = sims[0].summary(states[0])
+    run.finish(summary)
     w_err = w_rel(states[0].params)
     C = fed.clients_per_round
     checks = {
@@ -373,7 +367,9 @@ def _run_mt_check(args):
     fed = cfg.fed_config()
     C = fed.clients_per_round
     cohorts = [float(c) for c in overrides["fed_mt_cohort"].split(",")]
-    run = _Run(args.track_dir, "mt-check")
+    run = tracking.Run(args.track_dir, name="mt-check",
+                       config={"fed": fed.__dict__, "fed_tenants": T, "codec": cfg.codec_params()},
+                       tags=["fedsim", "mt", "check"])
     group, build, dim = _sims(args, cfg, run.dir)
     sims, states = build()
     w_true = teacher(dim, args.device)
@@ -445,6 +441,7 @@ def _run_mt_check(args):
             t_mismatch_fast = "tenant-geometry" in str(e)
 
     summary = sims[0].summary(states[0])
+    run.finish(summary)
     errs = w_errs(states[0])
     checks = {
         "params_finite": all(bool(torch.isfinite(x).all()) for s in states for x in s.params.values()),

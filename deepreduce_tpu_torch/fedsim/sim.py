@@ -46,9 +46,16 @@ The state is mutable where the JAX package donates it: the bank is updated
 in place every round, and the async buffer's ring and the multi-tenant
 state's stacked tensors every tick; keep only the returned state.
 Checkpoints go through `checkpoint.py` (`save` / `restore` take these
-states). What waits for the telemetry port: the JAX state's
-`MetricAccumulators`; `summary()` reports the rates it can compute without
-them.
+states).
+
+With `cfg.telemetry` the state carries the JAX package's
+`MetricAccumulators` (`telemetry`; [T] per-tenant rows in the multi-tenant
+state): each round or tick adds its wire bits, live clients, dropped
+rounds, checksum failures and, where engaged, the staleness and per-class
+histograms, all already reduced by the one all_reduce, so telemetry adds
+no collective and no host sync. `summary()` fetches them (fleet totals for
+the multi-tenant state) and reports the JAX package's telemetry rows next
+to the round rates.
 """
 
 from __future__ import annotations
@@ -65,6 +72,8 @@ from deepreduce_tpu_torch.comm import PayloadLayout
 from deepreduce_tpu_torch.config import DeepReduceConfig
 from deepreduce_tpu_torch.device import DeviceLike, check_on, resolve_device
 from deepreduce_tpu_torch.fedsim.codec_tree import TreeCodec
+from deepreduce_tpu_torch.telemetry.device_metrics import MetricAccumulators
+from deepreduce_tpu_torch.telemetry.spans import span
 from deepreduce_tpu_torch.fedsim.round import (
     WIRE_FIELDS,
     FedConfig,
@@ -161,6 +170,7 @@ class FedSimState:
     round: int
     buffer: Optional[AsyncBuffer] = None  # the async mode's buffer
     classes: Optional[torch.Tensor] = None  # int32 class ids of this worker's stratum
+    telemetry: Optional[MetricAccumulators] = None  # the counters (cfg.telemetry)
 
 
 @dataclasses.dataclass
@@ -184,6 +194,7 @@ class MultiTenantState:
     latency: Optional[Tuple[Tuple[float, ...], ...]]
     cohort: Optional[Tuple[float, ...]]
     tick: int
+    telemetry: Optional[MetricAccumulators] = None  # [T] rows of counters (cfg.telemetry)
 
 
 def synthetic_linear_problem(
@@ -385,7 +396,15 @@ class FedSim:
             classes = classes[self.widx * self.n_local : (self.widx + 1) * self.n_local].clone()
         w_ref = {n: p.clone() for n, p in params.items()}
         buffer = self._init_buffer(w_ref) if self.fed_async else None
-        return FedSimState(params=params, w_ref=w_ref, residuals=bank, round=0, buffer=buffer, classes=classes)
+        acc = None
+        if self.cfg_c2s.telemetry:
+            # the staleness histogram over the latency levels in async mode,
+            # the per-class histogram with a population
+            acc = MetricAccumulators.zeros(
+                num_stale_levels=len(self.latency_probs) if self.fed_async else 0,
+                num_pop_classes=self.pop.num_classes if self.pop is not None else 0, device=self.device)
+        return FedSimState(params=params, w_ref=w_ref, residuals=bank, round=0, buffer=buffer, classes=classes,
+                           telemetry=acc)
 
     def _init_buffer(self, w_ref: Tree) -> AsyncBuffer:
         """Empty buffer: version 0, pending broadcast (tick 0 pays the S2C as
@@ -424,9 +443,13 @@ class FedSim:
                 pending=torch.ones(T, dtype=torch.float32, device=self.device),
             )
             alpha, latency = self.mt_alpha, self.mt_latency
+        acc = None
+        if self.cfg_c2s.telemetry:
+            acc = MetricAccumulators.zeros(num_stale_levels=len(self.mt_latency[0]) if self.fed_async else 0,
+                                           device=self.device, batch=(T,))
         return MultiTenantState(
             params=_stack(params, T), w_ref=_stack(params, T), residuals=bank, round=(0,) * T, buffer=buffer,
-            active=(True,) * T, alpha=alpha, latency=latency, cohort=self.mt_cohort, tick=0,
+            active=(True,) * T, alpha=alpha, latency=latency, cohort=self.mt_cohort, tick=0, telemetry=acc,
         )
 
     def set_active(self, state: MultiTenantState, mask: Sequence[bool]) -> MultiTenantState:
@@ -572,7 +595,8 @@ class FedSim:
     def _finish(self, ctx, reduced: torch.Tensor):
         """The round's (tick's) second half from the summed members:
         the live-count renormalized server step (async: the buffer, applied
-        at K), the wire accounting and the metrics."""
+        at K), the wire accounting and the metrics. Returns (params, w_ref,
+        buffer, metrics, the round's wire stats)."""
         fed = self.fed
         parts = list(torch.split(reduced, ctx["sizes"]))
         names, params = ctx["names"], ctx["params"]
@@ -594,7 +618,7 @@ class FedSim:
             }
             if pop_hist is not None:
                 metrics["pop_hist"] = pop_hist
-            return new_params, ctx["w_ref"], None, metrics
+            return new_params, ctx["w_ref"], None, metrics, wire
 
         wsum, st_hist = rest[0][0], rest[1]
         rest = rest[2:]
@@ -652,7 +676,18 @@ class FedSim:
         }
         if pop_hist is not None:
             metrics["pop_hist"] = pop_hist
-        return new_params, ctx["w_ref"], new_buf, metrics
+        return new_params, ctx["w_ref"], new_buf, metrics, wire
+
+    def _tele_delta(self, acc: MetricAccumulators, wire: WireStats, metrics: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One round's accumulator terms from its reduced results: the wire,
+        the live clients, whether any sampled client was lost, the checksum
+        failures and the histograms (no collective of its own)."""
+        nlive = metrics["clients"]
+        return acc.delta(
+            wire, live_workers=nlive, dropped_steps=(nlive < self.fed.clients_per_round).to(torch.float32),
+            checksum_failures=metrics["checksum_failures"], staleness_hist=metrics.get("staleness_hist", 0.0),
+            pop_hist=metrics.get("pop_hist", 0.0),
+        )
 
     def _reduce(self, members: List[torch.Tensor]) -> torch.Tensor:
         """The round's ONE cross-worker collective: every member in one flat
@@ -662,9 +697,12 @@ class FedSim:
     def _single(self, state: FedSimState, key: int):
         ctx, members = self._local(state.params, state.w_ref, state.residuals, state.round, key,
                                    classes=state.classes, buf=state.buffer)
-        params, w_ref, buf, metrics = self._finish(ctx, self._reduce(members))
+        params, w_ref, buf, metrics, wire = self._finish(ctx, self._reduce(members))
+        acc = state.telemetry
+        if acc is not None:
+            acc = acc.add(self._tele_delta(acc, wire, metrics))
         return FedSimState(params=params, w_ref=w_ref, residuals=state.residuals, round=state.round + 1,
-                           buffer=buf, classes=state.classes), metrics
+                           buffer=buf, classes=state.classes, telemetry=acc), metrics
 
     def _mt_tick(self, state: MultiTenantState, key: int):
         """One multi-tenant tick: every active tenant's local half, ONE
@@ -700,11 +738,16 @@ class FedSim:
         reduced = all_reduce_counted(self.colls, torch.cat(flat)).view(T, width)
         rows: List[Optional[Dict[str, torch.Tensor]]] = []
         new_rounds = list(state.round)
+        acc = state.telemetry
+        deltas: List[Optional[torch.Tensor]] = []
         for t in range(T):
             if ctxs[t] is None:
                 rows.append(None)
+                deltas.append(None)
                 continue
-            params, w_ref, buf, metrics = self._finish(ctxs[t], reduced[t])
+            params, w_ref, buf, metrics, wire = self._finish(ctxs[t], reduced[t])
+            if acc is not None:
+                deltas.append(self._tele_delta(acc, wire, metrics))
             for n in state.params:
                 state.params[n][t].copy_(params[n])
                 state.w_ref[n][t].copy_(w_ref[n])
@@ -719,7 +762,11 @@ class FedSim:
         template = next(r for r in rows if r is not None)
         metrics = {k: torch.stack([r[k] if r is not None else torch.zeros_like(v) for r in rows])
                    for k, v in template.items()}
-        return dataclasses.replace(state, round=tuple(new_rounds), tick=state.tick + 1), metrics
+        if acc is not None:
+            # an inactive tenant's row stays as it is: a zero delta
+            width = next(x for x in deltas if x is not None)
+            acc = acc.add(torch.stack([x if x is not None else torch.zeros_like(width) for x in deltas]))
+        return dataclasses.replace(state, round=tuple(new_rounds), tick=state.tick + 1, telemetry=acc), metrics
 
     # ------------------------------------------------------------------ #
 
@@ -730,7 +777,12 @@ class FedSim:
         `block` waits for the device at the end, so that the host time
         recorded for `summary()` is the round's."""
         t0 = time.perf_counter()
-        out = self._mt_tick(state, key) if isinstance(state, MultiTenantState) else self._single(state, key)
+        if isinstance(state, MultiTenantState):
+            with span("fedsim/mt-tick"):
+                out = self._mt_tick(state, key)
+        else:
+            with span("fedsim/tick" if self.fed_async else "fedsim/round"):
+                out = self._single(state, key)
         if block and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._round_times.append(time.perf_counter() - t0)
@@ -754,12 +806,13 @@ class FedSim:
         r0 = state.tick if mt else state.round
         t0 = time.perf_counter()
         hist = []
-        for t in range(num_ticks):
-            if on_tick is not None:
-                on_tick(t)
-            tick_key = stream.key(key, r0 + t)
-            state, m = self._mt_tick(state, tick_key) if mt else self._single(state, tick_key)
-            hist.append(m)
+        with span("fedsim/stream"):
+            for t in range(num_ticks):
+                if on_tick is not None:
+                    on_tick(t)
+                tick_key = stream.key(key, r0 + t)
+                state, m = self._mt_tick(state, tick_key) if mt else self._single(state, tick_key)
+                hist.append(m)
         if on_tick is not None:
             on_tick(num_ticks)
         if self.device.type == "cuda":
@@ -770,10 +823,11 @@ class FedSim:
         return state, hist, wall
 
     def summary(self, state) -> Dict[str, float]:
-        """Host-side round-rate report: clients/sec from the recorded round
-        times (the first dropped when there are more, as it pays the first
-        calls' set-up). The JAX package's accumulator rows wait for the
-        telemetry port."""
+        """Host-side report: clients/sec from the recorded round times (the
+        first dropped when there are more, as it pays the first calls'
+        set-up) and, with telemetry, the accumulators' rows (one fetch;
+        the multi-tenant state's rows summed over the tenants first) and
+        the uplink bytes a round."""
         mt = isinstance(state, MultiTenantState)
         out: Dict[str, float] = {
             "clients_per_round": float(self.fed.clients_per_round),
@@ -793,4 +847,10 @@ class FedSim:
             if mt:
                 out["clients_per_sec_per_tenant"] = out["clients_per_sec"]
                 out["clients_per_sec"] *= max(out["active_tenants"], 1.0)
+        if state.telemetry is not None:
+            acc = state.telemetry.sum_tenants() if mt else state.telemetry
+            tele = acc.summary()
+            steps = max(tele["steps"], 1.0)
+            out.update(tele)
+            out["uplink_bytes_per_round"] = tele["cumulative_total_bits"] / 8.0 / steps
         return out

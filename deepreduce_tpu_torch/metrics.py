@@ -1,10 +1,15 @@
-"""Bytes-on-wire accounting: per-tensor `WireStats` and their sum, and the
-ring exchange's per-worker bytes."""
+"""Bytes-on-wire accounting and timers, ported from
+`deepreduce_tpu/metrics.py`: per-tensor `WireStats` and their sum, the ring
+exchange's per-worker bytes, the padded bytes a payload occupies on the
+device (`payload_device_bytes`) and the reference's micro-benchmark timer
+(`timed`)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Union
+import time
+from contextlib import contextmanager
+from typing import Any, Dict, Iterator, Union
 
 import torch
 
@@ -63,3 +68,36 @@ def ring_wire_bytes(buffer_bytes: int, num_workers: int) -> int:
     """Per-worker wire bytes of the ring exchange (`comm_ring.py`): each
     worker forwards the B-byte buffer W - 1 times."""
     return int(buffer_bytes) * max(0, int(num_workers) - 1)
+
+
+def payload_device_bytes(payload: Any) -> int:
+    """The padded bytes a payload's tensors occupy (what the allgather
+    moves), as opposed to `WireStats`' meaningful bits: a payload object
+    with `leaves()`, a tensor, or a dict / list / tuple of them."""
+    if torch.is_tensor(payload):
+        return payload.numel() * payload.element_size()
+    if hasattr(payload, "leaves"):
+        payload = payload.leaves()
+    if isinstance(payload, dict):
+        payload = list(payload.values())
+    if isinstance(payload, (list, tuple)):
+        return sum(payload_device_bytes(p) for p in payload)
+    return 0
+
+
+@contextmanager
+def timed(label: str, enabled: bool = True, sink: Dict[str, float] | None = None) -> Iterator[None]:
+    """The reference's micro-benchmark timer around host code. It reads
+    the host clock only: synchronize the device inside the body for a
+    device time. Records in a ``finally``, so a raising body still
+    reports; a `sink` receives the accumulated total, else the time is
+    printed when `enabled`."""
+    start = time.perf_counter()
+    try:
+        yield
+    finally:
+        elapsed = time.perf_counter() - start
+        if sink is not None:
+            sink[label] = sink.get(label, 0.0) + elapsed
+        elif enabled:
+            print(f"{label} time:{elapsed}")

@@ -53,6 +53,7 @@ from deepreduce_tpu_torch.device import DeviceLike
 from deepreduce_tpu_torch.metrics import WireStats
 from deepreduce_tpu_torch.numerics import mean_of_sum
 from deepreduce_tpu_torch.sparse import per_tensor_stream
+from deepreduce_tpu_torch.telemetry.spans import span
 
 Tree = Dict[str, torch.Tensor]
 Group = Union[dist.ProcessGroup, Collectives, None]
@@ -149,16 +150,20 @@ class HierarchicalExchanger:
         draws, CPU only) replaces its Philox streams."""
         cfg, ex, n_ici = self.cfg, self.exchanger, self.per_slice
         if self.ici_leg == "qar":
-            n = qar.pad_len(self.d, n_ici, cfg.bucket_size)
-            padded = torch.zeros(n, dtype=torch.float32, device=ex.device)
-            padded[: self.d] = ex._flatten(grads)
+            # encode / decode sub-spans under route "qar": calibrate()
+            # charges them to this codec's row, apart from the DCN leg's
+            with span("exchange/encode", route="qar"):
+                n = qar.pad_len(self.d, n_ici, cfg.bucket_size)
+                padded = torch.zeros(n, dtype=torch.float32, device=ex.device)
+                padded[: self.d] = ex._flatten(grads)
             names = (qar.STREAM_PHASE1, qar.STREAM_PHASE2)
             mean = qar.quantized_allreduce(
                 padded, self.ici, streams=[per_tensor_stream(cfg.seed, s, step, self.ici.rank) for s in names],
                 quantum_num=cfg.quantum_num, bucket_size=cfg.bucket_size,
                 uniforms=None if uniforms is None else [uniforms[s] for s in names],
             )
-            return ex._unflatten(mean[: self.d], grads)
+            with span("exchange/decode", route="qar"):
+                return ex._unflatten(mean[: self.d], grads)
         if n_ici == 1:
             return dict(grads)  # the mean of one: XLA drops the psum of a size-1 axis
         return ex._unflatten(mean_of_sum(self.ici.all_reduce_sum(ex._flatten(grads)), n_ici), grads)
@@ -191,9 +196,11 @@ class HierarchicalExchanger:
                 "hierarchical exchange takes no participation mask (the ici slice mean is an unmasked psum; "
                 "config rejects resilience=True with hier=True)"
             )
-        slice_mean = self.slice_mean(grads, step=step, uniforms=ici_uniforms)
-        agg, new_residuals, wire = self.exchanger.exchange(slice_mean, residuals, step=step, uniforms=uniforms,
-                                                           collect=collect)
+        with span("exchange/ici"):
+            slice_mean = self.slice_mean(grads, step=step, uniforms=ici_uniforms)
+        with span("exchange/dcn"):
+            agg, new_residuals, wire = self.exchanger.exchange(slice_mean, residuals, step=step, uniforms=uniforms,
+                                                               collect=collect)
         ici = torch.full((), self.ici_bits(), dtype=torch.float32, device=self.device)
         return agg, new_residuals, dataclasses.replace(wire, ici_bits=wire.ici_bits + ici)
 

@@ -73,6 +73,7 @@ from deepreduce_tpu_torch.costmodel import sketch_cols
 from deepreduce_tpu_torch.metrics import WireStats
 from deepreduce_tpu_torch.numerics import reciprocal_f32
 from deepreduce_tpu_torch.ops import bucket_norms_ordered
+from deepreduce_tpu_torch.telemetry.spans import span
 
 RS_MODES = ("sparse", "adaptive", "quantized", "sketch", "oktopk")
 STREAM_ADAPTIVE = "sparse_rs/adaptive"
@@ -146,7 +147,7 @@ def _scatter_set(n: int, tgt: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     return out[:n]
 
 
-def _route(values, indices, select, coll: Collectives, S: int, B: int):
+def _route(values, indices, select, coll: Collectives, S: int, B: int, label: str = "sparse"):
     """Phase 1 over the entries marked `select` (in descending-magnitude
     order): route each to its shard's owner through one all_to_all, at most
     B per (worker, shard), the smallest dropped; the owner adds the W
@@ -156,31 +157,33 @@ def _route(values, indices, select, coll: Collectives, S: int, B: int):
     W = coll.world_size
     dev = values.device
     k = values.shape[0]
-    shard_of = torch.where(select, indices // S, W)  # dead -> parked shard W
-    # a stable sort by shard keeps the descending order within each shard
-    order = torch.sort(shard_of, stable=True).indices
-    sh, vals, idxs = shard_of[order], values[order], indices[order]
-    pos = torch.arange(k, dtype=torch.int32, device=dev)
-    starts = torch.ones(k, dtype=torch.bool, device=dev)
-    starts[1:] = sh[1:] != sh[:-1]
-    rank = pos - torch.cummax(torch.where(starts, pos, -1), 0).values
-    keep = (sh < W) & (rank < B)
-    tgt = torch.where(keep, sh * B + rank, W * B + pos)
-    send_v = _scatter_set(W * B, tgt, vals).view(W, B)
-    send_i = _scatter_set(W * B, tgt, (idxs - sh * S).to(torch.int32)).view(W, B)
-    rx = coll.all_to_all(torch.cat([send_v, _f32(send_i)], dim=1))  # [W, 2B]
+    with span("sparse_rs/route", route=label):
+        shard_of = torch.where(select, indices // S, W)  # dead -> parked shard W
+        # a stable sort by shard keeps the descending order within each shard
+        order = torch.sort(shard_of, stable=True).indices
+        sh, vals, idxs = shard_of[order], values[order], indices[order]
+        pos = torch.arange(k, dtype=torch.int32, device=dev)
+        starts = torch.ones(k, dtype=torch.bool, device=dev)
+        starts[1:] = sh[1:] != sh[:-1]
+        rank = pos - torch.cummax(torch.where(starts, pos, -1), 0).values
+        keep = (sh < W) & (rank < B)
+        tgt = torch.where(keep, sh * B + rank, W * B + pos)
+        send_v = _scatter_set(W * B, tgt, vals).view(W, B)
+        send_i = _scatter_set(W * B, tgt, (idxs - sh * S).to(torch.int32)).view(W, B)
+        rx = coll.all_to_all(torch.cat([send_v, _f32(send_i)], dim=1))  # [W, 2B]
     rx_v, rx_i = rx[:, :B], _i32(rx[:, B:]).long()
     # the nonzero entries of a row have unique targets: set each row into
     # its own slice (entries of value zero, dead slots among them, park past
     # S: adding them would change nothing), then add the rows in worker
     # order from zero, the order of the JAX package's scatter-add
-    slots = torch.arange(B, device=dev)
-    live = rx_v != 0
-    shard = torch.zeros(S, dtype=torch.float32, device=dev)
-    for w in range(W):
-        row = torch.zeros(S + B, dtype=torch.float32, device=dev)
-        row[torch.where(live[w], rx_i[w], S + slots)] = rx_v[w]
-        shard = shard + row[:S]
+    with span("sparse_rs/reduce", route=label):
+        slots = torch.arange(B, device=dev)
+        live = rx_v != 0
+        shard = torch.zeros(S, dtype=torch.float32, device=dev)
+        for w in range(W):
+            row = torch.zeros(S + B, dtype=torch.float32, device=dev)
+            row[torch.where(live[w], rx_i[w], S + slots)] = rx_v[w]
+            shard = shard + row[:S]
     return shard, keep, idxs, vals, pos
 
 
@@ -278,11 +281,12 @@ def exchange(
     )
 
 
-def _sparse_phase2(shard_est, coll: Collectives, S: int, K2: int, d: int):
+def _sparse_phase2(shard_est, coll: Collectives, S: int, K2: int, d: int, label: str = "sparse"):
     """Re-select, all_gather and scatter: (global indices, mean f32[d])."""
     W = coll.world_size
-    gathered = coll.all_gather(_phase2_pack(shard_est, coll.rank, S, K2))  # [W, 2 K2]
-    gi, dense = _phase2_unpack(gathered, K2, W, S)
+    with span("sparse_rs/allgather", route=label):
+        gathered = coll.all_gather(_phase2_pack(shard_est, coll.rank, S, K2))  # [W, 2 K2]
+        gi, dense = _phase2_unpack(gathered, K2, W, S)
     return gi, dense[:d] * reciprocal_f32(W)
 
 
@@ -291,8 +295,9 @@ def _exchange_sparse(flat, coll: Collectives, *, ratio, headroom, out_headroom):
     S = shard_size(d, W)
     B = send_budget(d, ratio, W, headroom)
     K2 = out_budget(d, ratio, W, out_headroom)
-    sp = sparse.topk(flat, ratio, sort_indices=False)
-    live = torch.arange(sp.k, device=flat.device) < sp.nnz
+    with span("sparse_rs/select", route="sparse"):
+        sp = sparse.topk(flat, ratio, sort_indices=False)
+        live = torch.arange(sp.k, device=flat.device) < sp.nnz
     shard, keep, idxs, vals, pos = _route(sp.values, sp.indices, live, coll, S, B)
     _, mean = _sparse_phase2(shard, coll, S, K2, d)
     own = _own_transmitted(keep, idxs, vals, pos, W, S, d)
@@ -311,9 +316,10 @@ def _exchange_adaptive(
     K2 = out_budget(d, ratio, W, out_headroom)
     L = adaptive_lanes(d, ratio, W, out_headroom, block)
     q = ADAPTIVE_Q
-    sp = sparse.topk(flat, ratio, sort_indices=False)
-    live = torch.arange(sp.k, device=dev) < sp.nnz
-    shard, keep, idxs, vals, pos = _route(sp.values, sp.indices, live, coll, S, B)
+    with span("sparse_rs/select", route="adaptive"):
+        sp = sparse.topk(flat, ratio, sort_indices=False)
+        live = torch.arange(sp.k, device=dev) < sp.nnz
+    shard, keep, idxs, vals, pos = _route(sp.values, sp.indices, live, coll, S, B, label="adaptive")
 
     # the density decision stays on the device
     density = (shard != 0).sum(dtype=torch.float32) * reciprocal_f32(S)
@@ -325,16 +331,18 @@ def _exchange_adaptive(
     # both encodings, every step; the flag selects one as raw bits (the
     # unused lanes of a dense row may read as NaN: never pass them through
     # arithmetic)
-    sparse_row = torch.zeros(L, dtype=torch.float32, device=dev)
-    sparse_row[: 2 * K2] = _phase2_pack(shard, coll.rank, S, K2)
-    padded = torch.zeros(Sp, dtype=torch.float32, device=dev)
-    padded[:S] = shard
-    levels, norms = qar.bucket_quantize(padded, q, block, stream, uniforms=uniforms)
-    dense_row = torch.zeros(L, dtype=torch.float32, device=dev)
-    dense_row[: Sp // 4 + Sp // block] = torch.cat([_f32(levels), norms])
-    body = torch.where(go_dense > 0.5, _i32(dense_row), _i32(sparse_row))
-    row = torch.cat([_f32(body), go_dense[None]])  # [L + 1]
-    gathered = coll.all_gather(row)  # [W, L + 1]
+    with span("sparse_rs/adaptive-quantize", route="adaptive"):
+        sparse_row = torch.zeros(L, dtype=torch.float32, device=dev)
+        sparse_row[: 2 * K2] = _phase2_pack(shard, coll.rank, S, K2)
+        padded = torch.zeros(Sp, dtype=torch.float32, device=dev)
+        padded[:S] = shard
+        levels, norms = qar.bucket_quantize(padded, q, block, stream, uniforms=uniforms)
+        dense_row = torch.zeros(L, dtype=torch.float32, device=dev)
+        dense_row[: Sp // 4 + Sp // block] = torch.cat([_f32(levels), norms])
+        body = torch.where(go_dense > 0.5, _i32(dense_row), _i32(sparse_row))
+        row = torch.cat([_f32(body), go_dense[None]])  # [L + 1]
+    with span("sparse_rs/allgather", route="adaptive"):
+        gathered = coll.all_gather(row)  # [W, L + 1]
 
     flags = gathered[:, L:]  # [W, 1]
     body = gathered[:, :L]
@@ -363,12 +371,15 @@ def _exchange_quantized(flat, coll: Collectives, *, ratio, out_headroom, block, 
     gp[:d] = flat
     # shared norms bound every worker's magnitudes, so each level is <= q and
     # the W-worker int8 sum cannot exceed W q <= 127
-    norms = coll.all_reduce_max(bucket_norms_ordered(gp, block))
-    levels, _ = qar.bucket_quantize(gp, q, block, stream, norms=norms, uniforms=uniforms)
-    summed = coll.reduce_scatter_sum(levels)  # int8[Ssh], exact
+    with span("sparse_rs/norm-pmax", route="quantized"):
+        norms = coll.all_reduce_max(bucket_norms_ordered(gp, block))
+    with span("sparse_rs/quantize", route="quantized"):
+        levels, _ = qar.bucket_quantize(gp, q, block, stream, norms=norms, uniforms=uniforms)
+    with span("sparse_rs/reduce-scatter", route="quantized"):
+        summed = coll.reduce_scatter_sum(levels)  # int8[Ssh], exact
     nb = Ssh // block
     shard_est = qar.bucket_dequantize(summed, norms[coll.rank * nb : (coll.rank + 1) * nb], q, block)
-    gi, mean = _sparse_phase2(shard_est, coll, Ssh, K2, d)
+    gi, mean = _sparse_phase2(shard_est, coll, Ssh, K2, d, label="quantized")
     # own contribution: this worker's dequantized levels at the selected
     # indices (unique, so the add is a set)
     my_deq = qar.bucket_dequantize(levels, norms, q, block)
@@ -384,14 +395,18 @@ def _exchange_sketch(flat, coll: Collectives, *, ratio, out_headroom, rows, cols
     K2 = out_budget(d, ratio, W, out_headroom)
     k = sparse.num_slots(d, ratio)
     C = sketch_cols(d, ratio, rows, cols)
-    sp = sparse.topk_sampled(flat, ratio, k=k)
-    live = torch.arange(sp.k, device=dev) < sp.nnz
-    sk = countsketch.sketch_from_sparse(torch.where(live, sp.values, 0.0), sp.indices, rows, C, seed=seed)
-    summed = coll.all_reduce_sum(sk)  # linear: the sketch of the sum
+    with span("sparse_rs/select", route="sketch"):
+        sp = sparse.topk_sampled(flat, ratio, k=k)
+        live = torch.arange(sp.k, device=dev) < sp.nnz
+    with span("sparse_rs/sketch", route="sketch"):
+        sk = countsketch.sketch_from_sparse(torch.where(live, sp.values, 0.0), sp.indices, rows, C, seed=seed)
+    with span("sparse_rs/psum", route="sketch"):
+        summed = coll.all_reduce_sum(sk)  # linear: the sketch of the sum
     # read back this worker's shard only
-    shard_idx = torch.arange(S, dtype=torch.int64, device=dev) + coll.rank * S
-    shard_est = countsketch.unsketch_at(summed, shard_idx, seed=seed)
-    gi, mean = _sparse_phase2(shard_est, coll, S, K2, d)
+    with span("sparse_rs/unsketch", route="sketch"):
+        shard_idx = torch.arange(S, dtype=torch.int64, device=dev) + coll.rank * S
+        shard_est = countsketch.unsketch_at(summed, shard_idx, seed=seed)
+    gi, mean = _sparse_phase2(shard_est, coll, S, K2, d, label="sketch")
     # error feedback: this worker's own sketch read at the gathered indices,
     # what it effectively contributed to the mean, collisions included (the
     # indices are unique, so the add is a set)
@@ -408,26 +423,31 @@ def _exchange_oktopk(flat, coll: Collectives, *, ratio, out_headroom, bins, cap_
     K2 = out_budget(d, ratio, W, out_headroom)
     shift = oktopk_shift(bins)
 
-    # candidates: the local exact top-k, descending
-    sp = sparse.topk(flat, ratio, sort_indices=False)
-    k = sp.k
-    live = torch.arange(k, device=dev) < sp.nnz
-    mag = torch.where(live, sp.values.abs(), 0.0)
-    # one global threshold from the all-reduced histogram of the bit
-    # patterns (non-negative float32 patterns sort like the values); the
-    # counts are integers below 2**24, exact in any order
-    bucket = _i32(mag) >> shift
-    nonzero = live & (mag > 0)
-    hist = torch.zeros(bins, dtype=torch.float32, device=dev).index_add_(0, bucket.long(), nonzero.to(torch.float32))
-    cum = torch.flip(torch.cumsum(torch.flip(coll.all_reduce_sum(hist), (0,)), 0), (0,))
-    # the highest bucket that still admits k entries (0 if none does: then
-    # every nonzero entry survives)
-    b_star = torch.where(cum >= float(k), torch.arange(bins, dtype=torch.int32, device=dev), 0).amax()
-    survive = nonzero & (bucket >= b_star)
+    with span("exchange/encode", route="oktopk"):
+        # candidates: the local exact top-k, descending
+        with span("sparse_rs/select", route="oktopk"):
+            sp = sparse.topk(flat, ratio, sort_indices=False)
+            k = sp.k
+            live = torch.arange(k, device=dev) < sp.nnz
+            mag = torch.where(live, sp.values.abs(), 0.0)
+            # one global threshold from the all-reduced histogram of the bit
+            # patterns (non-negative float32 patterns sort like the values);
+            # the counts are integers below 2**24, exact in any order
+            bucket = _i32(mag) >> shift
+            nonzero = live & (mag > 0)
+            hist = torch.zeros(bins, dtype=torch.float32, device=dev).index_add_(0, bucket.long(),
+                                                                                 nonzero.to(torch.float32))
+        with span("sparse_rs/psum", route="oktopk"):
+            cum = torch.flip(torch.cumsum(torch.flip(coll.all_reduce_sum(hist), (0,)), 0), (0,))
+        # the highest bucket that still admits k entries (0 if none does:
+        # then every nonzero entry survives)
+        b_star = torch.where(cum >= float(k), torch.arange(bins, dtype=torch.int32, device=dev), 0).amax()
+        survive = nonzero & (bucket >= b_star)
 
-    shard, keep, idxs, vals, pos = _route(sp.values, sp.indices, survive, coll, S, Bo)
-    _, mean = _sparse_phase2(shard, coll, S, K2, d)
-    own = _own_transmitted(keep, idxs, vals, pos, W, S, d)
+    shard, keep, idxs, vals, pos = _route(sp.values, sp.indices, survive, coll, S, Bo, label="oktopk")
+    with span("exchange/decode", route="oktopk"):
+        _, mean = _sparse_phase2(shard, coll, S, K2, d, label="oktopk")
+        own = _own_transmitted(keep, idxs, vals, pos, W, S, d)
     if collect is not None:
         collect["rs_oktopk_survivors"] = torch.index_select(cum, 0, b_star.long().reshape(1))[0]
         collect["rs_oktopk_threshold"] = _f32((b_star << shift).reshape(1))[0]

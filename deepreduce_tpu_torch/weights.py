@@ -86,13 +86,28 @@ def _buffer_from_jax(buf: Any):
     )
 
 
+def accumulators_from_jax(acc: Any):
+    """A JAX `MetricAccumulators` (numpy leaves; a leading [T] in the
+    multi-tenant state's) -> the port's, its fields in the same slots, on
+    the CPU; None for None."""
+    if acc is None:
+        return None
+    from deepreduce_tpu_torch.telemetry.device_metrics import MetricAccumulators
+
+    cols = [np.asarray(getattr(acc, n), np.float32)[..., None] for n in MetricAccumulators.scalar_fields()]
+    vecs = [np.asarray(acc.bucket_saturated, np.float32), np.asarray(acc.staleness_hist, np.float32)]
+    pop = None if acc.pop_hist is None else np.asarray(acc.pop_hist, np.float32)
+    vec = np.concatenate(cols + vecs + ([] if pop is None else [pop]), axis=-1)
+    return MetricAccumulators(torch.from_numpy(np.ascontiguousarray(vec)), vecs[0].shape[-1], vecs[1].shape[-1],
+                              None if pop is None else pop.shape[-1])
+
+
 def fedsim_state_from_jax(state: Any, *, num_workers: int = 1, rank: int = 0):
     """A JAX `FedSimState` (its leaves as numpy arrays, e.g. after
     `jax.device_get`) -> the port's `fedsim.FedSimState` of worker `rank`
     of `num_workers` on the CPU: params, w_ref, the worker's stratum of the
-    residual bank and of the class ids, the async buffer, the round. The
-    JAX package's telemetry accumulators have no counterpart yet and are
-    dropped."""
+    residual bank and of the class ids, the async buffer, the round and the
+    telemetry accumulators (replicated, so every worker's are the same)."""
     from deepreduce_tpu_torch.fedsim.sim import FedSimState
 
     def stratum(x):
@@ -106,6 +121,7 @@ def fedsim_state_from_jax(state: Any, *, num_workers: int = 1, rank: int = 0):
     return FedSimState(
         params=_tree(state.params), w_ref=_tree(state.w_ref), residuals=bank, round=int(np.asarray(state.round)),
         buffer=None if state.buffer is None else _buffer_from_jax(state.buffer), classes=classes,
+        telemetry=accumulators_from_jax(state.telemetry),
     )
 
 
@@ -113,7 +129,8 @@ def multitenant_state_from_jax(state: Any, *, num_workers: int = 1, rank: int = 
     """A JAX `MultiTenantState` (numpy leaves) -> the port's
     `fedsim.MultiTenantState` of worker `rank` on the CPU: every stacked
     [T, ...] tensor, the bank's client dimension cut to the worker's
-    stratum, the per-tenant knobs and counters as host values."""
+    stratum, the per-tenant knobs and counters as host values, and the
+    per-tenant telemetry accumulators."""
     from deepreduce_tpu_torch.fedsim.sim import MultiTenantState
 
     def stratum(x):
@@ -129,4 +146,5 @@ def multitenant_state_from_jax(state: Any, *, num_workers: int = 1, rank: int = 
         buffer=None if state.buffer is None else _buffer_from_jax(state.buffer),
         active=tuple(bool(a) for a in np.asarray(state.active)), alpha=host(state.alpha), latency=latency,
         cohort=host(state.cohort), tick=int(np.asarray(state.tick)),
+        telemetry=accumulators_from_jax(state.telemetry),
     )

@@ -5,6 +5,8 @@ CPU-only test runner) and runs on the GPU with
 `python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest` (the
 repository's conftest imports jax, which the GPU machine need not have)."""
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -824,3 +826,106 @@ def test_fedsim_round_card_equals_cpu(cuda):
         torch.testing.assert_close(gs.residuals[n].cpu(), cs.residuals[n], rtol=1e-5, atol=1e-6)
     for k in cm:
         torch.testing.assert_close(gm[k].cpu(), cm[k], rtol=1e-5, atol=1e-6)
+
+
+def _tele_cfg(**knobs):
+    import deepreduce_tpu_torch as port
+
+    return port.DeepReduceConfig(compressor="topk", compress_ratio=0.1, memory="residual", deepreduce="both",
+                                 index="bloom", value="qsgd", fpr=0.02, policy="p0", bloom_blocked="mod",
+                                 min_compress_size=100, telemetry=True, telemetry_every=2, **knobs)
+
+
+def _tokens_on(device, steps=4, seed=3):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(0, 64, (steps, 4, 6), generator=gen).to(device)
+
+
+def _syncs_of(fn):
+    """(fn's result, the file:line of each host sync it made on the card)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [f"{w.filename}:{w.lineno}" for w in caught if "synchronizing" in str(w.message)]
+
+
+def test_telemetry_accumulator_card_equals_cpu(cuda):
+    """Two steps of DRQSGD-BF-P0 on a small WordLSTM on the card and on the
+    CPU from the same weights: the counters equal, the errors within 1e-4
+    (the two backward passes' last bits); on the card one qsgd_encode_rows
+    launch a step, and telemetry adds no host sync to a step."""
+    import deepreduce_tpu_torch as port
+    from deepreduce_tpu_torch.models import WordLSTM
+
+    fetched, syncs = {}, {}
+    for dev, tele in (("cpu", True), ("cuda", False), ("cuda", True)):
+        tok = _tokens_on(dev)
+        cfg = dataclasses.replace(_tele_cfg(), telemetry=tele)
+        tr = port.Trainer(WordLSTM(64, 8, 16, seed=4), cfg, lr=0.1, momentum=0.9, device=dev)
+        st = tr.init_state()
+        before = qsgd_encode_rows.launches
+        per_step = []
+        for i in range(2):
+            # the first step on the card also pays the CUDA context's lazy
+            # set-up, whose copies the sync count would see: count the second
+            if dev == "cuda" and i == 1:
+                (st, _, _), s = _syncs_of(lambda: tr.step(st, (tok[i, :, :-1], tok[i, :, 1:])))
+                per_step.append(s)
+            else:
+                st, _, _ = tr.step(st, (tok[i, :, :-1], tok[i, :, 1:]))
+        if dev == "cuda":
+            assert qsgd_encode_rows.launches == before + 2
+            syncs[tele] = per_step
+        if tele:
+            fetched[dev] = tr.telemetry.fetch()
+    assert syncs[True] == syncs[False] == [[]], syncs
+    cpu, card = fetched["cpu"], fetched["cuda"]
+    for k, v in cpu.items():
+        if k in ("err_l2", "err_cos", "residual_l2"):
+            assert abs(card[k] - v) <= 1e-4 * max(abs(v), 1.0), k
+        else:
+            assert card[k] == v, k
+
+
+def test_rung_switch_on_the_card_encodes_its_table_bitwise(cuda):
+    """A controller that must move up at its first window: the new rung's
+    exchanger is built on the card, its step makes one qsgd_encode_rows
+    launch, and its segment table encodes bitwise its plain version."""
+    import deepreduce_tpu_torch as port
+    from deepreduce_tpu_torch.models import WordLSTM
+    from deepreduce_tpu_torch.sparse import per_tensor_stream
+
+    cfg = _tele_cfg(ctrl=True, ctrl_ladder="0.05,0.1,0.2", ctrl_hysteresis=1, ctrl_target_err_cos=1.0,
+                    ctrl_headroom=0.0)
+    tok = _tokens_on(cuda)
+    tr = port.Trainer(WordLSTM(64, 8, 16, seed=4), cfg, lr=0.1, momentum=0.9, device=cuda)
+    st = tr.init_state()
+    for i in range(3):
+        before = qsgd_encode_rows.launches
+        st, _, _ = tr.step(st, (tok[i, :, :-1], tok[i, :, 1:]))
+        assert qsgd_encode_rows.launches == before + 1
+    assert tr.controller.switches == 1 and tr.visited_ladder_indices == (1, 2)
+    ex = tr.exchanger
+    assert ex.cfg.compress_ratio == 0.2
+    gen = torch.Generator().manual_seed(6)
+    segs = []
+    for n, codec in ex.codecs.items():
+        if codec.rows_leaf is None:
+            continue
+        v = torch.randn(codec.val_codec.meta.k, generator=gen) * 1e-3
+        lo = ex.offsets[n] + ex.layouts[n].leaf_offsets[codec.rows_leaf]
+        seed, offset = per_tensor_stream(cfg.seed, n, 3, 0)
+        segs.append(EncodeSegment(v.to(cuda), lo, seed, offset))
+    assert segs
+    got = torch.zeros(ex.fused_nbytes, dtype=torch.uint8, device=cuda)
+    qsgd_encode_rows(segs, got, quantum_num=cfg.quantum_num, bucket_size=cfg.bucket_size, device=cuda)
+    ref = torch.zeros(ex.fused_nbytes, dtype=torch.uint8)
+    qsgd_encode_rows([dataclasses.replace(s, values=s.values.cpu()) for s in segs], ref,
+                     quantum_num=cfg.quantum_num, bucket_size=cfg.bucket_size, device="cpu")
+    assert torch.equal(got.cpu(), ref)

@@ -298,7 +298,12 @@ def test_port_imports_no_jax():
         " deepreduce_tpu_torch.parallel, deepreduce_tpu_torch.parallel.hierarchical,"
         " deepreduce_tpu_torch.fedsim.sim, deepreduce_tpu_torch.fedsim.__main__, deepreduce_tpu_torch.population,"
         " deepreduce_tpu_torch.population.sampler, deepreduce_tpu_torch.population.spec, deepreduce_tpu_torch.slo,"
-        " deepreduce_tpu_torch.slo.spec, deepreduce_tpu_torch.slo.monitor;"
+        " deepreduce_tpu_torch.slo.spec, deepreduce_tpu_torch.slo.monitor, deepreduce_tpu_torch.train,"
+        " deepreduce_tpu_torch.metrics, deepreduce_tpu_torch.tracking, deepreduce_tpu_torch.telemetry,"
+        " deepreduce_tpu_torch.telemetry.spans, deepreduce_tpu_torch.telemetry.device_metrics,"
+        " deepreduce_tpu_torch.telemetry.__main__, deepreduce_tpu_torch.controller,"
+        " deepreduce_tpu_torch.controller.ladder, deepreduce_tpu_torch.controller.controller,"
+        " deepreduce_tpu_torch.controller.__main__;"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'flax', 'optax'))"
         " or m == 'deepreduce_tpu' or m.startswith('deepreduce_tpu.')];"
         "print(bad); sys.exit(1 if bad else 0)"

@@ -118,3 +118,24 @@ def run_fedsim_rank(rank: int, world: int, store_path: str, out_path: str, knobs
                    out_path)
     finally:
         dist.destroy_process_group()
+
+
+def run_telemetry_rank(rank: int, world: int, store_path: str, out_path: str, knobs, params, batches) -> None:
+    """`len(batches)` telemetry steps of the JAX check's MLP (flax names,
+    initial weights `params`) on `batches[step][rank]` over a gloo group.
+    Saves this rank's accumulator fetch and final parameters."""
+    from deepreduce_tpu_torch.resilience.__main__ import MLP
+
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world), rank=rank, world_size=world)
+    try:
+        model = MLP()
+        model.load_flax_params(params)
+        trainer = port.Trainer(model, port.DeepReduceConfig(**knobs), lr=0.1, momentum=0.9, device="cpu",
+                               group=dist.group.WORLD)
+        state = trainer.init_state()
+        for step_batches in batches:
+            state, _, _ = trainer.step(state, step_batches[rank])
+        torch.save({"fetch": trainer.telemetry.fetch(),
+                    "params": {n: p.detach().clone() for n, p in state.params.items()}}, out_path)
+    finally:
+        dist.destroy_process_group()
