@@ -261,6 +261,26 @@ Phases, one line each; any failure raises and exits non-zero:
      with telemetry at 1/8 size, 2 ticks: 0 host syncs, one all_reduce a
      tick at the byte law, the accumulator's rows, per tenant, equal to the
      tick reports, the summary carrying the JAX package's telemetry keys).
+ 20. sequence and tensor parallelism on the full-width BERT-base (vocabulary
+     30,522, hidden 768, 12 layers of 12 heads, MLP 3,072, 512 positions,
+     float32, weights from --seed), every arm's workers in-process threads
+     on the one card (`PHASE20`): `bert_ring_sp4` and `bert_ulysses_sp4`
+     (four sequence workers on 8 x 512 tokens in chunks of 128, causal;
+     logits, loss and every gradient leaf on the card within TWIN20_REL of
+     each tensor's largest magnitude against the plain reference, the
+     Ulysses local twin, whose attention is one plain softmax, and for the
+     ring arm also against its own local twin, seq_axis=None), `bert_tp2` (the dense model over a model group of two, the
+     embedding and the head vocabulary-sharded; each rank's logits, loss and
+     gradient shards against the single-device model) and
+     `bert_dp2_sp2_ring` (`parallel.data_seq.DataSeqStep` on
+     factor_devices(4, ('data', 'seq')) = (2, 2), ring attention, 8 x 512
+     tokens a data rank, 3 steps of JAX's dry-run config: finite losses,
+     0 < rel_volume < 1, the pinned payload bytes, 2 qsgd_encode_rows
+     launches a worker-step on a table bitwise its plain version, all four
+     replicas' parameters bitwise alike after every step, 0 host syncs on
+     steps 2-3, where a worker thread's one `.item()` counts as one sync). Each arm: ms on worker 0's clock, launches counted from 0
+     just before, peak memory, the card's name and power limit. No hop,
+     all_to_all or all-reduce crosses between cards.
 `--profile` adds one profiled training step after phase 5, after each arm
 of phases 7, 8, 9, 10, 11, 14 and 15, and one profiled round after each arm
 of phase 12: the device's busy and idle share over the step or round, its
@@ -3413,6 +3433,10 @@ FED18_MOBILENET = dict(population=512, cohort=32, chunk=4, local_steps=4, batch=
 # given the same client updates (within MOBILENET_ROUND_RTOL of the
 # largest update)
 MOBILENET_F64_RTOL = 1e-7
+# the block's clients also trained alone in float64 against their batched
+# rows: one (a float64 client alone takes ~16 s on the card; all four took
+# ~64 s of the script's time limit)
+MOBILENET_ALONE = 1
 # the linear arms' card-vs-CPU tick runs at 1/8 of the population, cohort and K
 FED18_CPU_CUT = 8
 MOBILENET_ROUND_RTOL = 1e-6
@@ -3608,7 +3632,9 @@ def _fed_linear(arm: str, spec: dict, seed: int, group) -> dict:
     res["resume"] = _fed_resume(make, st_at, key, [(r, masks[r]) for r in range(at, spec["ticks"])], state)
     # one tick card = CPU on the same draws: the batches made on the CPU,
     # every other draw the same counter-based stream on both
+    t = time.perf_counter()
     res["card_vs_cpu"] = _fed_linear_card_vs_cpu(spec, cfg, loss_fn, g, key)
+    res["card_vs_cpu_s"] = time.perf_counter() - t
     if arm == "fedsim_linear_sync":
         res["tick_ms_at_bench_chunk"] = _fed_bench_chunk_tick(cfg, loss_fn, data_fn, g, state, key, spec["ticks"])
     return res
@@ -3871,18 +3897,22 @@ def _fed_mobilenet_arm(seed: int, group) -> dict:
         finals[impl] = (sim, state, saved)
     _, sv, saved = finals["vmap"]
     res["launches"] = res["vmap"]["launches"]
+    t = time.perf_counter()
     res["resume"] = _fed_resume(lambda: make("vmap"), saved, key, [(g["rounds"] - 1, None)], sv)
+    res["resume_s"] = time.perf_counter() - t
     del finals
     torch.cuda.empty_cache()
+    t = time.perf_counter()
     res["block"] = _fed_mobilenet_block(cfg, loss_fn, data_fn, params, key)
+    res["block_s"] = time.perf_counter() - t
     res["launch_ratio_scan_over_batched"] = res["block"]["launch_ratio_scan_over_batched"]
     return res
 
 
 def _fed_mobilenet_block(cfg, loss_fn, data_fn, params, key: int) -> dict:
     """One block of 4 clients on a round's inputs. Local training batched
-    against one client at a time in float64, on the card and against the
-    CPU; given the same client updates (the card's float32 batched local
+    against MOBILENET_ALONE of its clients trained alone in float64, on the
+    card and against the CPU; given the same client updates (the card's float32 batched local
     training), the round's compression and aggregation batched against one
     by one and card against CPU; the block's grouped QSGD call bitwise the
     plain version and each client's own launch; and the device launches of
@@ -3926,7 +3956,8 @@ def _fed_mobilenet_block(cfg, loss_fn, data_fn, params, key: int) -> dict:
     train64 = trainer(loss64)
     bat = vmap(train64, in_dims=(None, 0))(p64, b64)
     change = max(float((bat[n] - p64[n]).abs().max()) for n in p64)
-    one = max(float((bat[n][c] - train64(p64, index_batch(b64, c))[n]).abs().max()) for c in range(4) for n in p64)
+    one = max(float((bat[n][c] - train64(p64, index_batch(b64, c))[n]).abs().max())
+              for c in range(MOBILENET_ALONE) for n in p64)
     # client 0's first local step on the CPU (the CPU's float64 MobileNet is slow)
     cpu_model = copy.deepcopy(model64).cpu()
     loss64c = lambda p, b: torch.nn.functional.cross_entropy(cpu_model.functional(p, b[0], scratch_stats=True), b[1])
@@ -3935,7 +3966,7 @@ def _fed_mobilenet_block(cfg, loss_fn, data_fn, params, key: int) -> dict:
     vs_cpu = max(float((first[n].cpu() - batc[n]).abs().max()) for n in p64)
     _check(one <= MOBILENET_F64_RTOL * change, f"float64 local training batched vs one by one: {one} vs {change}")
     _check(vs_cpu <= MOBILENET_F64_RTOL * change, f"float64 local training card vs CPU: {vs_cpu} vs {change}")
-    out["f64_local_training"] = {"max_change": change, "batched_vs_one_by_one": one,
+    out["f64_local_training"] = {"max_change": change, "batched_vs_one_by_one": one, "clients_alone": MOBILENET_ALONE,
                                  "card_vs_cpu_one_step": vs_cpu, "rtol": MOBILENET_F64_RTOL}
     del model64, cpu_model, bat, batc, first
 
@@ -4005,11 +4036,15 @@ def phase_fedsim(seed: int, group) -> dict:
     t0 = time.perf_counter()
     results = {}
     for arm, spec in PHASE18.items():
+        t = time.perf_counter()
         res = _fed_linear(arm, spec, seed, group)
+        res["arm_s"] = time.perf_counter() - t
         print(f"phase 18 ok: {arm} " + json.dumps(res), flush=True)
         results[arm] = res
         torch.cuda.empty_cache()
+    t = time.perf_counter()
     res = _fed_mobilenet(seed, group)
+    res["arm_s"] = time.perf_counter() - t
     print("phase 18 ok: fedsim_mobilenet_drqsgd " + json.dumps(res), flush=True)
     results["fedsim_mobilenet_drqsgd"] = res
     # the same rounds one client at a time: the comparison, its launches counted apart
@@ -4466,8 +4501,305 @@ def phase_telemetry(seed: int, group, phase5: dict) -> dict:
     return results
 
 
+# -- phase 20: sequence and tensor parallelism on the full-width BERT-base -- #
+# Every arm runs its workers as in-process threads on the one card, each
+# from the same weights (BertEncoder(seed=--seed)), in float32 with TF32 off.
+BERT20 = dict(vocab_size=30_522, hidden=768, layers=12, heads=12, mlp_dim=3072, max_len=512)
+PHASE20 = ("bert_ring_sp4", "bert_ulysses_sp4", "bert_tp2", "bert_dp2_sp2_ring")
+BATCH20 = 8  # sequences of 512 tokens a sequence group (a data rank) trains on
+SP20 = 4  # the sp4 arms' sequence workers: 4 chunks of 128 tokens
+TP20 = 2
+SP20_PASSES = 2  # forward + backward passes of the sp4 and tp2 arms (the last one's ms is the steady one)
+# the bound against the single-device twin: max |port - twin| over the
+# tensor's largest |twin|. `key/bias` is held against its layer's
+# `key/kernel` gradient instead: its own gradient is zero in exact
+# arithmetic (a softmax ignores a shift shared by a query's scores), so
+# both are rounding noise and its own largest magnitude is no scale
+TWIN20_REL = 1e-4
+# __graft_entry__.py:258-268, the JAX package's data x sequence dry run
+DP_SP20 = dict(compressor="topk", compress_ratio=0.1, memory="none", communicator="allgather", deepreduce="both",
+               index="integer", value="qsgd", policy="p0", min_compress_size=256)
+DP_SP20_STEPS = 3
+# the JAX package's payload_bytes of the ring-layout BERT-base under
+# DP_SP20 (test_phase20_constants_match_jax), and the launches a worker-step:
+# all 200 leaves are QSGD segments, at most 128 a launch
+PAYLOAD20 = 50_833_724
+ENCODE20 = 2
+
+
+def _card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def _rel_err(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _twin_errs(grads: dict, want: dict, what: str) -> dict:
+    """{leaf: max |grads - want| / scale} with TWIN20_REL checked: the scale
+    is the twin leaf's largest magnitude (its layer's key kernel's for a
+    key bias)."""
+    errs = {}
+    for n, w in want.items():
+        ref = want[n.replace("key/bias", "key/kernel")] if n.endswith("key/bias") else w
+        errs[n] = float((grads[n] - w).abs().max() / ref.abs().max())
+    worst = max(errs, key=errs.get)
+    _check(errs[worst] <= TWIN20_REL, f"{what}: gradient {worst} off the twin by {errs[worst]:.3g}")
+    return errs
+
+
+def _pass20(model, tokens, scale: float = 1.0):
+    """One forward and backward of `token_loss(model(tokens)) * scale` on
+    this thread: (logits, loss, start and end events)."""
+    import torch
+
+    from deepreduce_tpu_torch.parallel.data_seq import token_loss
+    from deepreduce_tpu_torch.parallel.functional import backward
+
+    for p in model.parameters():
+        p.grad = None
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    logits = model(tokens)
+    loss = token_loss(logits, tokens) * scale
+    backward(loss)
+    end.record()
+    return logits.detach(), loss.detach(), start, end
+
+
+def _twin20(model, tokens) -> dict:
+    """The single-device model's logits, loss and gradients on the card."""
+    import torch
+
+    model.cuda()
+    for _ in range(SP20_PASSES):
+        logits, loss, start, end = _pass20(model, tokens)
+    torch.cuda.synchronize()
+    grads = {n: p.grad for n, p in model.flax_params().items()}
+    return {"logits": logits, "loss": loss, "grads": grads, "ms": start.elapsed_time(end)}
+
+
+def _workers20(group, models, tokens_of, scale: float) -> tuple:
+    """SP20_PASSES passes of every in-process worker (worker r on
+    `tokens_of(r)`), counted from 0 just before: (each worker's last
+    (logits, loss), worker 0's ms per pass, launches, peak bytes)."""
+    import torch
+
+    from deepreduce_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    ms = []
+    for _ in range(SP20_PASSES):
+        outs = group.run(lambda coll, m, r: _pass20(m, tokens_of(r), scale), models, list(range(len(models))))
+        torch.cuda.synchronize()
+        ms.append(outs[0][2].elapsed_time(outs[0][3]))
+    return [o[:2] for o in outs], ms, launch_counts(), torch.cuda.max_memory_allocated()
+
+
+def _plain20(seed: int, tokens) -> dict:
+    """The plain reference of the sp4 arms on the card: the Ulysses local
+    twin, whose attention is one plain causal softmax
+    (`ring_self_attention_reference`), with the sp4 models' parameter tree."""
+    from deepreduce_tpu_torch.models import BertEncoder
+
+    return _twin20(BertEncoder(attention="ulysses", causal=True, seed=seed, **BERT20), tokens)
+
+
+def _against20(logits, loss, grads: dict, twin: dict, what: str) -> dict:
+    """The logits', loss's and every gradient leaf's error off `twin`, each
+    checked against TWIN20_REL."""
+    logits_err = _rel_err(logits, twin["logits"])
+    loss_err = abs(float(loss) - float(twin["loss"])) / abs(float(twin["loss"]))
+    _check(logits_err <= TWIN20_REL and loss_err <= TWIN20_REL, f"{what}: logits {logits_err:.3g}, "
+           f"loss {loss_err:.3g} off")
+    errs = _twin_errs(grads, twin["grads"], what)
+    return {"logits_rel_err": logits_err, "loss_rel_err": loss_err, "grad_rel_err_max": max(errs.values()),
+            "grad_rel_err_key_bias_max": max(e for n, e in errs.items() if n.endswith("key/bias"))}
+
+
+def _sp4_arm(mode: str, seed: int, tokens, plain: dict) -> dict:
+    """`bert_{mode}_sp4`: four sequence workers, causal, against the plain
+    reference (`_plain20`) and, for ring, its local twin (seq_axis=None)
+    too, whose one block update is the sharded arm's, on the card."""
+    import torch
+
+    from deepreduce_tpu_torch.collectives import InProcessGroup
+    from deepreduce_tpu_torch.models import BertEncoder
+
+    c = tokens.shape[1] // SP20
+    twin = _twin20(BertEncoder(attention=mode, causal=True, seed=seed, **BERT20), tokens) if mode == "ring" else plain
+    group = InProcessGroup(SP20)
+    models = [BertEncoder(attention=mode, seq_axis=group.member(r), causal=True, seed=seed, **BERT20).cuda()
+              for r in range(SP20)]
+    # each worker's loss is its chunk's mean over SP20: the sum is the twin's mean
+    outs, ms, launches, peak = _workers20(group, models, lambda r: tokens[:, r * c : (r + 1) * c], 1.0 / SP20)
+    logits = torch.cat([o[0] for o in outs], dim=1)
+    loss = sum(o[1] for o in outs)
+    grads = {n: sum(m.flax_params()[n].grad for m in models) for n in plain["grads"]}
+    errs = _against20(logits, loss, grads, twin, f"bert_{mode}_sp4 against the local twin")
+    plain_errs = errs if mode == "ulysses" else _against20(logits, loss, grads, plain,
+                                                           f"bert_{mode}_sp4 against the plain reference")
+    _check(launches == {"qsgd_quantize": 0, "qsgd_encode_rows": 0}, f"bert_{mode}_sp4: launches {launches}")
+    return {"workers": SP20, "tokens": list(tokens.shape), "chunk": c, "causal": True, "loss": float(loss),
+            "twin_loss": float(twin["loss"]), **errs, "plain_loss": float(plain["loss"]),
+            **{f"plain_{k}": v for k, v in plain_errs.items()},
+            "worker0_ms_per_pass": ms, "twin_ms": twin["ms"], "plain_ms": plain["ms"], "launches": launches,
+            "peak_mem_bytes": peak, "card": _card()}
+
+
+def _tp2_arm(seed: int, tokens) -> dict:
+    """`bert_tp2`: dense bidirectional BERT-base over a model group of two,
+    the embedding and the head vocabulary-sharded (the rules under the
+    variables dict's scope), against the single-device model."""
+    from deepreduce_tpu_torch.collectives import InProcessGroup
+    from deepreduce_tpu_torch.models import BertEncoder
+    from deepreduce_tpu_torch.parallel import bert_tp_rules, tp_shardings
+    from deepreduce_tpu_torch.parallel.tp import from_params, shard
+
+    single = BertEncoder(seed=seed, **BERT20)
+    full = {n: p.detach().clone() for n, p in single.flax_params().items()}
+    specs = tp_shardings(full, {"model": TP20}, bert_tp_rules(), scope="params")
+    twin = _twin20(single, tokens)
+    group = InProcessGroup(TP20)
+    models = [from_params(full, group.member(r), shard_vocab=True).cuda() for r in range(TP20)]
+    _check(models[0].tok.embedding.shape[0] == BERT20["vocab_size"] // TP20, "bert_tp2: the vocabulary is not sharded")
+    outs, ms, launches, peak = _workers20(group, models, lambda r: tokens, 1.0)
+    errs, logits_err, loss_err = {}, 0.0, 0.0
+    for r, (m, (logits, loss)) in enumerate(zip(models, outs)):
+        logits_err = max(logits_err, _rel_err(logits, twin["logits"]))
+        loss_err = max(loss_err, abs(float(loss) - float(twin["loss"])) / abs(float(twin["loss"])))
+        want = {n: shard(g, specs[n], {"model": group.member(r)}) for n, g in twin["grads"].items()}
+        errs.update({f"{r}:{n}": e for n, e in _twin_errs(
+            {n: p.grad for n, p in m.flax_params().items()}, want, f"bert_tp2 rank {r}").items()})
+    _check(logits_err <= TWIN20_REL and loss_err <= TWIN20_REL, f"bert_tp2: logits {logits_err:.3g}, loss "
+           f"{loss_err:.3g} off the single-device model")
+    _check(launches == {"qsgd_quantize": 0, "qsgd_encode_rows": 0}, f"bert_tp2: launches {launches}")
+    sharded = sorted({n for n, sp in specs.items() if any(a is not None for a in sp)})
+    return {"workers": TP20, "tokens": list(tokens.shape), "sharded_leaves": len(sharded),
+            "loss": float(outs[0][1]), "twin_loss": float(twin["loss"]), "logits_rel_err": logits_err,
+            "loss_rel_err": loss_err, "grad_rel_err_max": max(errs.values()), "worker0_ms_per_pass": ms,
+            "twin_ms": twin["ms"], "launches": launches, "peak_mem_bytes": peak, "card": _card()}
+
+
+def _dp_sp_arm(seed: int) -> dict:
+    """`bert_dp2_sp2_ring`: the data x sequence step (`DataSeqStep`) on
+    factor_devices(4, ('data', 'seq')) in-process workers, ring attention,
+    causal, DP_SP20_STEPS steps."""
+    import torch
+
+    from deepreduce_tpu_torch import DeepReduceConfig
+    from deepreduce_tpu_torch.collectives import InProcessMesh
+    from deepreduce_tpu_torch.models import BertEncoder
+    from deepreduce_tpu_torch.ops import launch_counts, reset_launch_counts
+    from deepreduce_tpu_torch.ops.qsgd_encode import MAX_SEGMENTS
+    from deepreduce_tpu_torch.parallel import factor_devices
+    from deepreduce_tpu_torch.parallel.data_seq import DataSeqStep
+
+    sizes = factor_devices(4, ("data", "seq"))
+    D, S = sizes["data"], sizes["seq"]
+    _check((D, S) == (2, 2), f"factor_devices(4) = {sizes}")
+    L = BERT20["max_len"]
+    c = L // S
+    tokens = _tokens20(seed + 20, (DP_SP20_STEPS, D * BATCH20, L)).cuda()
+    cfg = DeepReduceConfig(**DP_SP20, seed=seed)
+    mesh = InProcessMesh(sizes)
+    steps = []
+    for r in range(D * S):
+        m = mesh.member(r)
+        model = BertEncoder(attention="ring", seq_axis=m["seq"], causal=True, seed=seed, **BERT20)
+        steps.append(DataSeqStep(model, cfg, data=m["data"], seq=m["seq"], device="cuda"))
+    ex = steps[0].exchanger
+    segments = sum(codec.rows_leaf is not None for codec in ex.codecs.values())
+    _check(ex.payload_bytes() == PAYLOAD20, f"bert_dp2_sp2_ring: payload bytes {ex.payload_bytes()} != {PAYLOAD20}")
+    _check(-(-segments // MAX_SEGMENTS) == ENCODE20, f"bert_dp2_sp2_ring: {segments} QSGD segments")
+
+    def work(m, step, i):
+        d, s = m["data"].rank, m["seq"].rank
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss, wire = step.step(tokens[i, d * BATCH20 : (d + 1) * BATCH20, s * c : (s + 1) * c], step=i)
+        end.record()
+        return loss, wire, start, end
+
+    # the sync count's positive control: one `.item()` on one worker thread of the mesh is one site
+    _, control = _counting_syncs(lambda: mesh.run(lambda m, t: float(t) if m["data"].rank == m["seq"].rank == 0
+                                                  else None, [tokens[0, 0, 0]] * (D * S)))
+    _check(len(control) == 1, f"bert_dp2_sp2_ring: a worker thread's .item() gave the sync sites {control}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, vols, ms, syncs = [], [], [], []
+    for i in range(DP_SP20_STEPS):
+        if i == 0:  # the first card step pays lazy set-up: its syncs are not counted
+            outs = mesh.run(work, steps, [i] * (D * S))
+            torch.cuda.synchronize()
+        else:
+            outs, sites = _counting_syncs(lambda: (mesh.run(work, steps, [i] * (D * S)), torch.cuda.synchronize())[0])
+            syncs.append(sites)
+        ms.append(outs[0][2].elapsed_time(outs[0][3]))
+        losses.append(float(outs[0][0]))
+        vols.append(float(outs[0][1].rel_volume()))
+        for r in range(1, D * S):
+            _check(float(outs[r][0]) == losses[-1], f"bert_dp2_sp2_ring step {i}: worker {r}'s loss differs")
+            for n, p in steps[0].params.items():
+                _check(torch.equal(steps[r].params[n], p), f"bert_dp2_sp2_ring step {i}: worker {r}'s {n} differs")
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    expected = {"qsgd_quantize": 0, "qsgd_encode_rows": ENCODE20 * D * S * DP_SP20_STEPS}
+    _check(launches == expected, f"bert_dp2_sp2_ring: launches {launches}, expected {expected}")
+    _check(all(math.isfinite(l) for l in losses), f"bert_dp2_sp2_ring: losses {losses}")
+    _check(all(0 < v < 1 for v in vols), f"bert_dp2_sp2_ring: rel_volume {vols}")
+    _check(not any(syncs), f"bert_dp2_sp2_ring: host syncs at {syncs}")
+    _check(all(bool(torch.isfinite(p).all()) for p in steps[0].params.values()), "bert_dp2_sp2_ring: non-finite params")
+    segs = _main_path_table(ex, seed=seed + 79)
+    rows, ref_rows = _encode_on_card_and_cpu(segs, ex.fused_nbytes, cfg.quantum_num, cfg.bucket_size)
+    err = _check_rows(rows, ref_rows, segs, cfg.bucket_size, cfg.quantum_num, "bert_dp2_sp2_ring's table")
+    return {"mesh": sizes, "tokens_per_data_rank": [BATCH20, L], "chunk": c, "losses": losses, "rel_volume": vols,
+            "payload_bytes": ex.payload_bytes(), "qsgd_segments": segments, "launches": launches,
+            "launches_per_worker_step": {k: v / (D * S * DP_SP20_STEPS) for k, v in launches.items()},
+            "host_syncs_steps_2_3": [len(x) for x in syncs], "host_syncs_control": len(control),
+            "replicas_bitwise": True,
+            "worker0_step_ms": ms, "peak_mem_bytes": peak, "qsgd_encode_rows_vs_plain_max_abs_err": err,
+            "card": _card()}
+
+
+def _tokens20(seed: int, shape):
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(0, BERT20["vocab_size"], shape, generator=gen)
+
+
+def phase_seq_tensor(seed: int) -> dict:
+    """Phase 20: ring and Ulysses attention, tensor parallelism and the data
+    x sequence step on the full-width BERT-base. Returns {arm: result}."""
+    import torch
+
+    t0 = time.perf_counter()
+    tokens = _tokens20(seed, (BATCH20, BERT20["max_len"])).cuda()
+    results = {}
+    plain = _plain20(seed, tokens)
+    arms = {"bert_ring_sp4": lambda: _sp4_arm("ring", seed, tokens, plain),
+            "bert_ulysses_sp4": lambda: _sp4_arm("ulysses", seed, tokens, plain),
+            "bert_tp2": lambda: _tp2_arm(seed, tokens), "bert_dp2_sp2_ring": lambda: _dp_sp_arm(seed)}
+    for name in PHASE20:
+        results[name] = arms[name]()
+        print(f"phase 20 ok: {name} " + json.dumps(results[name]), flush=True)
+        if name == "bert_ulysses_sp4":
+            del plain
+        torch.cuda.empty_cache()
+    print("phase 20 note: every arm runs its workers as threads on one card, so no ring hop, all_to_all or "
+          "all-reduce crossed between cards; sequence and tensor parallelism over NCCL between cards are not "
+          "measured", flush=True)
+    print(f"phase 20 time {time.perf_counter() - t0:.1f} s", flush=True)
+    return results
+
+
 def phase_timing(encode: dict, errs: dict, by_arm: dict, quantize: dict) -> None:
-    # each path's run, counted from 0 just before it (phases 5 and 7-19)
+    # each path's run, counted from 0 just before it (phases 5 and 7-20)
     total = lambda name: sum(counts[name] for counts in by_arm.values())
     kernels = [
         _quantize_entry(quantize, total("qsgd_quantize"), errs["qsgd_quantize"]),
@@ -4502,8 +4834,15 @@ def main(argv=None) -> int:
         return 2
 
     t0 = time.perf_counter()
+    laps, last = {}, [t0]
+
+    def lap(name):  # the wall seconds since the previous lap
+        now = time.perf_counter()
+        laps[name], last[0] = round(now - last[0], 1), now
+
     phase_device()
     phase_build()
+    lap("1-2 device, build")
     if args.compare_encode:
         compare_encode(args.compare_encode, args.seed)
         print(f"chip_smoke total {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4516,11 +4855,13 @@ def main(argv=None) -> int:
     ex = GradientExchanger(shapes, _flagship_cfg(args.seed), device="cuda")
     sizes = [c.val_codec.meta.padded_len for c in ex.codecs.values() if c.compressed]
     errs = phase_kernels(sizes, ex)
+    lap("3-4 kernels")
     phase_codec(args.seed)
     # phase 6's device times, before any phase runs its workers as threads:
     # after the in-process phases the profiler drops kernel records (after
     # phase 17's grid and phases 12-13 it once saw none of a 200-launch window)
     encode = _time_encode(ex, 0, errs["qsgd_encode_rows"])
+    lap("codec, 6 encode")
     import torch.distributed as dist
 
     tokens = _tokens(args.seed, args.steps, args.batch, args.seq, shapes["Embed_0/embedding"][0])
@@ -4529,28 +4870,46 @@ def main(argv=None) -> int:
     try:
         res = phase_train(args.seed, tokens, dist.group.WORLD, args.profile)
         _check(res["qsgd_sizes"] == sizes, "main-path QSGD sizes differ from the codec geometry")
+        lap("5 train")
         arms = phase_arms(args.seed, tokens, dist.group.WORLD, res["cpu_ref_loss0"], args.profile)
+        lap("7 arms")
         resnet = phase_resnet(args.seed, dist.group.WORLD, args.profile)
+        lap("8 resnet")
         in_coll, quantize = phase_in_collective(args.seed, tokens, dist.group.WORLD, res["cpu_ref_loss0"],
                                                 args.profile)
+        lap("9 in-collective")
         bucketed = phase_bucketed(args.seed, tokens, dist.group.WORLD, res["cpu_ref_loss0"], args.profile)
+        lap("10 bucketed")
         zoo = phase_zoo(args.seed, tokens, dist.group.WORLD, res["cpu_ref_loss0"], args.profile)
+        lap("11 zoo")
         models14 = phase_models(args.seed, dist.group.WORLD, args.profile)
+        lap("14 models")
         host15 = phase_host_codecs(args.seed, tokens, dist.group.WORLD, res["cpu_ref_loss0"], args.profile)
+        lap("15 host codecs")
         resil16, _ = phase_resilience(args.seed, tokens, dist.group.WORLD, res["cpu_ref_loss0"])
+        lap("16 resilience")
         two_tier17 = phase_two_tier(args.seed, tokens, dist.group.WORLD, res["cpu_ref_loss0"])
+        lap("17 two tiers")
         fedsim18 = phase_fedsim(args.seed, dist.group.WORLD)
+        lap("18 fedsim")
         res["steps"] = args.steps
         tele19 = phase_telemetry(args.seed, dist.group.WORLD, res)
+        lap("19 telemetry")
     finally:
         dist.destroy_process_group()
     fed = phase_fedavg(args.seed, args.profile)
+    lap("12 fedavg")
     table6 = phase_table6(args.seed)
+    lap("13 table 6")
+    seq20 = phase_seq_tensor(args.seed)
+    lap("20 seq, tensor")
     by_arm = {"drqsgd_bloom": res["launches"]}
     for phase in (arms, resnet, in_coll, bucketed, zoo, models14, fed, table6, host15, resil16, two_tier17, fedsim18,
-                  tele19):
+                  tele19, seq20):
         by_arm.update({a: r["launches"] for a, r in phase.items()})
     phase_timing(encode, errs, by_arm, quantize)
+    lap("timing")
+    print("phase times " + json.dumps(laps), flush=True)
     print(f"chip_smoke total {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({
         "ok": True,

@@ -54,12 +54,18 @@ backward pass; and the population-scale federated simulator
 (`fedsim.FedSim`: client-sharded rounds over a residual bank with the
 batched cohort, one fused all_reduce a round, the asynchronous and
 multi-tenant ticks), heterogeneous populations (`population.
-PopulationSpec`) and the SLO health monitor (`slo.HealthMonitor`). Collectives run through `collectives.Collectives`: a
-`torch.distributed` group, an `InProcessGroup` of W lockstep workers in one
-process, or an `InProcessGrid` of slices x workers a slice.
+PopulationSpec`) and the SLO health monitor (`slo.HealthMonitor`); and
+sequence and tensor parallelism (`parallel`): ring and Ulysses attention
+over a sequence group (`BertEncoder(attention='ring' | 'ulysses',
+seq_axis=group)`), the tensor-parallel rules, shards and BERT
+(`parallel.tp`), the mesh helpers (`parallel.make_mesh`) and the data x
+sequence step (`parallel.data_seq.DataSeqStep`). Collectives run through
+`collectives.Collectives`: a `torch.distributed` group, an `InProcessGroup`
+of W lockstep workers in one process, an `InProcessGrid` of slices x
+workers a slice, or an `InProcessMesh` over named axes.
 """
 
-from deepreduce_tpu_torch.collectives import Collectives, InProcessGrid, InProcessGroup
+from deepreduce_tpu_torch.collectives import Collectives, InProcessGrid, InProcessGroup, InProcessMesh
 from deepreduce_tpu_torch.config import ConfigError, DeepReduceConfig, from_params
 from deepreduce_tpu_torch.codecs.registry import PolyFitCodec
 from deepreduce_tpu_torch.comm import GradientExchanger
@@ -85,6 +91,7 @@ __all__ = [
     "HierarchicalExchanger",
     "InProcessGrid",
     "InProcessGroup",
+    "InProcessMesh",
     "PolyFitCodec",
     "PopulationSpec",
     "SLOSpec",

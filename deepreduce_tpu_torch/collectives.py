@@ -5,7 +5,8 @@ are written against `Collectives`: five operations on one tensor each, in
 rank order, an all_gather that returns before it completes
 (`all_gather_async`, for the bucketed exchange's schedules) and the ring
 hop `ring_shift` (send to rank + 1, receive from rank - 1, also returned
-before it completes: the ring decode's transfer overlaps its decode).
+before it completes: the ring decode's transfer overlaps its decode; with
+`reverse=True` the hop the other way, the backward of ring attention's).
 Three implementations:
 
 - `ProcessGroupCollectives`: a `torch.distributed` group, NCCL on the card
@@ -32,13 +33,17 @@ its position in every slice (the scarce link across nodes). Worker r of
 n_slices x per_slice sits in slice r // per_slice at position
 r % per_slice, the layout of the JAX package's `make_hybrid_mesh`.
 `split_group` makes the pair from one `torch.distributed` group;
-`InProcessGrid` gives in-process workers theirs.
+`InProcessGrid` gives in-process workers theirs. `InProcessMesh` is the
+general form: in-process workers over any named axes, laid out row-major
+as `parallel.mesh.make_mesh` lays out the ranks of a `torch.distributed`
+group (the JAX package's `Mesh(np.reshape(devices, shape))`).
 """
 
 from __future__ import annotations
 
+import math
 import threading
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -74,10 +79,10 @@ class Collectives:
         change before then. Here it completes at once."""
         return Gathered(self.all_gather(x))
 
-    def ring_shift(self, x: torch.Tensor) -> Gathered:
+    def ring_shift(self, x: torch.Tensor, reverse: bool = False) -> Gathered:
         """Send `x` to worker rank + 1 and receive worker rank - 1's (mod
         W), started now and read at `wait()`; `x` must not change before
-        then."""
+        then. `reverse`: send to rank - 1 and receive rank + 1's."""
         raise NotImplementedError
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
@@ -103,7 +108,7 @@ class Collectives:
 class Solo(Collectives):
     """One worker, no group: every collective is the identity."""
 
-    def ring_shift(self, x):
+    def ring_shift(self, x, reverse=False):
         return Gathered(x)
 
     def all_to_all(self, x):
@@ -136,14 +141,15 @@ class ProcessGroupCollectives(Collectives):
         dist.all_to_all_single(out, x, group=self.group)
         return out
 
-    def ring_shift(self, x):
+    def ring_shift(self, x, reverse=False):
         # the receive is posted with the send; the caller waits on both
         # before reading (an early read would see stale bytes, no error)
         x = x.contiguous()
         out = torch.empty_like(x)
-        W, r = self.world_size, self.rank
+        W, r, hop = self.world_size, self.rank, -1 if reverse else 1
         peer = lambda w: dist.get_global_rank(self.group, w % W)
-        ops = [dist.P2POp(dist.isend, x, peer(r + 1), self.group), dist.P2POp(dist.irecv, out, peer(r - 1), self.group)]
+        ops = [dist.P2POp(dist.isend, x, peer(r + hop), self.group),
+               dist.P2POp(dist.irecv, out, peer(r - hop), self.group)]
         return Gathered(out, dist.batch_isend_irecv(ops))
 
     def all_gather(self, x):
@@ -239,8 +245,9 @@ class InProcessMember(Collectives):
             acc = acc + p
         return acc
 
-    def ring_shift(self, x):
-        return Gathered(self._group.exchange(self.rank, x)[(self.rank - 1) % self.world_size])
+    def ring_shift(self, x, reverse=False):
+        src = self.rank + 1 if reverse else self.rank - 1
+        return Gathered(self._group.exchange(self.rank, x)[src % self.world_size])
 
     def all_to_all(self, x):
         return torch.stack([p[self.rank] for p in self._group.exchange(self.rank, x)])
@@ -260,35 +267,76 @@ class InProcessMember(Collectives):
         return torch.stack(self._group.exchange(self.rank, x)).amax(dim=0)
 
 
-class InProcessGrid:
-    """n_slices x per_slice lockstep workers in one process: worker r's
-    `member(r)` is its (ici, dcn) pair, the `InProcessMember`s of its slice's
-    group (rank r % per_slice) and of its position's group (rank
-    r // per_slice), each group with its own barrier."""
+def mesh_lines(axes: Dict[str, int]) -> Dict[str, List[List[int]]]:
+    """{axis: its lines}: the ranks 0..prod(sizes) laid out row-major over
+    the axes in their given order, and for each axis every line of ranks
+    that differ on that axis alone, in increasing rank (so rank
+    `line[i]` has index i on the axis), the lines in order of their first
+    rank."""
+    lines: Dict[str, Dict[tuple, List[int]]] = {a: {} for a in axes}
+    for r in range(math.prod(axes.values())):
+        at, rest = {}, r
+        for a in reversed(list(axes)):
+            rest, at[a] = divmod(rest, axes[a])
+        for a in axes:
+            lines[a].setdefault(tuple(i for b, i in at.items() if b != a), []).append(r)
+    return {a: list(by_key.values()) for a, by_key in lines.items()}
 
-    def __init__(self, n_slices: int, per_slice: int, timeout: float = 120.0):
-        self.n_slices, self.per_slice = n_slices, per_slice
-        self.world_size = n_slices * per_slice
-        self.slices = [InProcessGroup(per_slice, timeout) for _ in range(n_slices)]
-        self.positions = [InProcessGroup(n_slices, timeout) for _ in range(per_slice)]
 
-    def member(self, rank: int) -> Tuple["InProcessMember", "InProcessMember"]:
-        s, p = divmod(rank, self.per_slice)
-        return self.slices[s].member(p), self.positions[p].member(s)
+class InProcessMesh:
+    """Lockstep workers in one process over named axes `{name: size}`,
+    one thread each (`run`), laid out as `mesh_lines` lays out ranks:
+    `member(r)` is worker r's `{axis: InProcessMember}`, its rank within
+    each of its lines, each line a group with its own barrier."""
+
+    def __init__(self, axes: Dict[str, int], timeout: float = 120.0):
+        self.axes = dict(axes)
+        self.world_size = math.prod(self.axes.values())
+        self._groups: List[InProcessGroup] = []
+        self._at: List[Dict[str, Tuple[InProcessGroup, int]]] = [{} for _ in range(self.world_size)]
+        for a, lines in mesh_lines(self.axes).items():
+            for line in lines:
+                group = InProcessGroup(len(line), timeout)
+                self._groups.append(group)
+                for i, r in enumerate(line):
+                    self._at[r][a] = (group, i)
+
+    def member(self, rank: int):
+        return {a: group.member(i) for a, (group, i) in self._at[rank].items()}
 
     def run(self, fn, *args_per_rank):
         """[fn(member(r), *args[r]) for r] with one thread per worker."""
-        return _run_threads(self.world_size, self.member, self.slices + self.positions, fn, args_per_rank)
+        return _run_threads(self.world_size, self.member, self._groups, fn, args_per_rank)
+
+
+class InProcessGrid:
+    """n_slices x per_slice lockstep workers in one process over the
+    `InProcessMesh` (dcn, ici) = (n_slices, per_slice): worker r's
+    `member(r)` is its (ici, dcn) pair, the `InProcessMember`s of its
+    slice's group (rank r % per_slice) and of its position's group (rank
+    r // per_slice)."""
+
+    def __init__(self, n_slices: int, per_slice: int, timeout: float = 120.0):
+        self.n_slices, self.per_slice = n_slices, per_slice
+        self.mesh = InProcessMesh({"dcn": n_slices, "ici": per_slice}, timeout)
+        self.world_size = self.mesh.world_size
+
+    def member(self, rank: int) -> Tuple["InProcessMember", "InProcessMember"]:
+        m = self.mesh.member(rank)
+        return m["ici"], m["dcn"]
+
+    def run(self, fn, *args_per_rank):
+        """[fn(member(r), *args[r]) for r] with one thread per worker."""
+        return self.mesh.run(lambda m, *args: fn((m["ici"], m["dcn"]), *args), *args_per_rank)
 
 
 def split_group(group, ici_size: Optional[int]) -> Tuple[Collectives, Collectives]:
     """The (ici, dcn) pair of this worker from what the entry points accept:
     an (ici, dcn) pair itself (whose slice must have `ici_size` workers when
     it is given), or one group of W = n_slices * ici_size workers (None: one
-    worker), split as `make_hybrid_mesh` lays the workers out. A
-    `torch.distributed` group is split with `dist.new_group`, a collective
-    call of every rank of the default group: each creates every slice's
-    group and then every position's, in the same order."""
+    worker), split as `parallel.mesh.make_hybrid_mesh` lays the workers
+    out (a `torch.distributed` group with `dist.new_group`, a collective
+    call of every rank of the default group)."""
     if isinstance(group, tuple):
         ici, dcn = (collectives_for(g) for g in group)
         if ici_size is not None and ici.world_size != ici_size:
@@ -304,19 +352,10 @@ def split_group(group, ici_size: Optional[int]) -> Tuple[Collectives, Collective
         return Solo(), Solo()
     if not isinstance(coll, ProcessGroupCollectives):
         raise ValueError("in-process workers take their (ici, dcn) pair from InProcessGrid(n_slices, per_slice)")
-    n_slices = W // ici_size
-    glob = lambda r: dist.get_global_rank(coll.group, r)
-    me_s, me_p = divmod(coll.rank, ici_size)
-    ici = dcn = None
-    for s in range(n_slices):
-        g = dist.new_group([glob(s * ici_size + p) for p in range(ici_size)])
-        if s == me_s:
-            ici = g
-    for p in range(ici_size):
-        g = dist.new_group([glob(s * ici_size + p) for s in range(n_slices)])
-        if p == me_p:
-            dcn = g
-    return ProcessGroupCollectives(ici), ProcessGroupCollectives(dcn)
+    from deepreduce_tpu_torch.parallel.mesh import make_hybrid_mesh
+
+    mesh = make_hybrid_mesh(W // ici_size, ici_size, coll.group)
+    return mesh["ici"], mesh["dcn"]
 
 
 _REDUCE_COUNTS = {"all_reduce": 0, "all_reduce_bytes": 0}

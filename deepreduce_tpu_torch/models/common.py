@@ -55,10 +55,15 @@ class Dense(nn.Module):
         else:
             self.bias = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def project(self, x: torch.Tensor) -> torch.Tensor:
+        """x @ kernel in `dtype`, without the bias (a row-parallel product
+        adds it once after the sum over the model group)."""
         dt = _compute_dtype(self.dtype, x, self.kernel)
-        y = x.to(dt) @ self.kernel.to(dt)
-        return y if self.bias is None else y + self.bias.to(dt)
+        return x.to(dt) @ self.kernel.to(dt)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.project(x)
+        return y if self.bias is None else y + self.bias.to(y.dtype)
 
 
 class DenseGeneral(nn.Module):
@@ -74,9 +79,14 @@ class DenseGeneral(nn.Module):
         self.kernel = _normal((*in_shape, *out_shape), 1.0 / math.sqrt(math.prod(in_shape)), gen)
         self.bias = nn.Parameter(torch.zeros(*out_shape))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def project(self, x: torch.Tensor) -> torch.Tensor:
+        """The contraction in `dtype`, without the bias."""
         dt = _compute_dtype(self.dtype, x, self.kernel)
-        return torch.tensordot(x.to(dt), self.kernel.to(dt), dims=self.n_in) + self.bias.to(dt)
+        return torch.tensordot(x.to(dt), self.kernel.to(dt), dims=self.n_in)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.project(x)
+        return y + self.bias.to(y.dtype)
 
 
 def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:

@@ -9,9 +9,13 @@ port's models permute them inside `forward`; BERT's `DenseGeneral` kernels
 stay 3-D (`[hidden, heads, head_dim]`, `[heads, head_dim, hidden]`) and are
 contracted as they are, so nothing is transposed on the way.
 `params_from_flax` takes the nested flax dict itself (MobileNetV1, NeuMF,
-ResNet-50, DenseNet-40, VGG16, BERT). Tests use this so that both packages
-compute the same function; a model's `load_flax_params` checks the name
-set and every shape.
+ResNet-50, DenseNet-40, VGG16, BERT in either attention layout:
+`MultiHeadDotProductAttention_0` or `SeqParallelSelfAttention_0`). Tests use
+this so that both packages compute the same function; a model's
+`load_flax_params` checks the name set and every shape.
+`parallel.tp.shard_params(params_from_flax(tree), ...)` cuts this rank's
+tensor-parallel shards of the full tree, the JAX package's addressable
+shards under the same rules.
 
 The federated simulation's state carries over too: `fedsim_state_from_jax`
 and `multitenant_state_from_jax` turn a JAX `FedSimState` (with its

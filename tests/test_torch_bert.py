@@ -15,8 +15,9 @@ CPU.
   bias's gradient is rounding noise around 0, since a softmax does not see
   a shift shared by a query's scores).
 - `remat=True` (`torch.utils.checkpoint` per layer) gives the same loss and
-  gradients and the same parameter names; ring and Ulysses attention raise
-  `NotImplementedError`.
+  gradients and the same parameter names; ring and Ulysses attention build
+  with flax's `SeqParallelSelfAttention_0` names (their numerics are
+  `tests/test_torch_parallel.py`'s).
 - One `Trainer` step under DRQSGD-BF-P0 against the JAX `Trainer` with the
   `lm` loss of `benchmarks/train.py`: equal wire bytes, the parameters after
   the step to rtol 1e-4 / atol 1e-6.
@@ -32,13 +33,17 @@ import optax
 import pytest
 import torch
 from test_torch_models_zoo import DRQSGD, _checked_exchange, _seeded, _shapes, jax_trainer
+from conftest import shared_mesh
+from jax.sharding import PartitionSpec as P
 from test_torch_slice import _jax_flat_params, _jax_uniforms, _t
 
 from deepreduce_tpu.comm import GradientExchanger as JExchanger
 from deepreduce_tpu.config import DeepReduceConfig as JConfig
 from deepreduce_tpu.models import BertEncoder as JBertEncoder
 from deepreduce_tpu.sparse import per_tensor_key
+from deepreduce_tpu.utils.compat import shard_map
 import deepreduce_tpu_torch as port
+from deepreduce_tpu_torch.collectives import InProcessGroup
 from deepreduce_tpu_torch.models import BertEncoder
 from deepreduce_tpu_torch.train import next_token_loss
 from deepreduce_tpu_torch.weights import params_from_flax
@@ -135,9 +140,26 @@ def test_remat_gives_the_same_loss_gradients_and_names():
 
 @pytest.mark.parametrize("knobs", [dict(attention="ring"), dict(attention="ulysses"),
                                    dict(attention="ring", seq_axis="seq"), dict(seq_axis="seq")])
-def test_sequence_parallel_attention_is_not_ported(knobs):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        BertEncoder(**SMALL, **knobs)
+def test_sequence_parallel_modes_build_with_flax_names(knobs):
+    """Each mode builds with flax's parameter names and shapes for it
+    (`jax.eval_shape` of JAX's `init`, under a one-device `seq` mesh where
+    the mode names the axis); dense with a sequence axis raises JAX's
+    ValueError. The port's counterpart of the named axis is a group."""
+    jm = JBertEncoder(**SMALL, **knobs)
+    init = shard_map(lambda t: jm.init(jax.random.PRNGKey(0), t), mesh=shared_mesh(1, "seq"),
+                     in_specs=P(None, "seq"), out_specs=P(), check_vma=False)
+    kw = dict(knobs, seq_axis=InProcessGroup(1).member(0)) if "seq_axis" in knobs else knobs
+    try:
+        jshapes = _shapes(jax.eval_shape(init, jnp.zeros((1, 8), jnp.int32))["params"])
+    except ValueError as e:
+        with pytest.raises(ValueError) as err:
+            BertEncoder(**SMALL, **kw)
+        assert str(err.value) == str(e) and "sequence-sharded" in str(e)
+        return
+    tm = BertEncoder(**SMALL, **kw)
+    assert {n: tuple(p.shape) for n, p in tm.flax_params().items()} == jshapes
+    assert sorted(tm.flax_params()) == list(jshapes) and len(jshapes) == 40
+    assert "TransformerLayer_1/SeqParallelSelfAttention_0/out/kernel" in jshapes
 
 
 def test_one_drqsgd_trainer_step_matches_jax():

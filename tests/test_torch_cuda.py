@@ -929,3 +929,92 @@ def test_rung_switch_on_the_card_encodes_its_table_bitwise(cuda):
     qsgd_encode_rows([dataclasses.replace(s, values=s.values.cpu()) for s in segs], ref,
                      quantum_num=cfg.quantum_num, bucket_size=cfg.bucket_size, device="cpu")
     assert torch.equal(got.cpu(), ref)
+
+
+def test_ring_hop_and_ring_attention_backward_on_the_card_in_threads(cuda):
+    """Two in-process workers on the card: a ring hop forward (worker r
+    receives r - 1's tensor) and backward (the gradient hops back), then
+    causal ring attention forward and backward against the unsharded
+    reference. Each backward runs on its worker's thread
+    (`functional.backward`); on autograd's one device thread the two
+    backward hops would wait on each other. The group's 60 s barrier
+    timeout turns such a deadlock into a failure, not a hang."""
+    from deepreduce_tpu_torch.collectives import InProcessGroup
+    from deepreduce_tpu_torch.parallel import ring_attention
+    from deepreduce_tpu_torch.parallel.functional import backward, ring_hop
+    from deepreduce_tpu_torch.parallel.ring import ring_self_attention_reference
+
+    gen = torch.Generator().manual_seed(20)
+    xs = [torch.randn(3, 5, generator=gen) for _ in range(2)]
+    cos = [torch.randn(3, 5, generator=gen) for _ in range(2)]
+    qkv = [torch.randn(2, 16, 4, 8, generator=gen) for _ in range(3)]
+    co = torch.randn(2, 16, 4, 8, generator=gen)
+
+    def work(coll, r):
+        x = xs[r].to(cuda, copy=True).requires_grad_()
+        y = ring_hop(x, coll)
+        backward((y * cos[r].to(cuda)).sum())
+        q, k, v = (t[:, 8 * r : 8 * r + 8].to(cuda, copy=True).requires_grad_() for t in qkv)
+        out = ring_attention(q, k, v, coll, causal=True)
+        backward((out * co[:, 8 * r : 8 * r + 8].to(cuda)).sum())
+        return y.detach().cpu(), x.grad.cpu(), [t.detach().cpu() for t in (out, q.grad, k.grad, v.grad)]
+
+    res = InProcessGroup(2, timeout=60).run(work, [0, 1])
+    torch.cuda.synchronize()
+    for r in range(2):
+        assert torch.equal(res[r][0], xs[1 - r]) and torch.equal(res[r][1], cos[1 - r])
+    ref_in = [t.clone().requires_grad_() for t in qkv]
+    ref = ring_self_attention_reference(*ref_in, causal=True)
+    (ref * co).sum().backward()
+    for i, want in enumerate([ref.detach()] + [t.grad for t in ref_in]):
+        got = torch.cat([res[r][2][i] for r in range(2)], dim=1)
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-5 if i == 0 else 3e-4)
+
+
+def test_tensor_parallel_backward_all_reduce_on_the_card_in_threads(cuda):
+    """Megatron's pair on two in-process workers on the card under the
+    in-thread backward: copy_to_group's backward all-reduces the gradient
+    (every worker's x.grad is the sum of the cotangents), and
+    reduce_from_group sums forward and passes the gradient through. A 60 s
+    barrier timeout bounds the test."""
+    from deepreduce_tpu_torch.collectives import InProcessGroup
+    from deepreduce_tpu_torch.parallel.functional import backward, copy_to_group, reduce_from_group
+
+    gen = torch.Generator().manual_seed(21)
+    x = torch.randn(4, 6, generator=gen)
+    ws = [torch.randn(6, 3, generator=gen) for _ in range(2)]
+
+    def work(coll, r):
+        xc = x.to(cuda, copy=True).requires_grad_()
+        w = ws[r].to(cuda, copy=True).requires_grad_()
+        y = reduce_from_group(copy_to_group(xc, coll) @ w, coll)
+        backward(y.square().sum())
+        return y.detach().cpu(), xc.grad.cpu(), w.grad.cpu()
+
+    res = InProcessGroup(2, timeout=60).run(work, [0, 1])
+    torch.cuda.synchronize()
+    xr = x.clone().requires_grad_()
+    wr = [w.clone().requires_grad_() for w in ws]
+    y = xr @ wr[0] + xr @ wr[1]
+    y.square().sum().backward()
+    for r in range(2):
+        torch.testing.assert_close(res[r][0], y.detach(), rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(res[r][1], xr.grad, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(res[r][2], wr[r].grad, rtol=1e-5, atol=1e-5)
+
+
+def test_sync_count_sees_a_worker_threads_sync(cuda):
+    """`chip_smoke._counting_syncs` around in-process workers: one `.item()`
+    on one worker thread of a two-worker group is one recorded site, and
+    the other worker's device-only work is none."""
+    import chip_smoke
+    from deepreduce_tpu_torch.collectives import InProcessGroup
+
+    x = torch.arange(4.0, device=cuda)
+
+    def work(coll, r):
+        y = coll.all_reduce_sum(x * (r + 1))
+        return float(y[0]) if r == 1 else y
+
+    out, sites = chip_smoke._counting_syncs(lambda: InProcessGroup(2, timeout=60).run(work, [0, 1]))
+    assert out[1] == 0.0 and len(sites) == 1, sites

@@ -296,6 +296,9 @@ def test_port_imports_no_jax():
         " deepreduce_tpu_torch.comm_ring, deepreduce_tpu_torch.resilience.faults, deepreduce_tpu_torch.resilience.chaos,"
         " deepreduce_tpu_torch.resilience.stream, deepreduce_tpu_torch.resilience.__main__,"
         " deepreduce_tpu_torch.parallel, deepreduce_tpu_torch.parallel.hierarchical,"
+        " deepreduce_tpu_torch.parallel.mesh, deepreduce_tpu_torch.parallel.functional,"
+        " deepreduce_tpu_torch.parallel.ring, deepreduce_tpu_torch.parallel.ulysses, deepreduce_tpu_torch.parallel.tp,"
+        " deepreduce_tpu_torch.parallel.data_seq,"
         " deepreduce_tpu_torch.fedsim.sim, deepreduce_tpu_torch.fedsim.__main__, deepreduce_tpu_torch.population,"
         " deepreduce_tpu_torch.population.sampler, deepreduce_tpu_torch.population.spec, deepreduce_tpu_torch.slo,"
         " deepreduce_tpu_torch.slo.spec, deepreduce_tpu_torch.slo.monitor, deepreduce_tpu_torch.train,"

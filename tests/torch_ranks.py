@@ -139,3 +139,32 @@ def run_telemetry_rank(rank: int, world: int, store_path: str, out_path: str, kn
                     "params": {n: p.detach().clone() for n, p in state.params.items()}}, out_path)
     finally:
         dist.destroy_process_group()
+
+
+def run_mesh_rank(rank: int, world: int, store_path: str, out_path: str, axes, qkv, cotangent) -> None:
+    """`parallel.make_mesh(axes)` and `make_hybrid_mesh` over a gloo group:
+    saves, for each axis, this rank's (rank, size, the group's global
+    ranks); then ring and Ulysses attention over the 'seq' axis on this
+    rank's sequence chunk of `qkv` (the chunks laid out over the whole
+    mesh's 'seq' coordinate), forward and the gradients of
+    sum(out * cotangent)."""
+    from deepreduce_tpu_torch.parallel import make_hybrid_mesh, make_mesh, ring_attention, ulysses_attention
+    from deepreduce_tpu_torch.parallel.functional import backward
+
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world), rank=rank, world_size=world)
+    try:
+        def layout(mesh):
+            return {a: (c.rank, c.world_size, dist.get_process_group_ranks(c.group)) for a, c in mesh.items()}
+
+        mesh = make_mesh(axes, dist.group.WORLD)
+        out = {"mesh": layout(mesh), "hybrid": layout(make_hybrid_mesh(2, world // 2))}
+        seq = mesh["seq"]
+        c = qkv[0].shape[1] // seq.world_size
+        for name, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+            q, k, v = (t[:, seq.rank * c : (seq.rank + 1) * c].clone().requires_grad_() for t in qkv)
+            o = fn(q, k, v, seq, causal=True)
+            backward((o * cotangent[:, seq.rank * c : (seq.rank + 1) * c]).sum())
+            out[name] = (o.detach(), q.grad, k.grad, v.grad)
+        torch.save(out, out_path)
+    finally:
+        dist.destroy_process_group()
