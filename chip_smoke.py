@@ -119,7 +119,7 @@ Phases, one line each; any failure raises and exits non-zero:
      1.0, 32x32x3, 10 of 10 clients, 4 local steps of SGD 0.2 momentum 0.9
      on 24 images) dense for 3 rounds and DRQSGD-BF-P0 both ways for 3
      rounds, and the WordLSTM (56 of 57 clients, 4 local steps of SGD 2.0
-     momentum 0.9 on 16 x 20 tokens) DRQSGD-BF-P0 for 2 rounds: finite
+     momentum 0.9 on 16 x 20 tokens) DRQSGD-BF-P0 for 1 round: finite
      parameters and held-out loss, each round's per-direction index and
      dense bits equal to FEDAVG_WIRE (the JAX package's codec geometry) and
      its value bits within their bounds, qsgd_encode_rows exactly
@@ -159,8 +159,8 @@ Phases, one line each; any failure raises and exits non-zero:
      statistic, momentum buffer and residual and the step bitwise the saved
      ones), and stepped once more.
  15. the host half of the codec family on the full-width WordLSTM through
-     the same NCCL group, 3 steps an arm on phase 7's weights and batches
-     with the counts zeroed just before and read just after: the flagship
+     the same NCCL group, 3 steps an arm (1 for the exact P2) on phase 7's
+     weights and batches with the counts zeroed just before and read just after: the flagship
      with the Huffman index (`drqsgd_huffman`) and the C++ library's varint
      and pfor indices (`drqsgd_varint`, `drqsgd_pfor`), the library's bloom
      index under the exact P2 policy (`bloom_native_p2`), Deflate and the
@@ -193,7 +193,7 @@ Phases, one line each; any failure raises and exits non-zero:
      step in the allgather arms on a table bitwise its plain version, no host
      sync, the payload bytes, rel_volume; then four in-process workers on the
      one card (`INPROC16`: worker 2 dropped, byte corruption, the checksum)
-     for 3 steps of each of loop, vmap and ring (launches, no host sync,
+     for 2 steps of each of loop, vmap and ring (launches, no host sync,
      live count 3, failures) and one exchange of full-width gradients with
      loop card = CPU bitwise (failures, the masked mean over 3 live), vmap
      bitwise loop and ring within its reordering bound; and
@@ -281,6 +281,27 @@ Phases, one line each; any failure raises and exits non-zero:
      steps 2-3, where a worker thread's one `.item()` counts as one sync). Each arm: ms on worker 0's clock, launches counted from 0
      just before, peak memory, the card's name and power limit. No hop,
      all_to_all or all-reduce crosses between cards.
+ 21. the training driver (`deepreduce_tpu_torch.driver`, the counterpart of
+     benchmarks/train.py) through `driver.run` in this process on the same
+     NCCL group, each run with the counts zeroed just before and read just
+     after and every step under the sync debug mode (`DRIVER21`):
+     `driver_flagship` (DRQSGD-BF-P0 on the full-width WordLSTM, batch 64,
+     8 steps, --telemetry --track_dir: the payload bytes, rel_volume, one
+     qsgd_encode_rows launch a step, 0 host syncs in steps 2-8, the first
+     loss within 1e-4 of the CPU's, the tracked run's metrics and trace, and
+     the last step's grouped QSGD table bitwise its plain version),
+     `driver_quickstart` (the README quick start's --grace_config on the
+     full-width ResNet-20, 3 steps: 18,756 B, no launch) and `driver_qar`
+     (3 steps: 2 qsgd_quantize launches a step, the last call's output
+     bitwise its plain version on its input); `driver_resume` (the flagship
+     killed after 4 steps, checkpointed every 2, resumed to 6, against an
+     uninterrupted 6: the last loss within rtol 1e-6, the difference
+     printed); `driver_stream`: the flagship in 4 MiB buckets under the
+     barrier schedule (one launch a step), then streamed from the backward
+     pass through `python -m deepreduce_tpu_torch.driver` in a fresh process
+     (the loss and rel_volume series bitwise the barrier run's),
+     `telemetry trace --overlap`'s fraction on the streamed run, and two
+     `telemetry calibrate` fits of the barrier run byte-equal.
 `--profile` adds one profiled training step after phase 5, after each arm
 of phases 7, 8, 9, 10, 11, 14 and 15, and one profiled round after each arm
 of phase 12: the device's busy and idle share over the step or round, its
@@ -420,7 +441,7 @@ FEDAVG = {
     "fedavg_mobilenet_drqsgd": dict(model="mobilenet", knobs=FED_DRQSGD, clients=(10, 10), local_steps=4, lr=0.2,
                                     momentum=0.9, batch=24, rounds=3),
     "fedavg_lstm_drqsgd": dict(model="wordlstm", knobs=FED_DRQSGD, clients=(57, 56), local_steps=4, lr=2.0,
-                               momentum=0.9, batch=16, seq=20, rounds=2),
+                               momentum=0.9, batch=16, seq=20, rounds=1),  # one round: phase 21's time
 }
 # each arm's wire for one tree in one direction, from the JAX package's codec
 # geometry (tests/test_torch_fedavg.py derives them): index bits and dense
@@ -2241,6 +2262,9 @@ HOST15 = {
     "topr_polyfit_host": (dict(deepreduce="value", value="polyfit_host"), 1_625_548, 0, 1),
 }
 HOST15_STEPS = 3
+# the exact P2 takes 5.6-8.4 s a step on the host: its arm runs one step, and
+# its codec-table row one timed encode and decode (phase 21's time)
+HOST15_P2 = "bloom_native_p2"
 # the codec table's host codecs (bench.py's geometry): the six arms' and fbp
 HOST15_CODEC_TABLE = {**{arm: knobs for arm, (knobs, *_) in HOST15.items()},
                       "drqsgd_fbp": dict(index="integer_native", code="fbp")}
@@ -2298,14 +2322,15 @@ def phase_host_codecs(seed: int, tokens, group, ref_loss: float, profile: bool =
         for arm, (knobs, payload, per_step, copies) in HOST15.items():
             results[arm] = _host_arm(arm, knobs, payload, per_step, copies, seed, batch, group, ref_loss, profile)
             torch.cuda.empty_cache()
-        table = {name: _host_codec_times(_flagship_cfg(seed, **knobs)) for name, knobs in HOST15_CODEC_TABLE.items()}
+        table = {name: _host_codec_times(_flagship_cfg(seed, **knobs), reps=1 if name == HOST15_P2 else 3)
+                 for name, knobs in HOST15_CODEC_TABLE.items()}
     print("phase 15 ok: host codec table " + json.dumps(table), flush=True)
     return results
 
 
 def _host_arm(arm: str, knobs: dict, payload: int, per_step: int, copies: int, seed: int, batch, group,
               ref_loss: float, profile: bool) -> dict:
-    """One arm of phase 15: HOST15_STEPS steps from fresh weights, each
+    """One arm of phase 15: HOST15_STEPS steps (1 for HOST15_P2) from fresh weights, each
     checked for its launches and host syncs, then its exchange card = CPU,
     its QSGD table and (with `profile`) one profiled step."""
     import torch
@@ -2328,9 +2353,10 @@ def _host_arm(arm: str, knobs: dict, payload: int, per_step: int, copies: int, s
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     host_branch.syncs = 0
-    state, losses, dev_ms, host_ms, wire, sync_calls = _run_steps(trainer, state, batch, HOST15_STEPS)
+    steps = 1 if arm == HOST15_P2 else HOST15_STEPS
+    state, losses, dev_ms, host_ms, wire, sync_calls = _run_steps(trainer, state, batch, steps)
     launches = launch_counts()
-    expected = {"qsgd_quantize": 0, "qsgd_encode_rows": per_step * HOST15_STEPS}
+    expected = {"qsgd_quantize": 0, "qsgd_encode_rows": per_step * steps}
     _check(launches == expected, f"{arm}: kernel launches {launches}, expected {expected}")
     _check_trained(state, losses, ref_loss, arm)
     sites = sorted({m for x in sync_calls for m in x})
@@ -2650,6 +2676,7 @@ PAYLOAD16 = {  # the JAX package's payload_bytes at W = 1 (test_phase16_wire_con
 # dropped, the checksum and byte corruption, in each decode strategy
 W16 = 4
 INPROC16 = dict(RES16, fault_plan="2@0:1000", chaos_corrupt_rate=0.6)
+INPROC16_STEPS = 2  # steps of each W = 4 in-process strategy (2, not 3: phase 21's time)
 STRATEGIES16 = {"loop": {}, "vmap": dict(decode_strategy="vmap"), "ring": dict(decode_strategy="ring")}
 EPS32 = 2.0 ** -24
 
@@ -2804,7 +2831,7 @@ def _inproc_exchange16(seed: int) -> dict:
 
 
 def _inproc16(seed: int, tokens) -> dict:
-    """The W = 4 in-process arms: 3 Trainer steps of each decode strategy
+    """The W = 4 in-process arms: INPROC16_STEPS Trainer steps of each decode strategy
     under INPROC16, one thread a worker, each on its quarter of the batch:
     launches, host syncs, losses, failures, live counts and times."""
     import warnings
@@ -2829,7 +2856,7 @@ def _inproc16(seed: int, tokens) -> dict:
             lo = coll.rank * shard
             steps = []
             coll.all_reduce_sum(torch.zeros(1, device="cuda"))  # every worker built before the clock starts
-            for i in range(ARM_STEPS):
+            for i in range(INPROC16_STEPS):
                 start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 collect = {}
                 start.record()
@@ -2853,7 +2880,7 @@ def _inproc16(seed: int, tokens) -> dict:
                 torch.cuda.set_sync_debug_mode("default")
         syncs = sorted({f"{w.filename}:{w.lineno}" for w in caught if "called a synchronizing" in str(w.message)})
         launches = launch_counts()
-        expected = {"qsgd_quantize": 0, "qsgd_encode_rows": W16 * ARM_STEPS}
+        expected = {"qsgd_quantize": 0, "qsgd_encode_rows": W16 * INPROC16_STEPS}
         _check(launches == expected, f"inproc_{name}: kernel launches {launches}, expected {expected}")
         _check(not syncs, f"inproc_{name}: host syncs at {syncs}")
         state0, steps0, payload, wire = outs[0]
@@ -2862,7 +2889,7 @@ def _inproc16(seed: int, tokens) -> dict:
         for w, (st, _, _, _) in enumerate(outs):
             _check(all(bool(torch.isfinite(p).all()) for p in st.params.values()), f"inproc_{name}: worker {w}")
         live = [float(s[3]["live_workers"]) for s in steps0]
-        _check(live == [3.0] * ARM_STEPS, f"inproc_{name}: live workers {live}")
+        _check(live == [3.0] * INPROC16_STEPS, f"inproc_{name}: live workers {live}")
         dev_ms = [s[0].elapsed_time(s[1]) for s in steps0]
         results[f"inproc_{name}"] = {
             "losses": losses, "worker0_step_ms_all": dev_ms, "step_ms_median": statistics.median(dev_ms),
@@ -3405,6 +3432,7 @@ FED18_LINEAR = dict(dim=256, batch=4, local_steps=2, population=131_072, cohort=
 # host-bound (2.7 s on an H100 80GB HBM3 at 700 W, PERF.md); the arms run 16
 # blocks of 1,024 and the sync arm times one tick at this block too
 FED18_BENCH_CHUNK = 128
+FED18_BENCH_TICKS = 1  # ticks in blocks of FED18_BENCH_CHUNK (1, not 2: phase 21's time)
 FED18_CODEC = dict(deepreduce="index", index="bloom", bloom_blocked="mod", compress_ratio=0.25, fpr=0.01,
                    memory="residual", min_compress_size=8)
 FED18_CHURN = dict(resilience=True, fault_plan="3@1,5@2:4", drop_rate=0.05, payload_checksum=True,
@@ -3641,8 +3669,8 @@ def _fed_linear(arm: str, spec: dict, seed: int, group) -> dict:
 
 
 def _fed_bench_chunk_tick(cfg, loss_fn, data_fn, g, state, key: int, r: int) -> list:
-    """Two ticks from `state` in blocks of FED18_BENCH_CHUNK clients (CUDA
-    events), the benchmark record's block size."""
+    """FED18_BENCH_TICKS ticks from `state` in blocks of FED18_BENCH_CHUNK
+    clients (CUDA events), the benchmark record's block size."""
     import dataclasses
 
     import torch
@@ -3655,7 +3683,7 @@ def _fed_bench_chunk_tick(cfg, loss_fn, data_fn, g, state, key: int, r: int) -> 
                  device="cuda")
     st = _fed_to(state, "cuda")
     out = []
-    for t in range(2):
+    for t in range(FED18_BENCH_TICKS):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         st, _ = sim.step(st, stream.key(key, r + t))
@@ -4798,8 +4826,300 @@ def phase_seq_tensor(seed: int) -> dict:
     return results
 
 
+# -- phase 21: the training driver (python -m deepreduce_tpu_torch.driver) -- #
+# The driver's runs through `driver.run` in this process (on the one-rank
+# NCCL group, for the launch counters and the sync debug mode) and through
+# `python -m deepreduce_tpu_torch.driver` in fresh processes (the streamed
+# exchange against the barrier one, the first measure of its overlap on the
+# card, and calibrate). The grace configs are the reference's flag format.
+FLAGSHIP21 = ("{'compressor':'topk','compress_ratio':0.1,'memory':'residual','communicator':'allgather',"
+              "'deepreduce':'both','index':'bloom','value':'qsgd','fpr':0.02,'policy':'p0','bloom_blocked':'mod',"
+              "'quantum_num':127,'bucket_size':512}")
+QUICKSTART21 = ("{'compressor':'topk','compress_ratio':0.01,'memory':'residual','communicator':'allgather',"
+                "'deepreduce':'both','index':'bloom','value':'polyfit','fpr':0.001,'policy':'leftmost'}")
+QAR21 = "{'communicator':'qar','compressor':'none','deepreduce':None,'memory':'none'}"
+STREAM21 = FLAGSHIP21[:-1] + f",'bucket_bytes':{BUCKET_BYTES},'bucket_order':'reverse'"
+DRIVER21 = {  # arm: (model, grace config, steps, launches a step {kernel: n}, payload bytes)
+    "driver_flagship": ("lstm", FLAGSHIP21, 8, {"qsgd_encode_rows": 1, "qsgd_quantize": 0}, PAYLOAD_BYTES["drqsgd_bloom"]),
+    "driver_quickstart": ("resnet20", QUICKSTART21, 3, {"qsgd_encode_rows": 0, "qsgd_quantize": 0},
+                          RESNET_PAYLOAD_BYTES["resnet20_quickstart"]),
+    "driver_qar": ("lstm", QAR21, 3, {"qsgd_encode_rows": 0, "qsgd_quantize": 2}, None),
+}
+RESUME21 = (4, 6, 2)  # killed after 4 steps (checkpoint every 2), resumed to 6
+RESUME21_RTOL = 1e-6
+STREAM21_STEPS = 6  # calibrate fits from >= 4 step times after its one-step warm-up drop
+
+
+def _driver_args(model: str, grace: str, steps: int, **kw):
+    from deepreduce_tpu_torch import driver
+
+    argv = ["--model", model, "--grace_config", grace, "--num_steps", str(steps), "--num_workers", "1",
+            "--log_every", "0"]
+    args = driver.build_parser().parse_args(argv)
+    for k, v in kw.items():
+        setattr(args, k, v)
+    return args
+
+
+def _driver_ref_loss(model_name: str, seed: int) -> tuple:
+    """(the loss of the driver's first batch at its initial weights on the
+    CPU, the model's parameter count)."""
+    import numpy as np
+    import torch
+
+    from deepreduce_tpu_torch import driver
+
+    model, (kind, spec, classes) = driver.MODELS[model_name](seed)
+    batch = driver.make_batch(kind, spec, classes, 64, np.random.default_rng((seed, 1, 0)), model=model)
+    with torch.no_grad():
+        return float(driver.make_loss(kind, model)(batch)), sum(p.numel() for p in model.parameters())
+
+
+def _driver_run_counted(args, spy_kernels: bool = False) -> dict:
+    """`driver.run(args)` in this process with its launch counts zeroed just
+    before and read just after, under the sync debug mode: the host syncs of
+    each `Trainer.step` call (file:line) and of the whole run; with
+    `spy_kernels`, the last grouped QSGD launch's table and the last
+    `qsgd_quantize` call's inputs and output, kept for the comparison with
+    the plain versions after the counted run."""
+    import warnings
+
+    import torch
+
+    from deepreduce_tpu_torch import driver, qar, train, wrappers
+    from deepreduce_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    orig_step, orig_encode, orig_quantize = train.Trainer.step, wrappers.qsgd_encode_rows, qar.quantize_levels
+    per_step, seen = [], {}
+    sites = lambda ws: [f"{w.filename}:{w.lineno}" for w in ws if "called a synchronizing" in str(w.message)]
+
+    def encode_spy(segments, rows, **kw):
+        out = orig_encode(segments, rows, **kw)
+        seen["encode"] = (list(segments), rows.clone(), kw["quantum_num"], kw["bucket_size"])  # device copies
+        return out
+
+    def quantize_spy(values, scale, seed, offset, **kw):
+        out = orig_quantize(values, scale, seed, offset, **kw)
+        seen["quantize"] = (values.clone(), scale.clone(), seed, offset, out.clone())
+        return out
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        def step_spy(self, *a, **kw):
+            n0 = len(caught)
+            out = orig_step(self, *a, **kw)
+            per_step.append(sites(caught[n0:]))
+            return out
+
+        train.Trainer.step = step_spy
+        if spy_kernels:
+            wrappers.qsgd_encode_rows, qar.quantize_levels = encode_spy, quantize_spy
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        try:
+            result = driver.run(args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            train.Trainer.step, wrappers.qsgd_encode_rows, qar.quantize_levels = orig_step, orig_encode, orig_quantize
+        wall_s = time.perf_counter() - t0
+    return {"result": result, "launches": launch_counts(), "step_syncs": per_step, "run_syncs": sites(caught),
+            "wall_s": wall_s, "seen": seen}
+
+
+def _captured_table_vs_plain(seen, what: str) -> dict:
+    """The captured grouped launch's rows against the plain version on the
+    same segment table (the segments' row ranges of the fused buffer)."""
+    import torch
+
+    from deepreduce_tpu_torch.ops.qsgd_encode import num_buckets
+
+    segs, rows, q, bs = seen["encode"]
+    rows = rows.cpu()
+    got = torch.zeros_like(rows)
+    for s in segs:
+        lo = s.out_offset
+        hi = lo + num_buckets(s.values.numel(), bs) * (bs + 4)
+        got[lo:hi] = rows[lo:hi]
+    err = _check_rows(got, _plain_rows(segs, rows.numel(), q, bs), segs, bs, q, what)
+    return {"segments": len(segs), "values": sum(s.values.numel() for s in segs), "max_abs_err": err}
+
+
+def _captured_quantize_vs_plain(seen, what: str) -> dict:
+    import torch
+
+    from deepreduce_tpu_torch.ops import philox_uniforms_plain, quantize_levels_plain
+
+    values, scale, seed, offset, got = seen["quantize"]
+    ref = quantize_levels_plain(values, scale, philox_uniforms_plain(values.numel(), seed, offset,
+                                                                     device=values.device))
+    torch.cuda.synchronize()
+    err = float((got.int() - ref.int()).abs().max())
+    _check(torch.equal(got, ref), f"{what}: qsgd_quantize != plain on the step's input (max |diff| {err})")
+    return {"n": values.numel(), "max_abs_err": err, "levels_nonzero": int((got != 0).sum())}
+
+
+def _driver_arm(arm: str, seed: int, root: str, phase5: dict) -> dict:
+    model, grace, steps, per_step, payload = DRIVER21[arm]
+    track = arm == "driver_flagship"
+    args = _driver_args(model, grace, steps, seed=seed, telemetry=track,
+                        track_dir=os.path.join(root, "track") if track else "", run_name=arm)
+    out = _driver_run_counted(args, spy_kernels=True)
+    res, launches = out["result"], out["launches"]
+    expected = {k: n * steps for k, n in per_step.items()}
+    _check(launches == expected, f"{arm}: kernel launches {launches}, expected {expected}")
+    _check(len(out["step_syncs"]) == steps and not any(out["step_syncs"][1:]),
+           f"{arm}: host syncs in steps 2-{steps}: {out['step_syncs']}")
+    ref, n_params = _driver_ref_loss(model, seed)
+    _check(all(math.isfinite(res[k]) for k in ("first_loss", "last_loss")), f"{arm}: losses {res}")
+    _check(abs(res["first_loss"] - ref) <= 1e-4 * abs(ref), f"{arm}: first loss {res['first_loss']} vs CPU {ref}")
+    _check(0.0 < res["rel_volume"] < 1.0 and res["steps"] == steps, f"{arm}: {res}")
+    if payload is not None:
+        _check(res["payload_bytes_per_step"] == payload, f"{arm}: payload {res['payload_bytes_per_step']}")
+        # the live lengths: at most the static budgets' ratio (the value
+        # stream's live length is the data's: phase 5's batches read another)
+        budget = payload * 8 / (32 * n_params)
+        _check(res["rel_volume"] <= budget, f"{arm}: rel_volume {res['rel_volume']} above the budgets' {budget}")
+    rec = {k: res[k] for k in ("first_loss", "last_loss", "examples_per_sec", "rel_volume", "idx_rel_volume",
+                               "val_rel_volume", "payload_bytes_per_step")}
+    rec.update(cpu_ref_loss0=ref, launches=launches, wall_s=out["wall_s"],
+               step_syncs=[len(s) for s in out["step_syncs"]], run_syncs=len(out["run_syncs"]),
+               run_sync_sites=sorted(set(out["run_syncs"])), card=_card())
+    if per_step["qsgd_encode_rows"]:
+        rec["qsgd_table"] = _captured_table_vs_plain(out["seen"], f"the {arm} step's table")
+    if per_step["qsgd_quantize"]:
+        rec["qsgd_quantize"] = _captured_quantize_vs_plain(out["seen"], arm)
+    if arm == "driver_flagship":
+        rec["phase5_rel_volume"] = phase5["rel_volume"]
+    if track:
+        run_dir = os.path.join(root, "track", arm)
+        metrics = [json.loads(l) for l in open(os.path.join(run_dir, "metrics.jsonl"))]
+        _check([m["step"] for m in metrics] == list(range(steps)), f"{arm}: tracked steps {metrics}")
+        _check(res["telemetry"]["steps"] == float(steps), f"{arm}: telemetry steps {res['telemetry']['steps']}")
+        _check(os.path.exists(os.path.join(run_dir, "trace.json")), f"{arm}: no trace.json")
+        rec["tracked_losses"] = [m["loss"] for m in metrics]
+        rec["telemetry_rel_volume"] = res["telemetry"]["rel_volume"]
+    return rec
+
+
+def _driver_resume(seed: int, root: str) -> dict:
+    """The flagship killed after RESUME21[0] steps and resumed to RESUME21[1],
+    against an uninterrupted run of RESUME21[1] steps."""
+    killed_at, total, every = RESUME21
+    ck = os.path.join(root, "ckpt")
+    run = lambda steps, **kw: _driver_run_counted(_driver_args("lstm", FLAGSHIP21, steps, seed=seed,
+                                                               telemetry=True, **kw))
+    full = run(total)
+    killed = run(killed_at, checkpoint_every=every, checkpoint_dir=ck)
+    resumed = run(total, checkpoint_dir=ck, resume=True)
+    a, b = resumed["result"], full["result"]
+    _check(killed["result"]["steps"] == killed_at and a["resumed_at"] == killed_at, f"resume: {a}")
+    diff = abs(a["last_loss"] - b["last_loss"])
+    _check(diff <= RESUME21_RTOL * abs(b["last_loss"]), f"resume: last loss {a['last_loss']} vs {b['last_loss']}")
+    _check(a["telemetry"]["steps"] == float(total), f"resume: telemetry steps {a['telemetry']['steps']}")
+    # one qsgd_encode_rows launch a step in the uninterrupted run and in the
+    # killed and resumed runs together
+    for what, n in (("uninterrupted", full["launches"]["qsgd_encode_rows"]),
+                    ("killed + resumed", killed["launches"]["qsgd_encode_rows"]
+                     + resumed["launches"]["qsgd_encode_rows"])):
+        _check(n == total, f"resume: {what} run launched qsgd_encode_rows {n} times, expected {total}")
+    launches = {k: full["launches"][k] + killed["launches"][k] + resumed["launches"][k] for k in full["launches"]}
+    return {"last_loss_resumed": a["last_loss"], "last_loss_uninterrupted": b["last_loss"], "abs_diff": diff,
+            "rel_diff": diff / abs(b["last_loss"]), "launches": launches,
+            "step_syncs": [len(s) for s in killed["step_syncs"] + resumed["step_syncs"]]}
+
+
+def _driver_stream(seed: int, root: str) -> dict:
+    """The flagship in 4 MiB buckets under the barrier schedule through
+    `driver.run` here (counted: one qsgd_encode_rows launch a step), then
+    streamed from the backward pass through `python -m
+    deepreduce_tpu_torch.driver` in a fresh process: the loss and rel_volume
+    series bitwise equal, `telemetry trace --overlap` on the streamed run,
+    and two `telemetry calibrate` fits of the barrier run, byte-equal."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    track = os.path.join(root, "buckets")
+    series = lambda name: [(r["loss"], r["rel_volume"]) for r in map(json.loads, open(os.path.join(
+        track, name, "metrics.jsonl")))]
+    t0 = time.perf_counter()
+    barrier = _driver_run_counted(_driver_args("lstm", STREAM21 + ",'bucket_pipeline':False}", STREAM21_STEPS,
+                                               seed=seed, telemetry=True, track_dir=track, run_name="barrier"))
+    expected = {"qsgd_encode_rows": STREAM21_STEPS, "qsgd_quantize": 0}
+    _check(barrier["launches"] == expected, f"driver_barrier: launches {barrier['launches']}, expected {expected}")
+    _check(not any(barrier["step_syncs"][1:]), f"driver_barrier: host syncs in steps 2-: {barrier['step_syncs']}")
+    barrier_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "deepreduce_tpu_torch.driver", "--model", "lstm", "--num_steps",
+                        str(STREAM21_STEPS), "--num_workers", "1", "--seed", str(seed), "--log_every", "0",
+                        "--telemetry", "--track_dir", track, "--run_name", "stream",
+                        "--grace_config", STREAM21 + ",'stream_exchange':True}"],
+                       cwd=here, capture_output=True, text=True, timeout=300)
+    _check(p.returncode == 0, f"driver stream exited {p.returncode}: {p.stderr[-3000:]}")
+    stream = json.loads(p.stdout.strip().splitlines()[-1])
+    stream_s = time.perf_counter() - t0
+    _check(series("stream") == series("barrier") and len(series("stream")) == STREAM21_STEPS,
+           f"streamed and barrier series differ: {series('stream')} {series('barrier')}")
+    tele = lambda *a: subprocess.run([sys.executable, "-m", "deepreduce_tpu_torch.telemetry", *a], cwd=here,
+                                     capture_output=True, text=True, timeout=300)
+    t0 = time.perf_counter()
+    o = tele("trace", os.path.join(track, "stream"), "--overlap")
+    # exit 1 is a fraction below the 0.5 gate: a measurement all the same
+    _check(o.returncode in (0, 1), f"telemetry trace --overlap exited {o.returncode}: {o.stderr[-2000:]}")
+    fractions = [float(l.rsplit(" ", 1)[1]) for l in o.stdout.splitlines() if "overlap fraction" in l]
+    _check(len(fractions) == STREAM21_STEPS, f"overlap fractions: {o.stdout[-2000:]}")
+    outs = [os.path.join(root, f"profile{i}.json") for i in (1, 2)]
+    for out in outs:
+        c = tele("calibrate", os.path.join(track, "barrier"), "--out", out)
+        _check(c.returncode == 0, f"telemetry calibrate exited {c.returncode}: {c.stdout[-1500:]} {c.stderr[-1500:]}")
+    same = open(outs[0], "rb").read() == open(outs[1], "rb").read()
+    _check(same, "two calibrate fits of one run differ")
+    return {
+        "launches": barrier["launches"], "barrier_step_syncs": [len(x) for x in barrier["step_syncs"]],
+        "barrier_examples_per_sec": barrier["result"]["examples_per_sec"],
+        "stream_examples_per_sec": stream["examples_per_sec"], "payload_bytes_per_step": stream["payload_bytes_per_step"],
+        "series": series("stream"), "overlap_rc": o.returncode, "overlap_fractions": fractions,
+        "overlap_overall": o.stdout.strip().splitlines()[-1], "calibrate_byte_equal": same,
+        "seconds": {"barrier": barrier_s, "stream_process": stream_s, "cli": time.perf_counter() - t0},
+        "card": _card(),
+    }
+
+
+def phase_driver(seed: int, phase5: dict) -> dict:
+    """Phase 21: the training driver. Returns {arm: result}; each arm's
+    `launches` are its counted kernel launches."""
+    import shutil
+
+    import torch
+
+    from deepreduce_tpu_torch.telemetry import spans
+
+    t0 = time.perf_counter()
+    spans.configure(enabled=False, reset=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_phase21_")
+    results = {}
+    try:
+        for arm in DRIVER21:
+            t1 = time.perf_counter()
+            results[arm] = _driver_arm(arm, seed, root, phase5)
+            results[arm]["seconds"] = time.perf_counter() - t1
+            print(f"phase 21 ok: {arm} " + json.dumps(results[arm]), flush=True)
+            torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        results["driver_resume"] = _driver_resume(seed, root)
+        results["driver_resume"]["seconds"] = time.perf_counter() - t1
+        print("phase 21 ok: driver_resume " + json.dumps(results["driver_resume"]), flush=True)
+        torch.cuda.empty_cache()
+        results["driver_stream"] = _driver_stream(seed, root)
+        print("phase 21 ok: driver_stream " + json.dumps(results["driver_stream"]), flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 21 time {time.perf_counter() - t0:.1f} s", flush=True)
+    return results
+
+
 def phase_timing(encode: dict, errs: dict, by_arm: dict, quantize: dict) -> None:
-    # each path's run, counted from 0 just before it (phases 5 and 7-20)
+    # each path's run, counted from 0 just before it (phases 5 and 7-21)
     total = lambda name: sum(counts[name] for counts in by_arm.values())
     kernels = [
         _quantize_entry(quantize, total("qsgd_quantize"), errs["qsgd_quantize"]),
@@ -4895,6 +5215,8 @@ def main(argv=None) -> int:
         res["steps"] = args.steps
         tele19 = phase_telemetry(args.seed, dist.group.WORLD, res)
         lap("19 telemetry")
+        driver21 = phase_driver(args.seed, res)
+        lap("21 driver")
     finally:
         dist.destroy_process_group()
     fed = phase_fedavg(args.seed, args.profile)
@@ -4905,7 +5227,7 @@ def main(argv=None) -> int:
     lap("20 seq, tensor")
     by_arm = {"drqsgd_bloom": res["launches"]}
     for phase in (arms, resnet, in_coll, bucketed, zoo, models14, fed, table6, host15, resil16, two_tier17, fedsim18,
-                  tele19, seq20):
+                  tele19, seq20, driver21):
         by_arm.update({a: r["launches"] for a, r in phase.items()})
     phase_timing(encode, errs, by_arm, quantize)
     lap("timing")

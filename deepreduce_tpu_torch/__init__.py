@@ -59,7 +59,10 @@ sequence and tensor parallelism (`parallel`): ring and Ulysses attention
 over a sequence group (`BertEncoder(attention='ring' | 'ulysses',
 seq_axis=group)`), the tensor-parallel rules, shards and BERT
 (`parallel.tp`), the mesh helpers (`parallel.make_mesh`) and the data x
-sequence step (`parallel.data_seq.DataSeqStep`). Collectives run through
+sequence step (`parallel.data_seq.DataSeqStep`); and the training driver
+(`python -m deepreduce_tpu_torch.driver`, the counterpart of
+`benchmarks/train.py`) with the reference's debug dumps
+(`logging_utils.DumpLogger`). Collectives run through
 `collectives.Collectives`: a `torch.distributed` group, an `InProcessGroup`
 of W lockstep workers in one process, an `InProcessGrid` of slices x
 workers a slice, or an `InProcessMesh` over named axes.
@@ -71,6 +74,7 @@ from deepreduce_tpu_torch.codecs.registry import PolyFitCodec
 from deepreduce_tpu_torch.comm import GradientExchanger
 from deepreduce_tpu_torch.fedavg import FedAvg, FedAvgState
 from deepreduce_tpu_torch.fedsim import FedConfig, FedSim, FedSimState, TreeCodec
+from deepreduce_tpu_torch.logging_utils import DumpLogger, policy_errors
 from deepreduce_tpu_torch.parallel import HierarchicalExchanger
 from deepreduce_tpu_torch.population import PopulationSpec
 from deepreduce_tpu_torch.slo import HealthMonitor, SLOSpec
@@ -81,6 +85,7 @@ __all__ = [
     "Collectives",
     "ConfigError",
     "DeepReduceConfig",
+    "DumpLogger",
     "FedAvg",
     "FedAvgState",
     "FedConfig",
@@ -100,4 +105,5 @@ __all__ = [
     "Trainer",
     "TrainState",
     "from_params",
+    "policy_errors",
 ]

@@ -843,8 +843,8 @@ class GradientExchanger:
             return mean, None, stats
         name = {"adaptive": sparse_rs.STREAM_ADAPTIVE, "quantized": sparse_rs.STREAM_QUANTIZED}.get(self._rs_mode)
         return sparse_rs.exchange(
-            flat, self.coll, ratio=cfg.compress_ratio, rs_mode=self._rs_mode, headroom=cfg.rs_headroom,
-            out_headroom=cfg.rs_out_headroom, block_size=cfg.rs_block_size,
+            flat, self.coll, ratio=cfg.compress_ratio, approx_topk=cfg.approx_topk, rs_mode=self._rs_mode,
+            headroom=cfg.rs_headroom, out_headroom=cfg.rs_out_headroom, block_size=cfg.rs_block_size,
             density_threshold=cfg.rs_density_threshold, sketch_rows=cfg.rs_sketch_rows,
             sketch_cols=cfg.rs_sketch_cols, sketch_seed=cfg.seed, oktopk_bins=cfg.rs_oktopk_bins,
             oktopk_cap_headroom=cfg.rs_oktopk_cap_headroom,

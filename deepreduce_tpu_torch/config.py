@@ -24,12 +24,15 @@ decodes and the resilience subsystem; the federated simulation's knobs
 with the same names and defaults. Of the JAX package's fields only
 `use_pallas` is missing: it picks the TPU kernel's Pallas route, and the
 port runs its CUDA kernels on the card.
+`approx_topk=True` runs, and the port computes it exactly, as XLA
+computes `jax.lax.approx_max_k` on the CPU and the GPU: the same selection
+as exact top-k, ties and order included. It does not reproduce the TPU's
+recall below 1 (about 0.95). As in the JAX package, `rs_mode='oktopk'`
+refuses it.
 A value the port does not implement raises `ConfigError` naming
 the knob, so that no run quietly takes another path than the one it asked
-for (for instance `approx_topk=True`: torch has no `approx_max_k`, and
-exact top-k in its place would be a silent substitute). Every rejection
-carries a registered reason code, the JAX package's where it makes the
-same rejection.
+for. Every rejection carries a registered reason code, the JAX package's
+where it makes the same rejection.
 """
 
 from __future__ import annotations
@@ -212,7 +215,7 @@ def reason_code_of(exc: BaseException) -> Optional[str]:
 # knob -> the values the port implements
 _SUPPORTED = {
     "compressor": ("topk", "topk_sampled", "randomk", "threshold", "none"),
-    "approx_topk": (False,),
+    "approx_topk": (False, True),
     "memory": ("residual", "none"),
     "communicator": ("allgather", "allreduce", "qar", "sparse_rs"),
     "rs_mode": ("sparse", "adaptive", "quantized", "sketch", "oktopk", "auto"),
@@ -499,6 +502,13 @@ class DeepReduceConfig:
         ):
             if not ok:
                 raise ConfigError(code, f"{knob} {what}, got {getattr(self, knob)!r}", knob=knob)
+        if self.rs_mode == "oktopk" and self.approx_topk:
+            raise ConfigError(
+                "rs-oktopk-vs-approx-topk",
+                "rs_mode='oktopk' solves its global threshold against the all-reduced candidate histogram, which "
+                "is only unbiased when the local candidate set is the exact top-k; approx_topk=True can miss "
+                "above-threshold entries and skew the survivor count: use exact top-k with oktopk",
+            )
         if self.communicator == "qar" and (
             self.deepreduce is not None or self.compressor != "none" or self.memory == "residual"
         ):

@@ -34,7 +34,8 @@ from deepreduce_tpu_torch.collectives import InProcessGroup
 from deepreduce_tpu_torch.config import DeepReduceConfig
 from deepreduce_tpu_torch.controller import DecisionLog, validate_decision
 from deepreduce_tpu_torch.device import resolve_device
-from deepreduce_tpu_torch.resilience.__main__ import BATCH, MLP, make_data
+from deepreduce_tpu_torch.models.mlp import MLP
+from deepreduce_tpu_torch.resilience.__main__ import BATCH, make_data
 from deepreduce_tpu_torch.train import Trainer
 
 

@@ -141,6 +141,12 @@ class HierarchicalExchanger:
         """Every worker of both tiers."""
         return self.num_slices * self.per_slice
 
+    @property
+    def num_buckets(self) -> int:
+        """The cross-slice exchanger's buckets (the telemetry accumulator's
+        per-bucket rows)."""
+        return self.exchanger.num_buckets
+
     def init_state(self, grads_like: Tree) -> Optional[Tree]:
         return self.exchanger.init_state(grads_like)
 

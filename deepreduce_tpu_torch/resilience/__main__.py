@@ -25,13 +25,11 @@ import sys
 
 import numpy as np
 import torch
-import torch.nn.functional as F
-from torch import nn
 
 from deepreduce_tpu_torch.collectives import InProcessGroup
 from deepreduce_tpu_torch.config import DeepReduceConfig
 from deepreduce_tpu_torch.device import resolve_device
-from deepreduce_tpu_torch.models.common import Dense, FlaxNamed
+from deepreduce_tpu_torch.models.mlp import MLP
 from deepreduce_tpu_torch.train import Trainer
 
 BATCH = 64  # the global batch, split over the workers
@@ -44,20 +42,6 @@ def build_cfg(**overrides) -> DeepReduceConfig:
                 min_compress_size=100)
     base.update(overrides)
     return DeepReduceConfig(**base)
-
-
-class MLP(FlaxNamed, nn.Module):
-    """The JAX check's `_MLP`: Dense(64) relu Dense(64) relu Dense(8)."""
-
-    def __init__(self, d_in: int = 32, *, seed: int = 0):
-        super().__init__()
-        gen = torch.Generator().manual_seed(seed)
-        self.Dense_0 = Dense(d_in, 64, gen)
-        self.Dense_1 = Dense(64, 64, gen)
-        self.Dense_2 = Dense(64, 8, gen)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.Dense_2(F.relu(self.Dense_1(F.relu(self.Dense_0(x)))))
 
 
 def make_data(seed: int = 0):

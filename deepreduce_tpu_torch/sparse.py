@@ -98,14 +98,34 @@ def top_order(mags: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(mags, descending=True, stable=True).indices[:k]
 
 
+def approx_max_k_order(mags: torch.Tensor, k: int) -> torch.Tensor:
+    """`jax.lax.approx_max_k(mags, k, recall_target=0.95)`'s positions as
+    XLA computes them off the TPU (CPU and GPU): the exact top-k in
+    `jax.lax.top_k`'s order, `top_order`."""
+    return top_order(mags, k)
+
+
 def topk(
-    tensor: torch.Tensor, compress_ratio: float, *, sort_indices: bool = True, k: Optional[int] = None
+    tensor: torch.Tensor,
+    compress_ratio: float,
+    *,
+    sort_indices: bool = True,
+    approx: bool = False,
+    k: Optional[int] = None,
 ) -> SparseGrad:
-    """Exact top-k by magnitude (`top_order`), indices ascending when
-    `sort_indices`, else in `jax.lax.top_k`'s descending-magnitude order."""
+    """Top-k by magnitude (`top_order`), indices ascending when
+    `sort_indices`, else in `jax.lax.top_k`'s descending-magnitude order.
+
+    `approx=True` is the JAX package's `jax.lax.approx_max_k` route, taken
+    as there only where d > 4k. `approx_max_k` trades recall (~0.95) for
+    speed on the TPU alone: off the TPU, XLA computes it as the exact top-k,
+    ties and order included. The port computes it that way on the card and
+    on the CPU (`top_order` on both branches), so the flag changes no
+    result; it does not reproduce the TPU's recall below 1."""
     flat = tensor.reshape(-1)
     k = num_slots(flat.shape[0], compress_ratio) if k is None else int(k)
-    idxs = top_order(flat.abs(), k)
+    select = approx_max_k_order if approx and flat.shape[0] > 4 * k else top_order
+    idxs = select(flat.abs(), k)
     if sort_indices:
         idxs = torch.sort(idxs).values
     return SparseGrad(

@@ -214,6 +214,7 @@ def exchange(
     coll: Collectives,
     *,
     ratio: float,
+    approx_topk: bool = False,
     rs_mode: str = "sparse",
     headroom: float = 2.0,
     out_headroom: float = 1.0,
@@ -230,7 +231,10 @@ def exchange(
     mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, WireStats]:
     """-> (mean f32[d], own-transmitted dense f32[d] for error feedback,
-    wire stats) of this worker. `stream` is the worker's Philox stream for
+    wire stats) of this worker. `approx_topk` selects the sparse and adaptive
+    routes' candidates through `sparse.topk(approx=True)` (the JAX package's
+    approx_max_k; exact off the TPU, so the same selection); oktopk refuses
+    it. `stream` is the worker's Philox stream for
     the routes that quantize (adaptive, quantized); `uniforms` (CPU only)
     replaces it. `collect`, when a dict, receives the adaptive route's
     `rs_density` / `rs_dense_switches` and the oktopk route's
@@ -249,8 +253,8 @@ def exchange(
         raise ValueError(f"flat must be a 1-d float32 tensor, got {flat.dtype} {tuple(flat.shape)}")
     if mask is not None:
         if rs_mode == "sparse":
-            return _exchange_sparse_masked(flat, coll, ratio=ratio, headroom=headroom, out_headroom=out_headroom,
-                                           mask=mask)
+            return _exchange_sparse_masked(flat, coll, ratio=ratio, approx_topk=approx_topk, headroom=headroom,
+                                           out_headroom=out_headroom, mask=mask)
         if rs_mode == "quantized":
             return _exchange_quantized_masked(flat, coll, ratio=ratio, out_headroom=out_headroom, block=block_size,
                                               stream=stream, uniforms=uniforms, mask=mask)
@@ -262,11 +266,13 @@ def exchange(
             "per-worker wire state no deputy can re-own) — config fences this as resilience-vs-owner-communicator"
         )
     if rs_mode == "sparse":
-        return _exchange_sparse(flat, coll, ratio=ratio, headroom=headroom, out_headroom=out_headroom)
+        return _exchange_sparse(flat, coll, ratio=ratio, approx_topk=approx_topk, headroom=headroom,
+                                out_headroom=out_headroom)
     if rs_mode == "adaptive":
         return _exchange_adaptive(
-            flat, coll, ratio=ratio, headroom=headroom, out_headroom=out_headroom, block=block_size,
-            density_threshold=density_threshold, stream=stream, uniforms=uniforms, collect=collect,
+            flat, coll, ratio=ratio, approx_topk=approx_topk, headroom=headroom, out_headroom=out_headroom,
+            block=block_size, density_threshold=density_threshold, stream=stream, uniforms=uniforms,
+            collect=collect,
         )
     if rs_mode == "quantized":
         return _exchange_quantized(
@@ -275,6 +281,10 @@ def exchange(
     if rs_mode == "sketch":
         return _exchange_sketch(flat, coll, ratio=ratio, out_headroom=out_headroom, rows=sketch_rows, cols=sketch_cols,
                                 seed=sketch_seed)
+    if approx_topk:
+        # the threshold-count containment needs the exact local top-k (config
+        # fences this as 'rs-oktopk-vs-approx-topk'; this is the backstop)
+        raise ValueError("rs_mode='oktopk' requires exact local top-k candidates (approx_topk=False)")
     return _exchange_oktopk(
         flat, coll, ratio=ratio, out_headroom=out_headroom, bins=oktopk_bins, cap_headroom=oktopk_cap_headroom,
         collect=collect,
@@ -290,13 +300,13 @@ def _sparse_phase2(shard_est, coll: Collectives, S: int, K2: int, d: int, label:
     return gi, dense[:d] * reciprocal_f32(W)
 
 
-def _exchange_sparse(flat, coll: Collectives, *, ratio, headroom, out_headroom):
+def _exchange_sparse(flat, coll: Collectives, *, ratio, approx_topk, headroom, out_headroom):
     d, W = flat.shape[0], coll.world_size
     S = shard_size(d, W)
     B = send_budget(d, ratio, W, headroom)
     K2 = out_budget(d, ratio, W, out_headroom)
     with span("sparse_rs/select", route="sparse"):
-        sp = sparse.topk(flat, ratio, sort_indices=False)
+        sp = sparse.topk(flat, ratio, sort_indices=False, approx=approx_topk)
         live = torch.arange(sp.k, device=flat.device) < sp.nnz
     shard, keep, idxs, vals, pos = _route(sp.values, sp.indices, live, coll, S, B)
     _, mean = _sparse_phase2(shard, coll, S, K2, d)
@@ -306,7 +316,8 @@ def _exchange_sparse(flat, coll: Collectives, *, ratio, headroom, out_headroom):
 
 
 def _exchange_adaptive(
-    flat, coll: Collectives, *, ratio, headroom, out_headroom, block, density_threshold, stream, uniforms, collect
+    flat, coll: Collectives, *, ratio, approx_topk, headroom, out_headroom, block, density_threshold, stream, uniforms,
+    collect,
 ):
     d, W = flat.shape[0], coll.world_size
     dev = flat.device
@@ -317,7 +328,7 @@ def _exchange_adaptive(
     L = adaptive_lanes(d, ratio, W, out_headroom, block)
     q = ADAPTIVE_Q
     with span("sparse_rs/select", route="adaptive"):
-        sp = sparse.topk(flat, ratio, sort_indices=False)
+        sp = sparse.topk(flat, ratio, sort_indices=False, approx=approx_topk)
         live = torch.arange(sp.k, device=dev) < sp.nnz
     shard, keep, idxs, vals, pos = _route(sp.values, sp.indices, live, coll, S, B, label="adaptive")
 
@@ -534,13 +545,13 @@ def _mask_parts(mask, coll: Collectives):
     return mask_f, mask_f[coll.rank] > 0.0, owner_permutation(mask_f, W), torch.clamp(mask_f.sum(), min=1.0)
 
 
-def _exchange_sparse_masked(flat, coll: Collectives, *, ratio, headroom, out_headroom, mask):
+def _exchange_sparse_masked(flat, coll: Collectives, *, ratio, approx_topk, headroom, out_headroom, mask):
     d, W = flat.shape[0], coll.world_size
     S = shard_size(d, W)
     B = send_budget(d, ratio, W, headroom)
     K2 = out_budget(d, ratio, W, out_headroom)
     mask_f, live_self, owner_of, denom = _mask_parts(mask, coll)
-    sp = sparse.topk(flat, ratio, sort_indices=False)
+    sp = sparse.topk(flat, ratio, sort_indices=False, approx=approx_topk)
     live = torch.arange(sp.k, device=flat.device) < sp.nnz
     buf, keep, idxs, vals, pos = _masked_route(sp.values, sp.indices, live, owner_of, live_self, coll, S, B, mask_f)
     owned = owner_of[torch.arange(W * S, device=flat.device) // S] == coll.rank

@@ -198,7 +198,7 @@ class TensorCodec:
         if self.pattern_excluded or cfg.compressor == "none":
             return sparse.none_sparsifier(tensor)
         if cfg.compressor == "topk":
-            return sparse.topk(tensor, cfg.compress_ratio, k=self.k)
+            return sparse.topk(tensor, cfg.compress_ratio, approx=cfg.approx_topk, k=self.k)
         if cfg.compressor == "topk_sampled":
             return sparse.topk_sampled(
                 tensor, cfg.compress_ratio, sample_size=cfg.topk_sample_size,

@@ -306,7 +306,8 @@ def test_port_imports_no_jax():
         " deepreduce_tpu_torch.telemetry.spans, deepreduce_tpu_torch.telemetry.device_metrics,"
         " deepreduce_tpu_torch.telemetry.__main__, deepreduce_tpu_torch.controller,"
         " deepreduce_tpu_torch.controller.ladder, deepreduce_tpu_torch.controller.controller,"
-        " deepreduce_tpu_torch.controller.__main__;"
+        " deepreduce_tpu_torch.controller.__main__, deepreduce_tpu_torch.driver, deepreduce_tpu_torch.logging_utils,"
+        " deepreduce_tpu_torch.models.mlp;"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'flax', 'optax'))"
         " or m == 'deepreduce_tpu' or m.startswith('deepreduce_tpu.')];"
         "print(bad); sys.exit(1 if bad else 0)"
@@ -346,9 +347,13 @@ def test_cuda_default_entry_points_raise_without_cuda():
 
 
 def test_config_rejects_unported_knobs_by_name():
-    with pytest.raises(port.ConfigError, match="approx_topk") as e:
-        port.DeepReduceConfig(**{**FLAGSHIP, "approx_topk": True})
-    assert e.value.knob == "approx_topk"
+    # approx_topk runs (exact, as XLA computes approx_max_k off the TPU), and
+    # oktopk still refuses it under the JAX package's reason code
+    assert port.DeepReduceConfig(**{**FLAGSHIP, "approx_topk": True}).approx_topk is True
+    with pytest.raises(port.ConfigError) as e:
+        port.DeepReduceConfig(communicator="sparse_rs", compressor="topk", deepreduce=None, rs_mode="oktopk",
+                              approx_topk=True)
+    assert e.value.reason_code == "rs-oktopk-vs-approx-topk"
     # the host codecs run, in the pairings the JAX package runs: not the
     # exact P2 off its C++ library, nor bloom_native in 'both' mode (FLAGSHIP's)
     for knob, val in [("decode_strategy", "tree"), ("policy", "conflict_sets"),
