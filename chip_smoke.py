@@ -226,13 +226,13 @@ Phases, one line each; any failure raises and exits non-zero:
      sync (4 rounds), async (K 16,384, alpha 0.5, latency "0.5,0.3,0.2"; 6
      ticks through `stream()`), two tenants (one leaving for two ticks) and
      a skewed population with the SLO monitor writing health.jsonl; then the
-     full-width MobileNetV1 under DRQSGD-BF-P0 over 512 clients (a 6.6 GB
-     bank), cohort 32 in blocks of 4, 3 rounds batched and 1 one client at
+     full-width MobileNetV1 under DRQSGD-BF-P0 over 128 clients (a 1.6 GB
+     bank), cohort 16 in blocks of 4, 2 rounds batched and 1 one client at
      a time. Each arm: tick times (CUDA events), host syncs (0), counted
      launches (`qsgd_encode_rows` equal to the packing's count), one
      all_reduce a tick at the byte law, peak bytes, finite parameters,
      w_rel_err falling, checksum failures, a mid-run checkpoint replayed
-     bitwise, card = CPU (the linear arms on one tick at 1/8 of the
+     bitwise, card = CPU (the linear arms on one tick at 1/16 of the
      population with float64 local training; the MobileNet block in float64
      and on the same client updates), the grouped cross-client encode
      bitwise its plain version and its per-client launches, and the device
@@ -302,6 +302,26 @@ Phases, one line each; any failure raises and exits non-zero:
      (the loss and rel_volume series bitwise the barrier run's),
      `telemetry trace --overlap`'s fraction on the streamed run, and two
      `telemetry calibrate` fits of the barrier run byte-equal.
+ 22. the analysis gate (`deepreduce_tpu_torch.analysis`): the AST lint; the
+     quick audit (the mod query, the flagship codec, the fused exchange's
+     loop, vmap and ring decodes and the bucketed one) and the traces that
+     launch a kernel (`ANALYSIS22_LAUNCHES`: exchange:qar and hier:qar-ici,
+     2 qsgd_quantize launches a worker-step; codec:qsgd and
+     codec:both-modbloom-qsgd, one qsgd_encode_rows an encode), W = 8
+     in-process workers on the one card, 2 steps each, every rule clean,
+     each label's launches counted from 0 just before it and held to its
+     law, 0 host syncs under the sync debug mode (`census.SyncWatch`) and
+     0 host reads or host-card copies in the census, the run inventories
+     held to the JAX package's ANALYSIS.json with the stated deviations;
+     the lattice's config and build stages over all 73,728 cells against
+     MATRIX.json; the main path (phase 5's flagship on the full-width
+     WordLSTM, 3 steps through the NCCL group wrapped in the recorder, each
+     step under the census and the sync watch, held by the audit's
+     `check_trace`): one
+     all_gather of exactly payload_bytes() and the loss and wire-bit
+     all_reduces, one qsgd_encode_rows launch a step, 0 host syncs, float64
+     only at its listed sites, one census hash after the first step; and
+     `mem`'s four peaks with their three largest tensors.
 `--profile` adds one profiled training step after phase 5, after each arm
 of phases 7, 8, 9, 10, 11, 14 and 15, and one profiled round after each arm
 of phase 12: the device's busy and idle share over the step or round, its
@@ -567,15 +587,20 @@ def _kernel_rows(averages):
     return rows
 
 
-def _profile_step(step_fn) -> dict:
+def _profile_step(step_fn, host_ops: bool = True) -> dict:
     """Device busy time of one step and its largest kernels, from
-    torch.profiler; the wall time comes from CUDA events around the step."""
+    torch.profiler; the wall time comes from CUDA events around the step.
+    Without `host_ops` the profile records the device side alone (the
+    kernels and the runtime calls that launch them), no host spans: a step
+    of tens of thousands of launches then builds its trace in a fraction of
+    the time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         step_fn()
@@ -3448,8 +3473,10 @@ PHASE18 = {
                              masks=[(True, True)] * 2 + [(True, False)] * 2 + [(True, True)] * 2),
     "fedsim_linear_pop_slo": dict(knobs=dict(FED18_ASYNC, pop_spec=POP18_MILD_SKEW), ticks=6, slo=True),
 }
-FED18_MOBILENET = dict(population=512, cohort=32, chunk=4, local_steps=4, batch=24, lr=0.2, momentum=0.9,
-                       rounds=3, scan_rounds=1)
+# population 128, cohort 16 and 2 batched rounds (512, 32 and 3, not:
+# phase 22's time)
+FED18_MOBILENET = dict(population=128, cohort=16, chunk=4, local_steps=4, batch=24, lr=0.2, momentum=0.9,
+                       rounds=2, scan_rounds=1)
 # the MobileNet arm's knobs make its local training chaotic in float32: four
 # steps of SGD 0.2 with momentum 0.9 turn two summation orders of one
 # gradient (a few percent of its largest entry apart, BatchNorm at batch
@@ -3465,8 +3492,9 @@ MOBILENET_F64_RTOL = 1e-7
 # rows: one (a float64 client alone takes ~16 s on the card; all four took
 # ~64 s of the script's time limit)
 MOBILENET_ALONE = 1
-# the linear arms' card-vs-CPU tick runs at 1/8 of the population, cohort and K
-FED18_CPU_CUT = 8
+# the linear arms' card-vs-CPU tick runs at 1/16 of the population, cohort
+# and K: the time this saves pays for phase 22
+FED18_CPU_CUT = 16
 MOBILENET_ROUND_RTOL = 1e-6
 
 
@@ -3957,6 +3985,11 @@ def _fed_mobilenet_block(cfg, loss_fn, data_fn, params, key: int) -> dict:
 
     g = FED18_MOBILENET
     lr, mom, E = g["lr"], g["momentum"], g["local_steps"]
+    laps, last = {}, [time.perf_counter()]
+
+    def lap(name):  # the wall seconds of each part of the block
+        now = time.perf_counter()
+        laps[name], last[0] = round(now - last[0], 2), now
 
     def trainer(loss, steps=E):
         def local_train(p, batches):
@@ -3997,6 +4030,7 @@ def _fed_mobilenet_block(cfg, loss_fn, data_fn, params, key: int) -> dict:
     out["f64_local_training"] = {"max_change": change, "batched_vs_one_by_one": one, "clients_alone": MOBILENET_ALONE,
                                  "card_vs_cpu_one_step": vs_cpu, "rtol": MOBILENET_F64_RTOL}
     del model64, cpu_model, bat, batc, first
+    lap("f64_local_training")
 
     # the round's compression and aggregation on the same client updates
     p_end = vmap(trainer(loss_fn), in_dims=(None, 0))(params, batch)
@@ -4021,6 +4055,7 @@ def _fed_mobilenet_block(cfg, loss_fn, data_fn, params, key: int) -> dict:
         _check(all(float(a) == float(b) for a, b in zip(vm[2], other[2])), f"mobilenet round {what}: wire differs")
         errs[what] = {"max_abs_err": e, "bitwise": e == 0.0}
     out["round_given_updates"] = dict(errs, max_update=scale, rtol=MOBILENET_ROUND_RTOL)
+    lap("round_given_updates")
 
     # the grouped call's rows against the plain version and each client's own launch
     segs = step_v.segments
@@ -4037,6 +4072,7 @@ def _fed_mobilenet_block(cfg, loss_fn, data_fn, params, key: int) -> dict:
     _check(torch.equal(per_client.cpu(), got), "the grouped cross-client launch differs from per-client launches")
     out["grouped_encode"] = {"clients": 4, "segments": len(segs), "launches": -(-len(segs) // 128),
                              "max_abs_err": err, "equals_per_client_launches": True}
+    lap("grouped_encode")
 
     # the device launches, local training included: the block batched, and
     # one client of it alone (the one-by-one block is four of those)
@@ -4046,13 +4082,15 @@ def _fed_mobilenet_block(cfg, loss_fn, data_fn, params, key: int) -> dict:
         cohort_updates(step, tuple(t[:n] for t in batch), bank, list(range(n)), update_template=params, impl=impl,
                        chunk=n)
 
-    prof = {"batched_block_of_4": _profile_step(lambda: block("vmap", 4)),
-            "one_client": _profile_step(lambda: block("scan", 1))}
+    prof = {"batched_block_of_4": _profile_step(lambda: block("vmap", 4), host_ops=False),
+            "one_client": _profile_step(lambda: block("scan", 1), host_ops=False)}
     out["profile"] = {
         what: {k: p[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share", "kernel_launches")}
         for what, p in prof.items()}
     out["launch_ratio_scan_over_batched"] = (4 * prof["one_client"]["kernel_launches"]
                                              / max(prof["batched_block_of_4"]["kernel_launches"], 1))
+    lap("profile")
+    out["seconds"] = laps
     return out
 
 
@@ -4099,6 +4137,7 @@ ERR19_ATOL = 1e-3
 # batches and config, one float32 ratio each
 REL19_RTOL = 1e-6
 FED19_TICKS = 2
+FED19_CUT = 8  # the FedSim telemetry arms run phase 18's linear arms at 1/8 size
 
 
 def _f32_running(values) -> float:
@@ -4407,9 +4446,9 @@ def _tracked_run(seed: int, group, run_dir: str, root: str) -> dict:
 
 
 def _fedsim_telemetry_arm(arm: str, spec: dict, seed: int, group) -> dict:
-    """One of phase 18's linear arms at 1/8 size with telemetry on, for
-    FED19_TICKS ticks: syncs, the all_reduce law, and the accumulator's rows
-    against the tick reports."""
+    """One of phase 18's linear arms at 1/FED19_CUT size with telemetry on,
+    for FED19_TICKS ticks: syncs, the all_reduce law, and the accumulator's
+    rows against the tick reports."""
     import torch
 
     from deepreduce_tpu_torch import DeepReduceConfig, FedSim
@@ -4419,7 +4458,7 @@ def _fedsim_telemetry_arm(arm: str, spec: dict, seed: int, group) -> dict:
     from deepreduce_tpu_torch.resilience import stream
     from deepreduce_tpu_torch.telemetry.device_metrics import MetricAccumulators, hist_quantile
 
-    g, cut = FED18_LINEAR, FED18_CPU_CUT
+    g, cut = FED18_LINEAR, FED19_CUT
     knobs = dict(FED18_CODEC, **FED18_CHURN, **spec["knobs"], fed=True, fed_num_clients=g["population"] // cut,
                  fed_clients_per_round=g["cohort"] // cut, fed_local_steps=g["local_steps"],
                  fed_client_chunk=g["chunk"], seed=seed, telemetry=True)
@@ -5118,6 +5157,170 @@ def phase_driver(seed: int, phase5: dict) -> dict:
     return results
 
 
+# phase 22: the analysis gate on the card. The quick audit plus the traces
+# that launch a kernel (W = 8 in-process workers, ANALYSIS22_AUDIT_STEPS
+# steps each: two values, the second the next step; 3 with the replay took
+# 51 s of the phase's 60), with each trace's counted launches held to its
+# law: qsgd_quantize twice a worker-step on a qar leg, qsgd_encode_rows once
+# an encode of a QSGD codec unit
+ANALYSIS22_AUDIT_STEPS = 2
+ANALYSIS22_LAUNCHES = {
+    "exchange:qar": {"qsgd_quantize": ANALYSIS22_AUDIT_STEPS * 8 * 2},
+    "hier:qar-ici": {"qsgd_quantize": ANALYSIS22_AUDIT_STEPS * 8 * 2},
+    "codec:qsgd": {"qsgd_encode_rows": 2},
+    "codec:both-modbloom-qsgd": {"qsgd_encode_rows": 2},
+}
+ANALYSIS22_STEPS = 3  # full-width flagship steps under the recorder and the census
+
+
+def _audit22() -> dict:
+    """The quick audit and the launching traces on the card, each label's
+    launches counted from 0 just before it; each run's host syncs are those
+    the sync watch saw (`card_syncs`) and the census's host reads and
+    host-card copies; the run inventories held to the JAX package's
+    ANALYSIS.json."""
+    import torch
+
+    from deepreduce_tpu_torch.analysis import audit, lattice
+    from deepreduce_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    quick = {label for label, _ in audit.audit_specs(quick=True)}
+    steps = tuple(audit.STEP + i for i in range(ANALYSIS22_AUDIT_STEPS))
+    out, records = {}, []
+    for label, thunk in audit.audit_specs(device="cuda", steps=steps):
+        if label not in quick and label not in ANALYSIS22_LAUNCHES:
+            continue
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        recs = thunk()
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        want = {"qsgd_encode_rows": 0, "qsgd_quantize": 0, **ANALYSIS22_LAUNCHES.get(label, {})}
+        _check(launches == want, f"phase 22 {label}: launches {launches}, the law {want}")
+        for r in recs:
+            # jx-callback: a host sync on the card or a host read in the
+            # census, outside the host codecs, is a violation
+            _check(not r.violations, f"phase 22 {r.label}: {[v.to_dict() for v in r.violations]}")
+            _check(r.extra["card_syncs"] is not None, f"phase 22 {r.label}: the sync watch was off")
+            out[r.label] = {"collectives": r.collectives_by_axis or r.collectives, "payload_bytes": r.payload_bytes,
+                            "selections": r.selections, "ops": r.ops, "card_syncs": r.extra["card_syncs"],
+                            "host_reads": r.extra["host_reads"], "census": r.census_hash}
+        out[label] = dict(out.get(label, {}), launches=launches, seconds=round(time.perf_counter() - t0, 2))
+        records.extend(recs)
+    diffs, used = lattice.compare_analysis(lattice.load_report(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "ANALYSIS.json")), records)
+    _check(not diffs, f"phase 22 against ANALYSIS.json: {diffs}")
+    out["deviations"] = used
+    return out
+
+
+def _lattice22() -> dict:
+    """The lattice's config and build stages, all 73,728 cells, against
+    MATRIX.json (host-only)."""
+    from deepreduce_tpu_torch.analysis import lattice
+
+    t0 = time.perf_counter()
+    report = lattice.build_matrix(traces=False)
+    diffs, used = lattice.compare_matrix(lattice.load_report(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "MATRIX.json")), report, traces=False)
+    _check(not diffs and not used, f"phase 22 lattice against MATRIX.json: {diffs} {used}")
+    s = report["summary"]
+    _check((s["legal"], s["rejected"]) == (108, 73_620), f"phase 22 lattice {s}")
+    return {"cells": s["cells"], "legal": s["legal"], "rejected": s["rejected"],
+            "reason_codes": len(s["reason_codes"]), "seconds": round(time.perf_counter() - t0, 2)}
+
+
+def _flagship22(seed: int, tokens, group) -> dict:
+    """The main path, DRQSGD-BF-P0 `Trainer.step` on the full-width
+    WordLSTM, through the one-rank NCCL group wrapped in the recorder, each
+    step under the census and the sync watch, launches counted from 0 just
+    before the steps; the steps held to the audit's rules (`check_trace`):
+    one all_gather of payload_bytes() and the two scalar all_reduces, no
+    host sync, float64 only at its sites, one census after the first step."""
+    import torch
+
+    from deepreduce_tpu_torch import Trainer
+    from deepreduce_tpu_torch.analysis import audit, census, recorder
+    from deepreduce_tpu_torch.analysis.rules import AuditContext
+    from deepreduce_tpu_torch.collectives import ProcessGroupCollectives
+    from deepreduce_tpu_torch.models import WordLSTM
+    from deepreduce_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    coll = recorder.Recorder(ProcessGroupCollectives(group), "data")
+    trainer = Trainer(WordLSTM(seed=seed), _flagship_cfg(seed), lr=0.1, momentum=0.9, device="cuda", group=coll)
+    state = trainer.init_state()
+    tokens = tokens.cuda()
+    payload = trainer.exchanger.payload_bytes()
+    _check(payload == PAYLOAD_BYTES["drqsgd_bloom"], f"phase 22 payload_bytes {payload}")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    tapes, syncs, steps = [], [], []
+    for i in range(ANALYSIS22_STEPS):
+        coll.tape = tape = recorder.Tape()
+        with census.SyncWatch("cuda") as watch, census.Census(tape):
+            state, loss, wire = trainer.step(state, (tokens[i, :, :-1], tokens[i, :, 1:]))
+        _check(math.isfinite(float(loss)), f"phase 22 flagship step {i}: loss {float(loss)}")
+        ops, calls = census.ops_of(tape), tape.calls
+        tapes.append([tape])
+        syncs += watch.sites
+        steps.append({"collectives": recorder.counts(calls),
+                      "all_gather_bytes": recorder.operand_bytes(calls, ops=("all_gather",)),
+                      "psum_bytes": recorder.operand_bytes(calls, ops=("psum",)), "syncs": len(watch.sites),
+                      "ops": len(ops), "f64_ops": sum(o.f64 for o in ops), "selections": census.selections(ops),
+                      "census": census.census_hash(ops)})
+    launches = launch_counts()
+    want = {"qsgd_encode_rows": ANALYSIS22_STEPS, "qsgd_quantize": 0}
+    _check(launches == want, f"phase 22 flagship launches {launches}, expected {want}")
+    run = audit.Run(tuple(range(ANALYSIS22_STEPS)), tapes, [[None]] * ANALYSIS22_STEPS, payload, 1, [], syncs=syncs)
+    ctx = AuditContext(label="flagship", expect_collectives={"all_gather": 1, "psum": 2}, wire_mode="allgather",
+                       expected_wire_bytes=payload)
+    record = audit.check_trace(ctx, run)
+    _check(not record.violations, f"phase 22 flagship: {[v.to_dict() for v in record.violations]}")
+    return {"payload_bytes": payload, "steps": steps, "launches": launches, "card_syncs": record.extra["card_syncs"]}
+
+
+def phase_analysis(seed: int, tokens, group) -> dict:
+    """Phase 22: the analysis gate. Returns {arm: result}; each arm's
+    `launches` are its counted kernel launches."""
+    import torch
+
+    from deepreduce_tpu_torch.analysis import ast_lint, memory
+
+    t0 = time.perf_counter()
+    laps, last = {}, [t0]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name], last[0] = round(now - last[0], 2), now
+
+    lint = ast_lint.lint_repo()
+    _check(not lint, f"phase 22 AST lint: {[v.to_dict() for v in lint]}")
+    lap("lint")
+    audit22 = _audit22()
+    print("phase 22 ok: audit " + json.dumps(audit22), flush=True)
+    lap("audit")
+    lat = _lattice22()
+    print("phase 22 ok: lattice " + json.dumps(lat), flush=True)
+    lap("lattice")
+    flag = _flagship22(seed, tokens, group)
+    print("phase 22 ok: flagship " + json.dumps(flag), flush=True)
+    lap("flagship")
+    torch.cuda.empty_cache()
+    mem = []
+    for label in memory.MEM_LABELS:
+        mem.append(memory.measure(label, "cuda"))
+        lap(f"mem {label}")
+    print("phase 22 ok: mem " + json.dumps(mem), flush=True)
+    print("phase 22 laps " + json.dumps(laps), flush=True)
+    total = {"qsgd_encode_rows": 0, "qsgd_quantize": 0}
+    for row in audit22.values():
+        for k, n in row.get("launches", {}).items():
+            total[k] += n
+    print(f"phase 22 time {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"analysis22_flagship": {"launches": flag["launches"]}, "analysis22_audit": {"launches": total}}
+
+
 def phase_timing(encode: dict, errs: dict, by_arm: dict, quantize: dict) -> None:
     # each path's run, counted from 0 just before it (phases 5 and 7-21)
     total = lambda name: sum(counts[name] for counts in by_arm.values())
@@ -5217,6 +5420,8 @@ def main(argv=None) -> int:
         lap("19 telemetry")
         driver21 = phase_driver(args.seed, res)
         lap("21 driver")
+        analysis22 = phase_analysis(args.seed, tokens, dist.group.WORLD)
+        lap("22 analysis")
     finally:
         dist.destroy_process_group()
     fed = phase_fedavg(args.seed, args.profile)
@@ -5227,7 +5432,7 @@ def main(argv=None) -> int:
     lap("20 seq, tensor")
     by_arm = {"drqsgd_bloom": res["launches"]}
     for phase in (arms, resnet, in_coll, bucketed, zoo, models14, fed, table6, host15, resil16, two_tier17, fedsim18,
-                  tele19, seq20, driver21):
+                  tele19, seq20, driver21, analysis22):
         by_arm.update({a: r["launches"] for a, r in phase.items()})
     phase_timing(encode, errs, by_arm, quantize)
     lap("timing")

@@ -67,7 +67,9 @@ def bucket_scale(flat: torch.Tensor, quantum_num: int, bucket_size: int) -> Tupl
     as the fused kernel derives them; `flat` length must be a multiple of
     bucket_size. The scale is what `ops.quantize_levels` takes."""
     norms = bucket_norms_ordered(flat, bucket_size)
-    scale = scale_from_norms(norms, quantum_num)[:, None].expand(-1, bucket_size).reshape(-1)
+    # contiguous: with one bucket the reshape is a stride-0 view, which the
+    # kernel's wrapper refuses
+    scale = scale_from_norms(norms, quantum_num)[:, None].expand(-1, bucket_size).reshape(-1).contiguous()
     return scale, norms
 
 

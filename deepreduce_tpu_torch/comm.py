@@ -430,18 +430,14 @@ class GradientExchanger:
         self.chaos = ChaosInjector.from_config(cfg)
         self.checksum = bool(cfg.payload_checksum)
         fused_allgather = cfg.fused and cfg.communicator == "allgather"
-        if cfg.decode_strategy != "loop" and not fused_allgather:
-            raise ConfigError(
-                "build-decode-strategy-needs-fused-allgather",
-                f"decode_strategy={cfg.decode_strategy!r} restructures the fused allgather decode and would be "
-                f"silently ignored here (communicator={cfg.communicator!r}, fused={cfg.fused}): use fused=True "
-                "with communicator='allgather', or decode_strategy='loop'",
-            )
+        # the bucket fences and the codecs first, then the decode strategy's
+        # fence: the JAX package's order, so that a config both refuse gets
+        # one reason code
         self.bucketed = None
         if cfg.bucket_bytes is not None:
-            _check_bucketable(cfg)
             from deepreduce_tpu_torch.comm_bucket import BucketedExchanger
 
+            _check_bucketable(cfg)
             self.bucketed = BucketedExchanger(self.shapes, cfg, device=self.device, points=bucket_points)
             self.fused = self.bucketed.fused
         else:
@@ -456,6 +452,13 @@ class GradientExchanger:
             self.fused = FusedBuffer({} if self.in_collective else {
                 n: TensorCodec(self.shapes[n], cfg, name=n, device=self.device) for n in self.names
             }, checksum=self.checksum and fused_allgather)
+        if cfg.decode_strategy != "loop" and not fused_allgather:
+            raise ConfigError(
+                "build-decode-strategy-needs-fused-allgather",
+                f"decode_strategy={cfg.decode_strategy!r} restructures the fused allgather decode and would be "
+                f"silently ignored here (communicator={cfg.communicator!r}, fused={cfg.fused}): use fused=True "
+                "with communicator='allgather', or decode_strategy='loop'",
+            )
         # the codec units (tensor names, or bucket labels) and their layout
         self.codecs = self.fused.codecs
         self.layouts = self.fused.layouts
@@ -860,7 +863,7 @@ class GradientExchanger:
 
 def _check_bucketable(cfg: DeepReduceConfig) -> None:
     """The exchanger-build fences of `bucket_bytes`, under the JAX package's
-    reason codes (`deepreduce_tpu/comm.py`)."""
+    reason codes and in its order (`deepreduce_tpu/comm.py`)."""
     if not (cfg.fused and cfg.communicator == "allgather"):
         raise ConfigError(
             "build-buckets-need-fused-allgather",
@@ -875,16 +878,16 @@ def _check_bucketable(cfg: DeepReduceConfig) -> None:
             "bucket_bytes the two pipelines would nest and the bucketing would be silently ignored: use "
             "decode_strategy='loop' or 'vmap' with bucket_bytes, or the ring without it",
         )
+    if cfg.deepreduce is None and cfg.compressor == "none":
+        raise ConfigError(
+            "build-buckets-need-compression",
+            "bucket_bytes only affects the compressed allgather path; the dense baseline "
+            "(deepreduce=None, compressor='none') would silently ignore it: set bucket_bytes=None",
+        )
     if cfg.layer_pattern is not None:
         raise ConfigError(
             "build-buckets-vs-layer-pattern",
             "layer_pattern excludes leaves by name from compression, but a bucket's one codec spans many "
             "leaves, so the pattern would be silently ignored: use layer_pattern=None with bucket_bytes, "
             "or per-tensor codecs with layer_pattern",
-        )
-    if cfg.deepreduce is None and cfg.compressor == "none":
-        raise ConfigError(
-            "build-buckets-need-compression",
-            "bucket_bytes only affects the compressed allgather path; the dense baseline "
-            "(deepreduce=None, compressor='none') would silently ignore it: set bucket_bytes=None",
         )

@@ -70,7 +70,9 @@ def bucket_quantize(
     flat = flat.contiguous()
     if norms is None:
         norms = bucket_norms_ordered(flat, bucket_size)
-    scale = scale_from_norms(norms, quantum_num)[:, None].expand(-1, bucket_size).reshape(-1)
+    # contiguous: with one bucket the reshape is a stride-0 view, which the
+    # kernel's wrapper refuses
+    scale = scale_from_norms(norms, quantum_num)[:, None].expand(-1, bucket_size).reshape(-1).contiguous()
     if uniforms is None:
         levels = quantize_levels(flat, scale, *stream, device=flat.device)
     elif flat.device.type != "cpu":

@@ -1018,3 +1018,74 @@ def test_sync_count_sees_a_worker_threads_sync(cuda):
 
     out, sites = chip_smoke._counting_syncs(lambda: InProcessGroup(2, timeout=60).run(work, [0, 1]))
     assert out[1] == 0.0 and len(sites) == 1, sites
+
+
+def test_recorder_on_a_one_rank_nccl_group(cuda):
+    """The analysis recorder around `ProcessGroupCollectives` over NCCL:
+    the fused exchange makes one all_gather of `payload_bytes()`, the
+    quantized sparse_rs route its pmax, reduce_scatter and all_gather with
+    their operand bytes, and the census sees one selection a tensor and no
+    host read or float64 op outside their sites."""
+    import torch.distributed as dist
+
+    from deepreduce_tpu_torch import DeepReduceConfig, GradientExchanger
+    from deepreduce_tpu_torch.analysis import audit, census, recorder
+    from deepreduce_tpu_torch.analysis.rules import AuditContext
+    from deepreduce_tpu_torch.collectives import ProcessGroupCollectives
+
+    fresh = not dist.is_initialized()
+    if fresh:
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        coll = ProcessGroupCollectives(dist.group.WORLD)
+        rs = dict(communicator="sparse_rs", compressor="topk", memory="none", deepreduce=None, compress_ratio=0.02,
+                  rs_mode="quantized")
+        fused = dict(memory="residual", decode_strategy="loop", **audit._FLAGSHIP)
+        for knobs, want in ((fused, {"all_gather": 1}), (rs, {"all_gather": 1, "pmax": 1, "reduce_scatter": 1})):
+            cfg = DeepReduceConfig(**knobs)
+            tape = recorder.Tape()
+            ex = GradientExchanger({"g": (4096,)}, cfg, device=cuda, group=recorder.Recorder(coll, "data", tape))
+            grads = {"g": torch.randn(4096, device=cuda)}
+            res = {"g": torch.zeros(4096, device=cuda)} if cfg.memory == "residual" else None
+            with census.SyncWatch(cuda) as syncs, census.Census(tape):
+                ex.exchange(grads, res, step=3)
+            torch.cuda.synchronize()
+            assert syncs.sites == []
+            assert recorder.counts(tape.calls) == want
+            mode = "collective" if cfg.communicator == "sparse_rs" else "allgather"
+            ctx = AuditContext(label="nccl", expect_collectives=want, wire_mode=mode,
+                               expected_wire_bytes=ex.payload_bytes(),
+                               expect_codec_invocations=1 if mode == "allgather" else None)
+            run = audit.Run((3,), [[tape]], [[None]], ex.payload_bytes(), 1, [], syncs=syncs.sites)
+            assert audit.check_trace(ctx, run).violations == []
+            assert census.selections(census.ops_of(tape)) >= 1
+    finally:
+        if fresh:
+            dist.destroy_process_group()
+
+
+def test_sync_watch_sees_a_sync_below_the_dispatcher(cuda, monkeypatch):
+    """`census.SyncWatch` on the card, around the audit's eight in-process
+    workers: a boolean-mask read planted in the exchange's decode (its
+    nonzero synchronizes inside the index kernel, which the census sees as
+    one `aten.index.Tensor`) is a `jx-callback` violation at its line of
+    comm.py on every worker; the clean run, whose harness puts its values
+    on the card, keeps none."""
+    from deepreduce_tpu_torch import comm as comm_mod
+    from deepreduce_tpu_torch.analysis import audit, rules
+    from deepreduce_tpu_torch.analysis.rules import AuditContext
+    from deepreduce_tpu_torch.config import DeepReduceConfig
+
+    cfg = DeepReduceConfig(memory="residual", decode_strategy="loop", **audit._FLAGSHIP)
+    clean = audit.check_trace(AuditContext(label="fused"), audit.run_flat(cfg, device=cuda, census_ranks=(0,)))
+    assert clean.violations == [] and clean.extra["card_syncs"] == 0
+    ns = {"decode_sum": comm_mod.FusedBuffer.decode_sum}
+    exec(compile("def planted(self, *args, **kw):\n"
+                 "    total, own = decode_sum(self, *args, **kw)\n"
+                 "    return total + total[total > 0].sum() * 0, own\n", comm_mod.__file__, "exec"), ns)
+    monkeypatch.setattr(comm_mod.FusedBuffer, "decode_sum", ns["planted"])
+    record = audit.check_trace(AuditContext(label="fused"), audit.run_flat(cfg, device=cuda, census_ranks=(0,)))
+    assert record.extra["card_syncs"] >= audit.NUM_WORKERS
+    assert {v.rule for v in record.violations} == {rules.R_CALLBACK}
+    (on_card,) = [v for v in record.violations if "on the card" in v.detail]
+    assert "comm.py:3 (planted)" in on_card.detail
