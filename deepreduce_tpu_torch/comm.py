@@ -297,12 +297,13 @@ class FusedBuffer:
         keys the bloom codec's random policies). `host_seg`: the same bytes
         on the host, which a host codec reads (copied here when None)."""
         codec, layout = self.codecs[unit], self.layouts[unit]
-        payload = codec.payload_from_leaves(layout.unpack(seg))
-        host_payload = None
-        if codec.host:
-            # one copy of the unit's bytes; the codec reads its leaves there
-            host_seg = seg.cpu() if host_seg is None else host_seg
-            host_payload = codec.payload_from_leaves(layout.unpack(host_seg))
+        with span("exchange/decode/unpack"):
+            payload = codec.payload_from_leaves(layout.unpack(seg))
+            host_payload = None
+            if codec.host:
+                # one copy of the unit's bytes; the codec reads its leaves there
+                host_seg = seg.cpu() if host_seg is None else host_seg
+                host_payload = codec.payload_from_leaves(layout.unpack(host_seg))
         return codec.decode(payload, step=step, host_payload=host_payload).to(torch.float32)
 
     def decode_rows(
@@ -351,8 +352,7 @@ class FusedBuffer:
         W = rows.shape[0]
         if gates is not None:
             rows = torch.where(gates[:, None] > 0.5, rows, 0)
-        total = torch.zeros(self.codecs[unit].shape, dtype=torch.float32, device=rows.device)
-        own_dec = None
+        total = own_dec = None
         G = 1 if batch is None else max(1, min(int(batch), W))
         for g0 in range(0, W, G):
             g1 = min(g0 + G, W)
@@ -361,14 +361,17 @@ class FusedBuffer:
                 decs = [self.decode(unit, rows[g0], step=step, host_seg=None if hosts is None else hosts[0])]
             else:
                 decs = list(self.decode_rows(unit, rows[g0:g1], step=step, host_rows=hosts))
-            for i, w in enumerate(range(g0, g1)):
-                if gates is not None:
-                    decs[i] = torch.where(gates[w] > 0.5, decs[i], 0.0)
-                if weights is not None:
-                    decs[i] = decs[i] * weights[w]
-                if w == own:
-                    own_dec = decs[i]
-            total = total + (decs[0] if batch is None else _sum_rows(decs))
+            with span("exchange/decode/sum"):
+                for i, w in enumerate(range(g0, g1)):
+                    if gates is not None:
+                        decs[i] = torch.where(gates[w] > 0.5, decs[i], 0.0)
+                    if weights is not None:
+                        decs[i] = decs[i] * weights[w]
+                    if w == own:
+                        own_dec = decs[i]
+                part = decs[0] if batch is None else _sum_rows(decs)
+                # the in-order sum from zeros, its accumulator made inside the stage
+                total = (torch.zeros_like(part) if total is None else total) + part
         return total, own_dec
 
 
@@ -508,7 +511,8 @@ class GradientExchanger:
     def compensate(self, grads: Tree, residuals: Optional[Tree]) -> Tree:
         if residuals is None:
             return grads
-        return memory.compensate(grads, residuals, beta=self.cfg.beta, gamma=self.cfg.gamma)
+        with span("exchange/compensate"):
+            return memory.compensate(grads, residuals, beta=self.cfg.beta, gamma=self.cfg.gamma)
 
     def units_of(self, tensors: Tree) -> Tree:
         """Tensor name -> tensor as unit -> tensor: the bucket super-tensors
@@ -723,8 +727,9 @@ class GradientExchanger:
             collect["fp_count"], collect["fp_universe"] = self.fused.fp_totals(payloads, self.device)
             if fails is not None:
                 collect["checksum_failures"] = fails
-        mean, own_dec = self.mean_and_own(totals, owns if own is not None else None, self.num_workers, denom)
-        agg, new_residuals = self.finish(grads, compensated, mean, own_dec)
+        with span("exchange/finish"):
+            mean, own_dec = self.mean_and_own(totals, owns if own is not None else None, self.num_workers, denom)
+            agg, new_residuals = self.finish(grads, compensated, mean, own_dec)
         return agg, new_residuals, stats
 
     def _exchange_ring(

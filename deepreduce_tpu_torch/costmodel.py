@@ -1321,6 +1321,17 @@ CAL_COMPUTE_SPANS = frozenset({"train/forward_backward"})
 # spans that are not per-step work at all: the driver's step timer (it is
 # the measurement target, not a component) and the one-time program build
 CAL_EXCLUDED_SPANS = frozenset({"train/step", "train/build"})
+# the port's stage spans inside the exchange (comm.py, wrappers.py): the fit
+# drops them before it takes self times, so their time stays with the span
+# they nest in (exchange/encode, exchange/decode, exchange/ring,
+# train/exchange, a FedSim round, ...) and the fit is what it was without
+# them, route rows included
+CAL_STAGE_SPANS = frozenset({
+    "exchange/compensate", "exchange/finish",
+    "exchange/encode/sparsify", "exchange/encode/index", "exchange/encode/values", "exchange/encode/qsgd",
+    "exchange/decode/unpack", "exchange/decode/values", "exchange/decode/index", "exchange/decode/sparse",
+    "exchange/decode/sum",
+})
 
 
 def drop_warmup(xs: Sequence[float], k: float = 4.0) -> List[float]:
@@ -1417,7 +1428,7 @@ def calibrate(
     config = cfg_rec.get("config", {}) or {}
     W = int(config.get("workers", cfg_rec.get("workers", 1)) or 1)
     trace = _read_json(run / "trace.json")
-    events = [e for e in trace.get("traceEvents", []) if e.get("ph") == "X"]
+    events = [e for e in trace.get("traceEvents", []) if e.get("ph") == "X" and e.get("name") not in CAL_STAGE_SPANS]
     if not events:
         raise ValueError(
             f"{run}: no span trace (trace.json) — re-run with --telemetry "

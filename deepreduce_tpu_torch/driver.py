@@ -553,7 +553,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="comma-separated run tags (--extra_wandb_tags role)")
     ap.add_argument("--telemetry", action="store_true",
                     help="enable telemetry: span tracing (trace.json in the run dir when --track_dir is set) plus "
-                         "on-device metric accumulators fetched every cfg.telemetry_every steps")
+                         "on-device metric accumulators fetched every cfg.telemetry_every steps. trace.json's ts are "
+                         "µs from the Unix epoch, the profiler's clock: a span's ts is its range's ts in "
+                         "--profile_dir's rank<r>.trace.json plus that file's baseTimeNanoseconds / 1000")
     ap.add_argument("--profile_dir", type=str, default="",
                     help="write a torch.profiler trace (rank<r>.trace.json) of the steps from the third on")
     ap.add_argument("--checkpoint-every", type=int, default=0,

@@ -2,8 +2,9 @@
 on-device metric accumulators, and the CLI over tracking run directories.
 
 - `spans`: the host-side tracer; `span("exchange/encode")` records a
-  Chrome-trace "X" event and labels the `torch.profiler` trace (and an NVTX
-  range on the card). Disabled (the default) it is a shared inert no-op.
+  Chrome-trace "X" event on the profiler's clock (µs from the Unix epoch)
+  and labels the `torch.profiler` trace. Disabled (the default) it is a
+  shared inert no-op.
 - `device_metrics`: `MetricAccumulators`, the running float32 counters a
   `Trainer` with `cfg.telemetry` (and a `FedSim`) adds to on the device,
   fetched every `cfg.telemetry_every` steps.

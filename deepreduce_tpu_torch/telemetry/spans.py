@@ -8,10 +8,21 @@
   `args`), so the accumulated ``{"traceEvents": [...]}`` loads in Perfetto
   and `costmodel.calibrate` reads it as it reads the JAX package's traces;
 - enters `torch.profiler.record_function(name)`, so the same name labels a
-  `torch.profiler` trace, and on a CUDA build with a card an NVTX range
-  (`torch.cuda.nvtx.range_push` / `range_pop`).
+  `torch.profiler` trace.
 
 Recording happens on exit whether or not the body raised.
+
+One clock with the profiler: an event's `ts` is `time.time_ns()` at the
+span's start, in µs from the Unix epoch, the clock `torch.profiler` stamps
+its events on (the duration is read from `time.perf_counter()`). A span in
+this tracer's trace.json therefore lines up with the same
+`record_function` range of a profiler trace exported by
+`export_chrome_trace` (the driver's `--profile_dir` rank<r>.trace.json) at
+
+    ts_tracer ≈ ts_profiler + baseTimeNanoseconds / 1000
+
+where `baseTimeNanoseconds` is the profiler file's own key (its `ts` are µs
+after that base), and with the raw Kineto events at `start_ns() / 1000`.
 
 When the module tracer is disabled (the default) `span()` returns one
 shared inert context manager: no clock read, no profiler range, no
@@ -35,18 +46,13 @@ import threading
 import time
 from typing import Any, Dict, List, Optional
 
-import torch
 from torch.profiler import record_function
 
 
-def _nvtx_on() -> bool:
-    return torch.cuda.is_available()
-
-
 class _Span:
-    """One live span: wall clock + profiler range + NVTX range."""
+    """One live span: wall clock + profiler range."""
 
-    __slots__ = ("_tracer", "name", "route", "_t0", "_range", "_nvtx")
+    __slots__ = ("_tracer", "name", "route", "_ns", "_t0", "_range")
 
     def __init__(self, tracer: "Tracer", name: str, route: Optional[str] = None):
         self._tracer = tracer
@@ -54,24 +60,20 @@ class _Span:
         self.route = route
 
     def __enter__(self) -> "_Span":
+        # the clocks are read around the profiler range, so that the range's
+        # own cost is this span's time and not its parent's
+        self._ns = time.time_ns()
+        self._t0 = time.perf_counter()
         self._range = record_function(self.name)
         self._range.__enter__()
-        self._nvtx = _nvtx_on()
-        if self._nvtx:
-            torch.cuda.nvtx.range_push(self.name)
-        self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc) -> bool:
-        # elapsed first and recorded unconditionally: a raising body still
-        # reports its time
-        elapsed = time.perf_counter() - self._t0
+        # recorded unconditionally: a raising body still reports its time
         try:
-            if self._nvtx:
-                torch.cuda.nvtx.range_pop()
             self._range.__exit__(*exc)
         finally:
-            self._tracer._record(self.name, self._t0, elapsed, route=self.route)
+            self._tracer._record(self.name, self._ns, time.perf_counter() - self._t0, route=self.route)
         return False
 
 
@@ -91,16 +93,16 @@ _NULL_SPAN = _NullSpan()
 
 
 class Tracer:
-    """Accumulates Chrome-trace-event records (µs, "X" complete events and
-    "C" counters). Thread-safe append; each event carries its thread id as
-    `tid`, so spans of concurrent host threads (the in-process workers,
-    the streamed exchange's dispatcher) nest correctly in the viewer."""
+    """Accumulates Chrome-trace-event records (µs, `ts` from the Unix epoch;
+    "X" complete events and "C" counters). Thread-safe append; each event
+    carries its thread id as `tid`, so spans of concurrent host threads (the
+    in-process workers, the streamed exchange's dispatcher) nest correctly
+    in the viewer."""
 
     def __init__(self, enabled: bool = False):
         self.enabled = enabled
         self.events: List[Dict[str, Any]] = []
         self._lock = threading.Lock()
-        self._epoch = time.perf_counter()
         self._pid = os.getpid()
 
     def span(self, name: str, route: Optional[str] = None):
@@ -108,15 +110,15 @@ class Tracer:
             return _NULL_SPAN
         return _Span(self, name, route)
 
-    def counter(self, name: str, values: Dict[str, float], ts: Optional[float] = None) -> None:
-        """Record a Chrome "C" counter sample (e.g. per-step rel_volume)."""
+    def counter(self, name: str, values: Dict[str, float], ts: Optional[int] = None) -> None:
+        """Record a Chrome "C" counter sample (e.g. per-step rel_volume) at
+        `ts`, a `time.time_ns()` reading (default: now)."""
         if not self.enabled:
             return
-        now = ts if ts is not None else time.perf_counter()
         ev = {
             "name": name,
             "ph": "C",
-            "ts": round((now - self._epoch) * 1e6, 3),
+            "ts": (time.time_ns() if ts is None else ts) / 1e3,
             "pid": self._pid,
             "tid": threading.get_ident(),
             "args": {k: float(v) for k, v in values.items()},
@@ -124,12 +126,12 @@ class Tracer:
         with self._lock:
             self.events.append(ev)
 
-    def _record(self, name: str, t0: float, elapsed: float, route: Optional[str] = None) -> None:
+    def _record(self, name: str, start_ns: int, elapsed: float, route: Optional[str] = None) -> None:
         ev = {
             "name": name,
             "cat": "telemetry",
             "ph": "X",
-            "ts": round((t0 - self._epoch) * 1e6, 3),
+            "ts": start_ns / 1e3,
             "dur": round(elapsed * 1e6, 3),
             "pid": self._pid,
             "tid": threading.get_ident(),
@@ -144,13 +146,14 @@ class Tracer:
     def reset(self) -> None:
         with self._lock:
             self.events = []
-        self._epoch = time.perf_counter()
 
     def to_chrome_trace(self) -> Dict[str, Any]:
-        """The Perfetto-loadable trace object, events in time order."""
+        """The Perfetto-loadable trace object, events in time order, a
+        parent before a child that starts at the same µs (the longer
+        first)."""
         with self._lock:
             events = list(self.events)
-        events.sort(key=lambda e: e["ts"])
+        events.sort(key=lambda e: (e["ts"], -e.get("dur", 0.0)))
         return {"traceEvents": events, "displayTimeUnit": "ms"}
 
     def save(self, path) -> None:

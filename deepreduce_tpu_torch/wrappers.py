@@ -68,6 +68,7 @@ from deepreduce_tpu_torch.device import DeviceLike, check_on, resolve_device
 from deepreduce_tpu_torch.metrics import WireStats
 from deepreduce_tpu_torch.ops import EncodeSegment, qsgd_encode_rows
 from deepreduce_tpu_torch.sparse import SparseGrad
+from deepreduce_tpu_torch.telemetry.spans import span
 
 EncodeUnit = Tuple[Any, "TensorCodec", torch.Tensor, int]
 
@@ -241,13 +242,16 @@ class TensorCodec:
             return DensePayload(tensor=tensor)
         if self.direct_bloom:
             cfg = self.cfg
-            return self.idx_codec.encode_direct(
-                tensor, sample_size=cfg.topk_sample_size, undershoot=cfg.topk_undershoot
-            )
-        sp = self.sparsify(tensor, step=step, worker=worker)
+            with span("exchange/encode/index"):
+                return self.idx_codec.encode_direct(
+                    tensor, sample_size=cfg.topk_sample_size, undershoot=cfg.topk_undershoot
+                )
+        with span("exchange/encode/sparsify"):
+            sp = self.sparsify(tensor, step=step, worker=worker)
         if not self.compressed or self.idx_codec is None:
             return sp
-        return self.idx_codec.encode(sp, dense=tensor, step=step)
+        with span("exchange/encode/index"):
+            return self.idx_codec.encode(sp, dense=tensor, step=step)
 
     def encode_values(self, ipay: Any) -> Any:
         """The value stage of a value codec other than QSGD. In 'value' mode
@@ -331,7 +335,8 @@ class TensorCodec:
         if self.dense_fallback:
             return payload.tensor.reshape(self.shape)
         if not self.compressed:
-            return payload.to_dense()
+            with span("exchange/decode/sparse"):
+                return payload.to_dense()
 
         def host_kw(codec, part):
             return {"host_payload": part} if codec.host else {}
@@ -340,24 +345,40 @@ class TensorCodec:
             if self.rows_leaf is None:
                 raise ValueError("values= carries decoded QSGD rows; this tensor's value codec is not QSGD")
             if self.idx_codec is None:
-                return qsgd.decode(payload, self.val_codec.meta, self.shape, values=values).to_dense()
+                with span("exchange/decode/values"):
+                    return qsgd.decode(payload, self.val_codec.meta, self.shape, values=values).to_dense()
         if self.idx_codec is None:
-            return self.val_codec.decode(payload, self.shape, **host_kw(self.val_codec, host_payload)).to_dense()
+            with span("exchange/decode/values"):
+                return self.val_codec.decode(payload, self.shape, **host_kw(self.val_codec, host_payload)).to_dense()
         if self.val_codec is None:
-            if self.idx_codec.decodes_dense:
-                return self.idx_codec.decode_dense(payload, self.shape, step=step)
-            kw = host_kw(self.idx_codec, host_payload)
-            return self.idx_codec.decode(payload, self.shape, step=step, **kw).to_dense()
+            with span("exchange/decode/index"):
+                if self.idx_codec.decodes_dense:
+                    return self.idx_codec.decode_dense(payload, self.shape, step=step)
+                kw = host_kw(self.idx_codec, host_payload)
+                return self.idx_codec.decode(payload, self.shape, step=step, **kw).to_dense()
         vk = self.val_codec.k
-        mapping = None if payload.mapping is None else packing.unpack(payload.mapping, vk)
-        vpay = self.val_codec.restore_for_both(payload.value_payload, mapping)
         host_parts = (None, None) if host_payload is None else (host_payload.index_payload, host_payload.value_payload)
-        # values in the codec's order
-        if values is not None:
-            vsp = qsgd.decode(vpay, self.val_codec.meta, self.shape, values=values)
-        else:
-            vsp = self.val_codec.decode(vpay, self.shape, **host_kw(self.val_codec, host_parts[1]))
-        if not self.idx_codec.decodes_dense:
+        with span("exchange/decode/values"):
+            mapping = None if payload.mapping is None else packing.unpack(payload.mapping, vk)
+            vpay = self.val_codec.restore_for_both(payload.value_payload, mapping)
+            # values in the codec's order
+            if values is not None:
+                vsp = qsgd.decode(vpay, self.val_codec.meta, self.shape, values=values)
+            else:
+                vsp = self.val_codec.decode(vpay, self.shape, **host_kw(self.val_codec, host_parts[1]))
+            table = vsp.values
+            if mapping is not None and self.idx_codec.decodes_dense:
+                # the slot-ordered table: value i goes to slot indices[i]; a
+                # target out of range is dropped, not clipped onto a live slot
+                slots = torch.arange(vk, device=table.device)
+                idx = vsp.indices.long()
+                tgt = torch.where((idx >= 0) & (idx < vk), idx, vk + slots)
+                out = torch.zeros(2 * vk, dtype=table.dtype, device=table.device)
+                out[tgt] = table
+                table = out[:vk]
+        with span("exchange/decode/index"):
+            if self.idx_codec.decodes_dense:
+                return self.idx_codec.decode_dense(payload.index_payload, self.shape, step=step, values=table)
             # the selection list in slot order, paired with the codec's order
             # through its indices (the JAX package's generic 'both' decode)
             ipay = dataclasses.replace(
@@ -366,17 +387,6 @@ class TensorCodec:
             isp = self.idx_codec.decode(ipay, self.shape, step=step, **host_kw(self.idx_codec, host_parts[0]))
             idxs = isp.indices[torch.clamp(vsp.indices.long(), 0, vk - 1)]
             return SparseGrad(values=vsp.values, indices=idxs, nnz=payload.nsel, shape=self.shape).to_dense()
-        table = vsp.values
-        if mapping is not None:
-            # the slot-ordered table: value i goes to slot indices[i]; a
-            # target out of range is dropped, not clipped onto a live slot
-            slots = torch.arange(vk, device=table.device)
-            idx = vsp.indices.long()
-            tgt = torch.where((idx >= 0) & (idx < vk), idx, vk + slots)
-            out = torch.zeros(2 * vk, dtype=table.dtype, device=table.device)
-            out[tgt] = table
-            table = out[:vk]
-        return self.idx_codec.decode_dense(payload.index_payload, self.shape, step=step, values=table)
 
     # -- the static wire layout ----------------------------------------- #
 
@@ -526,11 +536,14 @@ def encode_group(
                 raise ValueError("one grouped QSGD launch takes one quantum_num and one bucket_size")
             geometry = (meta.quantum_num, meta.bucket_size)
             u = None if uniforms is None else uniforms.get(key)
-            segments.append(codec.value_segment(payload, rows_lo, step=step, worker=worker, uniforms=u))
-            payload = codec.rows_payload(payload, rows[rows_lo : rows_lo + meta.payload_len].view(torch.int8))
+            with span("exchange/encode/qsgd"):
+                segments.append(codec.value_segment(payload, rows_lo, step=step, worker=worker, uniforms=u))
+                payload = codec.rows_payload(payload, rows[rows_lo : rows_lo + meta.payload_len].view(torch.int8))
         elif codec.val_codec is not None:
-            payload = codec.encode_values(payload)
+            with span("exchange/encode/values"):
+                payload = codec.encode_values(payload)
         payloads[key] = payload
     if segments:
-        qsgd_encode_rows(segments, rows, quantum_num=geometry[0], bucket_size=geometry[1], device=rows.device)
+        with span("exchange/encode/qsgd"):
+            qsgd_encode_rows(segments, rows, quantum_num=geometry[0], bucket_size=geometry[1], device=rows.device)
     return payloads, segments
