@@ -18,7 +18,9 @@ Phases, one line each; any failure raises and exits non-zero:
      an odd size; qsgd_encode_rows on the main path's own 12-segment table and
      on single segments at odd sizes, bucket sizes and alignments. Levels
      and norm bytes bitwise equal, |level| <= q, unbiased over many
-     offsets, repeatable for a fixed (seed, offset);
+     offsets, repeatable for a fixed (seed, offset); the bloom_mod insert,
+     select and place kernels against the bloom codec's torch code on the
+     card at every mod-p0 leaf of the main path, bitwise;
   4. one Embed_0-sized gradient through TensorCodec on the card and on the
      CPU with the same seed: filter words, nsel, every bucket norm, every
      level and the decoded tensor bitwise equal;
@@ -28,7 +30,9 @@ Phases, one line each; any failure raises and exits non-zero:
      64 x 20 synthetic tokens, through a one-rank NCCL group so the real
      all_gather_into_tensor runs. Kernel launch counts are zeroed just
      before and read just after: qsgd_encode_rows once per worker-step,
-     qsgd_quantize never (it is no longer on the main path); then the
+     qsgd_quantize never (it is no longer on the main path), each bloom
+     kernel once a mod-p0 leaf a step (every later phase holds the bloom
+     kernels to its own law too: a leaf's encodes and decodes); then the
      flagship's codec-table times (as in phase 7);
   6. device times (torch.profiler) and host times of each kernel and its
      plain version at its path's shapes, taken right after phase 4 for
@@ -40,7 +44,9 @@ Phases, one line each; any failure raises and exits non-zero:
      grid), one bucket, the flagship's 12 segments, resnet20_drqsgd's 19,
      the fedavg_mobilenet_drqsgd S2C tree's 57 and one 4,050,944-element
      segment warm and with the L2 flushed, each bitwise its plain version,
-     with device us, bytes, bound and share; then the `kernels` JSON line,
+     with device us, bytes, bound and share; the three bloom kernels at the
+     main path's largest mod-p0 leaf and summed over its leaves, beside
+     their plain version and their bound; then the `kernels` JSON line,
      whose launches sum every path's counted run;
   7. the other Table-4 arms of `bench.py` (dense allreduce, Top-r,
      DRQSGD with the delta-bitpacked integer index, with sampled top-k,
@@ -357,6 +363,68 @@ def _check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
+# the bloom index codec's kernels (ops/bloom_mod.py): a leaf's encode under
+# the mod-blocked filter with a prefix policy launches insert and select
+# once each, its decode placement once
+BLOOM_KERNELS = ("bloom_mod_insert", "bloom_mod_select", "bloom_mod_place")
+BLOOM_INT_OPS_PER_INDEX = 25  # one or two fmix32, h shifts and ORs, the mask test, the word index
+INT32_OPS_PER_S = 132 * 64 * 1.98e9  # H100 SXM: 132 SMs x 64 int32 lanes x 1.98 GHz boost
+
+
+def _bloom_leaves(codecs) -> tuple:
+    """(leaves whose filter the insert kernel builds, leaves the select and
+    placement kernels take) among `codecs` (TensorCodecs): the compressed
+    leaves with the mod-blocked bloom index under a prefix policy. The
+    threshold insert, and the direct encode of a leaf above
+    max(4 k, 2 x the sample), build the filter from the dense tensor in
+    torch code instead (`bloom.insert_from_dense`)."""
+    from deepreduce_tpu_torch.codecs.bloom import BloomMeta
+
+    ins = sel = 0
+    for c in codecs:
+        meta = getattr(c.idx_codec, "meta", None) if c.compressed else None
+        if not isinstance(meta, BloomMeta) or meta.blocked != "mod" or meta.policy not in ("leftmost", "p0"):
+            continue
+        sel += 1
+        if c.direct_bloom:
+            ins += meta.d <= max(4 * meta.k, 2 * c.cfg.topk_sample_size)
+        else:
+            ins += not c.idx_codec.threshold_insert
+    return ins, sel
+
+
+def _bloom_counts(codecs, encodes: int, decodes: int) -> dict:
+    """The bloom kernels' launches when each leaf of `codecs` is encoded
+    `encodes` times and decoded `decodes` times."""
+    ins, sel = _bloom_leaves(codecs)
+    return dict(zip(BLOOM_KERNELS, (ins * encodes, sel * encodes, sel * decodes)))
+
+
+def _launches(quantize: int = 0, encode_rows: int = 0, *bloom: dict) -> dict:
+    """The launch counts a counted run should read: `quantize` and
+    `encode_rows` QSGD launches and the sum of the `bloom` counts."""
+    out = {"qsgd_quantize": quantize, "qsgd_encode_rows": encode_rows, **dict.fromkeys(BLOOM_KERNELS, 0)}
+    for counts in bloom:
+        for k, n in counts.items():
+            out[k] += n
+    return out
+
+
+def _fed_bloom(sim, masks) -> tuple:
+    """The bloom kernels' launches of one worker's FedSim rounds or ticks,
+    one a tick of `masks` (each the tenants' active flags, or None for all
+    tenants): an active tenant's tick compresses the server's delta once
+    (S2C) and each of its cohort clients' updates once (C2S, one launch a
+    client under vmap), each decoded once, and a client's once more as it
+    arrived where the chaos perturbs the wire image; an inactive tenant's
+    tick compresses nothing."""
+    T, C = max(sim.tenants, 1), sim.c_local
+    ticks = sum(T if m is None else sum(bool(a) for a in m) for m in masks)
+    recv = 1 if sim.chaos is None else 2
+    return (_bloom_counts(sim.tc_s2c._codecs.values(), ticks, ticks),
+            _bloom_counts(sim.tc_c2s._codecs.values(), ticks * C, ticks * C * recv))
+
+
 # phase 7: bench.py's Table-4 arms beyond the flagship (bench.py:2505-2543,
 # :284-290), as knobs over the flagship's, with their wire bytes on the
 # full-width WordLSTM (GradientExchanger.payload_bytes of the JAX package)
@@ -667,7 +735,72 @@ def phase_build() -> None:
 def phase_kernels(sizes, ex) -> dict:
     """Each kernel vs its plain version on the card's inputs; returns the
     max |difference| per kernel."""
-    return {"qsgd_quantize": _check_quantize(sizes), "qsgd_encode_rows": _check_encode(ex)}
+    return {"qsgd_quantize": _check_quantize(sizes), "qsgd_encode_rows": _check_encode(ex),
+            **_check_bloom(ex)}
+
+
+def _torch_bloom():
+    """The bloom codec's torch code on the card: its kernel rule made to say
+    no (the kernels' plain version)."""
+    from unittest import mock
+
+    from deepreduce_tpu_torch.codecs import bloom
+
+    return mock.patch.object(bloom, "_on_kernel", lambda meta, t: False)
+
+
+def _bloom_inputs(ex, seed: int) -> list:
+    """(meta, flat, indices, nnz) of each mod-prefix bloom leaf of `ex`, in
+    its order: a random gradient on the card and its exact top-k."""
+    import torch
+
+    from deepreduce_tpu_torch.codecs.bloom import BloomMeta
+    from deepreduce_tpu_torch.sparse import topk
+
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for c in ex.codecs.values():
+        meta = getattr(c.idx_codec, "meta", None) if c.compressed else None
+        if isinstance(meta, BloomMeta) and meta.blocked == "mod" and meta.policy in ("leftmost", "p0"):
+            flat = torch.randn(meta.d, generator=gen).cuda()
+            sp = topk(flat, 1.0, k=meta.k)
+            out.append((meta, flat, sp.indices, sp.nnz))
+    return out
+
+
+def _bloom_stages(meta, flat, idx, nnz) -> tuple:
+    """The codec's three mod-layout stages on one leaf: (words, values,
+    nsel, dense)."""
+    from deepreduce_tpu_torch.codecs import bloom
+
+    words = bloom.insert(idx, nnz, meta)
+    payload = bloom._fp_aware_payload(words, flat, meta)
+    return words, payload.values, payload.nsel, bloom.decode_dense(payload, meta, (meta.d,))
+
+
+def _check_bloom(ex) -> dict:
+    """The three bloom kernels against their plain version (the codec's
+    torch code on the card) at every mod-prefix leaf of the main path:
+    words, values, count and dense tensor bitwise, one launch each a leaf."""
+    import torch
+
+    from deepreduce_tpu_torch.ops import launch_counts
+
+    leaves = _bloom_inputs(ex, seed=22)
+    before = launch_counts()
+    got = [_bloom_stages(*leaf) for leaf in leaves]
+    torch.cuda.synchronize()
+    launched = {k: launch_counts()[k] - before[k] for k in BLOOM_KERNELS}
+    _check(launched == dict.fromkeys(BLOOM_KERNELS, len(leaves)), f"bloom kernels: {launched} for {len(leaves)} leaves")
+    with _torch_bloom():
+        ref = [_bloom_stages(*leaf) for leaf in leaves]
+    _check(launch_counts() == {k: before[k] + launched.get(k, 0) for k in before}, "the torch path launched a kernel")
+    for (meta, *_), a, b in zip(leaves, got, ref):
+        for what, x, y in zip(("words", "values", "nsel", "dense"), a, b):
+            _check(x.dtype == y.dtype and torch.equal(x, y), f"bloom_mod {what} != plain at d={meta.d}")
+    print(f"phase 3 ok: bloom_mod insert, select and place bitwise equal to plain at the main path's {len(leaves)} "
+          f"mod-p0 leaves (d {min(l[0].d for l in leaves)} to {max(l[0].d for l in leaves)})", flush=True)
+    return dict.fromkeys(BLOOM_KERNELS, 0.0)
 
 
 def _check_quantize(sizes) -> float:
@@ -995,7 +1128,8 @@ def phase_train(seed: int, tokens, group, profile: bool = False) -> dict:
     sizes = [c.val_codec.meta.padded_len for c in ex.codecs.values() if c.compressed]
     # one grouped QSGD encode per worker-step; the per-leaf quantizer
     # is no longer on the main path
-    expected = {"qsgd_quantize": 0, "qsgd_encode_rows": steps}
+    # and each mod-p0 bloom leaf's insert, select and placement once a step
+    expected = _launches(0, steps, _bloom_counts(ex.codecs.values(), steps, steps))
     _check(launches == expected, f"kernel launches on the main path {launches}, expected {expected}")
     _check_trained(state, losses, ref_loss, "main path")
     rel_volume = float(wire.rel_volume())
@@ -1117,7 +1251,7 @@ def phase_arms(seed: int, tokens, group, ref_loss: float, profile: bool = False)
             trainer, state, lambda i: (tokens[i, :, :-1], tokens[i, :, 1:]), ARM_STEPS)
         launches, syncs = launch_counts(), host_branch.syncs
         qsgd = any(c.val_codec is not None for c in ex.codecs.values())
-        expected = {"qsgd_quantize": 0, "qsgd_encode_rows": ARM_STEPS if qsgd else 0}
+        expected = _launches(0, ARM_STEPS if qsgd else 0, _bloom_counts(ex.codecs.values(), ARM_STEPS, ARM_STEPS))
         _check(launches == expected, f"{arm}: kernel launches {launches}, expected {expected}")
         _check_trained(state, losses, ref_loss, arm)
         rel_volume = float(wire.rel_volume())
@@ -1261,7 +1395,7 @@ def phase_resnet(seed: int, group, profile: bool = False) -> dict:
             trainer, state, lambda i: (images[i], labels[i]), steps)
         launches = launch_counts()
         qsgd = cfg.value == "qsgd"
-        expected = {"qsgd_quantize": 0, "qsgd_encode_rows": steps if qsgd else 0}
+        expected = _launches(0, steps if qsgd else 0, _bloom_counts(ex.codecs.values(), steps, steps))
         _check(launches == expected, f"{arm}: kernel launches {launches}, expected {expected}")
         _check_trained(state, losses, ref_loss, arm)
         _check(host_branch.syncs == 0, f"{arm}: {host_branch.syncs} host branches")
@@ -1438,7 +1572,7 @@ def phase_in_collective(seed: int, tokens, group, ref_loss: float, profile: bool
         collects = []
         state, losses, dev_ms, host_ms, wire, sync_calls = _run_steps(trainer, state, batches, ARM_STEPS, collects)
         launches = launch_counts()
-        expected = {"qsgd_quantize": per_step * ARM_STEPS, "qsgd_encode_rows": 0}
+        expected = _launches(per_step * ARM_STEPS, 0, _bloom_counts(ex.codecs.values(), ARM_STEPS, ARM_STEPS))
         _check(launches == expected, f"{arm}: kernel launches {launches}, expected {expected}")
         _check_trained(state, losses, ref_loss, arm)
         _check(not any(sync_calls), f"{arm}: host syncs in the step: {sync_calls}")
@@ -1581,7 +1715,7 @@ def phase_bucketed(seed: int, tokens, group, ref_loss: float, profile: bool = Fa
         host_branch.syncs = 0
         state, losses, dev_ms, host_ms, wire, sync_calls = _run_steps(trainer, state, batches[model_name], ARM_STEPS)
         launches = launch_counts()
-        expected = {"qsgd_quantize": 0, "qsgd_encode_rows": per_step * ARM_STEPS}
+        expected = _launches(0, per_step * ARM_STEPS, _bloom_counts(ex.codecs.values(), ARM_STEPS, ARM_STEPS))
         _check(launches == expected, f"{arm}: kernel launches {launches}, expected {expected}")
         _check_trained(state, losses, ref, arm)
         _check(not any(sync_calls) and host_branch.syncs == 0, f"{arm}: host syncs in the step: {sync_calls}")
@@ -1691,7 +1825,7 @@ def phase_zoo(seed: int, tokens, group, ref_loss: float, profile: bool = False) 
         host_branch.syncs = 0
         state, losses, dev_ms, host_ms, wire, sync_calls = _run_steps(trainer, state, batches[model_name], ARM_STEPS)
         launches = launch_counts()
-        expected = {"qsgd_quantize": 0, "qsgd_encode_rows": per_step * ARM_STEPS}
+        expected = _launches(0, per_step * ARM_STEPS, _bloom_counts(ex.codecs.values(), ARM_STEPS, ARM_STEPS))
         _check(launches == expected, f"{arm}: kernel launches {launches}, expected {expected}")
         _check_trained(state, losses, ref, arm)
         _check(not any(sync_calls) and host_branch.syncs == 0, f"{arm}: host syncs in the step: {sync_calls}")
@@ -1909,7 +2043,12 @@ def phase_fedavg(seed: int, profile: bool = False) -> dict:
         launches = launch_counts()
         peak = torch.cuda.max_memory_allocated()
         qsgd = cfg.deepreduce is not None
-        expected = {"qsgd_quantize": 0, "qsgd_encode_rows": spec["rounds"] * (1 + per_round) if qsgd else 0}
+        # a round compresses the server's delta once and each client's update
+        # once (S2C, then C2S), each encode decoded once
+        n = spec["rounds"]
+        expected = _launches(0, n * (1 + per_round) if qsgd else 0,
+                             _bloom_counts(fa.tree_codecs["s2c"]._codecs.values(), n, n),
+                             _bloom_counts(fa.tree_codecs["c2s"]._codecs.values(), n * per_round, n * per_round))
         _check(launches == expected, f"{arm}: kernel launches {launches}, expected {expected}")
         _check(all(bool(torch.isfinite(p).all()) for p in state.params.values()), f"{arm}: non-finite parameters")
         with torch.no_grad():
@@ -1973,7 +2112,7 @@ def phase_table6(seed: int) -> dict:
     payloads = {n: codecs[n].encode(fresh[n], step=0, worker=0) for n in sorted(fresh)}
     launches = launch_counts()
     qsgd_leaves = sum(c.rows_leaf is not None for c in codecs.values())
-    expected = {"qsgd_quantize": 0, "qsgd_encode_rows": qsgd_leaves}
+    expected = _launches(0, qsgd_leaves, _bloom_counts(codecs.values(), 1, 0))
     _check(launches == expected, f"table 6: kernel launches {launches}, expected {expected}")
     per_leaf, total, dense = {}, 0.0, 0.0
     for n in sorted(fresh):
@@ -2222,7 +2361,8 @@ def phase_models(seed: int, group, profile: bool = False) -> dict:
                 state, losses, dev_ms, host_ms, wire, syncs = _run_steps(trainer, state, lambda i: batches[i], MODEL14_STEPS)
             launches = launch_counts()
             peak = torch.cuda.max_memory_allocated()
-            expected = {"qsgd_quantize": 0, "qsgd_encode_rows": per_step * MODEL14_STEPS}
+            expected = _launches(0, per_step * MODEL14_STEPS,
+                                 _bloom_counts(ex.codecs.values(), MODEL14_STEPS, MODEL14_STEPS))
             _check(launches == expected, f"{arm}: kernel launches {launches}, expected {expected}")
             _check(all(math.isfinite(l) for l in losses), f"{arm}: non-finite loss {losses}")
             _check(all(bool(torch.isfinite(p).all()) for p in state.params.values()), f"{arm}: non-finite parameters")
@@ -2381,7 +2521,7 @@ def _host_arm(arm: str, knobs: dict, payload: int, per_step: int, copies: int, s
     steps = 1 if arm == HOST15_P2 else HOST15_STEPS
     state, losses, dev_ms, host_ms, wire, sync_calls = _run_steps(trainer, state, batch, steps)
     launches = launch_counts()
-    expected = {"qsgd_quantize": 0, "qsgd_encode_rows": per_step * steps}
+    expected = _launches(0, per_step * steps, _bloom_counts(ex.codecs.values(), steps, steps))
     _check(launches == expected, f"{arm}: kernel launches {launches}, expected {expected}")
     _check_trained(state, losses, ref_loss, arm)
     sites = sorted({m for x in sync_calls for m in x})
@@ -2630,6 +2770,74 @@ def _time_encode(ex, launches: int, max_err: float) -> dict:
     }
 
 
+def _time_bloom(ex, errs: dict) -> list:
+    """The three bloom kernels at the main path's mod-p0 leaves: device ms a
+    call at the largest leaf (the memsets the wrapper issues included) and
+    summed over a step's leaves, beside the plain version's at the largest
+    leaf and the bound there: the larger of the bytes at HBM rate (the
+    filter words, the gathered values and, for the placement, the dense
+    tensor written) and the hashing's integer operations."""
+    from deepreduce_tpu_torch.codecs import bloom
+    from deepreduce_tpu_torch.ops import bloom_mod
+
+    leaves = _bloom_inputs(ex, seed=23)
+    staged = [(leaf, _bloom_stages(*leaf)) for leaf in leaves]
+    calls = {
+        "bloom_mod_insert": lambda leaf, st: bloom_mod.insert(leaf[2], leaf[3], leaf[0]),
+        "bloom_mod_select": lambda leaf, st: bloom_mod.select_gather(st[0], leaf[1], leaf[0]),
+        "bloom_mod_place": lambda leaf, st: bloom_mod.place(st[0], st[1], st[2], leaf[0]),
+    }
+    plains = {
+        "bloom_mod_insert": lambda leaf, st: bloom.insert(leaf[2], leaf[3], leaf[0]),
+        "bloom_mod_select": lambda leaf, st: bloom._fp_aware_payload(st[0], leaf[1], leaf[0]),
+        "bloom_mod_place": lambda leaf, st: bloom.decode_dense(bloom.BloomPayload(values=st[1], words=st[0], nsel=st[2]),
+                                                              leaf[0], (leaf[0].d,)),
+    }
+    largest = max(staged, key=lambda x: x[0][0].d)
+    meta, flat = largest[0][0], largest[0][1]
+    elem, W, k, d, budget = flat.element_size(), meta.n_words, meta.k, meta.d, meta.budget
+    idx_bytes = largest[0][2].element_size()
+    work = {  # (bytes, integer operations) of one call at the largest leaf
+        "bloom_mod_insert": (k * idx_bytes + 2 * 4 * W, BLOOM_INT_OPS_PER_INDEX * k),
+        "bloom_mod_select": (4 * W + 2 * elem * budget, BLOOM_INT_OPS_PER_INDEX * d),
+        "bloom_mod_place": (4 * W + elem * budget + elem * d, BLOOM_INT_OPS_PER_INDEX * d),
+    }
+    entries = []
+    for name, call in calls.items():
+        ms, launches = _device_ms(lambda: call(*largest), 20)
+        step_ms, step_launches = _device_ms(lambda: [call(*x) for x in staged], 5)
+
+        def plain(name=name):
+            with _torch_bloom():
+                plains[name](*largest)
+
+        plain_ms, plain_launches = _device_ms(plain, 5)
+        _check(ms > 0 and plain_ms > 0 and step_ms > 0, f"{name}: the profiler saw no device time")
+        nbytes, ops = work[name]
+        bytes_bound, ops_bound = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+        detail = {"largest_leaf": {"d": d, "k": k, "W": W, "h": meta.num_hash, "budget": budget},
+                  "device_launches_per_call": launches, "step_leaves": len(staged), "step_ms": step_ms,
+                  "step_device_launches": step_launches, "host_ms": _host_ms(lambda: call(*largest), 200),
+                  "plain_launches": plain_launches, "plain_host_ms": _host_ms(plain, 5), "bytes": nbytes,
+                  "int_ops": ops}
+        print(f"phase 6 ok: {name} " + json.dumps(detail), flush=True)
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "deepreduce_tpu_torch/ops/csrc/bloom_mod.cu",
+            "replaces": None,  # no Pallas kernel: XLA fusions of deepreduce_tpu/codecs/bloom.py on the TPU
+            "launches": 0,
+            "max_abs_err": errs[name],
+            "ms": ms,  # one call at the main path's largest mod-p0 leaf
+            "step_ms": step_ms,  # one call at each of a step's leaves
+            "plain_ms": plain_ms,
+            "bound_ms": max(bytes_bound, ops_bound) * 1e3,
+            "bound_by": "bytes" if bytes_bound >= ops_bound else "operations",
+            "library_ms": None,  # no single PyTorch call computes this function
+        })
+    return entries
+
+
 def compare_encode(old_source: str, seed: int) -> None:
     """The sweep of this checkout's kernel and of an earlier source of
     csrc/qsgd_encode.cu (built beside it), in turns old, new, new, old in
@@ -2810,13 +3018,15 @@ def _inproc_exchange16(seed: int) -> dict:
     gen = torch.Generator().manual_seed(seed + 16)
     grads = [{n: torch.randn(s, generator=gen) * 1e-2 for n, s in shapes.items()} for _ in range(W16)]
     res = [{n: torch.randn(s, generator=gen) * 1e-3 for n, s in shapes.items()} for _ in range(W16)]
-    out = {}
+    out, codecs = {}, []
     for key, dev, knobs in (("loop/cuda", "cuda", {}), ("loop/cpu", "cpu", {}),
                             ("vmap/cuda", "cuda", STRATEGIES16["vmap"]), ("ring/cuda", "cuda", STRATEGIES16["ring"])):
         cfg = _flagship_cfg(seed, **INPROC16, **knobs)
 
         def work(coll, g, r, dev=dev, cfg=cfg):
             ex = GradientExchanger(shapes, cfg, device=dev, group=coll)
+            if coll.rank == 0:
+                codecs[:] = ex.codecs.values()
             mask = participation_mask(W16, 1, cfg.seed, fault_plan=cfg.fault_plan, device=dev)
             collect = {}
             agg, new_r, _ = ex.exchange({n: t.to(dev) for n, t in g.items()}, {n: t.to(dev) for n, t in r.items()},
@@ -2828,7 +3038,9 @@ def _inproc_exchange16(seed: int) -> dict:
         out[key] = InProcessGroup(W16).run(work, grads, res)
         if dev == "cuda":
             torch.cuda.synchronize()
-            _check(launch_counts()["qsgd_encode_rows"] == W16, f"{key}: launches {launch_counts()}")
+            # each worker encodes once and decodes the W rows (the ring: its own, then W - 1 hops)
+            expected = _launches(0, W16, _bloom_counts(codecs, W16, W16 * W16))
+            _check(launch_counts() == expected, f"{key}: launches {launch_counts()}, expected {expected}")
     fails, ring_err, ring_bound = [], 0.0, 0.0
     for w in range(W16):
         ref = out["loop/cpu"][w]
@@ -2905,7 +3117,8 @@ def _inproc16(seed: int, tokens) -> dict:
                 torch.cuda.set_sync_debug_mode("default")
         syncs = sorted({f"{w.filename}:{w.lineno}" for w in caught if "called a synchronizing" in str(w.message)})
         launches = launch_counts()
-        expected = {"qsgd_quantize": 0, "qsgd_encode_rows": W16 * INPROC16_STEPS}
+        steps = W16 * INPROC16_STEPS  # worker-steps, each decoding the W rows
+        expected = _launches(0, steps, _bloom_counts(trainers[0].exchanger.codecs.values(), steps, steps * W16))
         _check(launches == expected, f"inproc_{name}: kernel launches {launches}, expected {expected}")
         _check(not syncs, f"inproc_{name}: host syncs at {syncs}")
         state0, steps0, payload, wire = outs[0]
@@ -2977,8 +3190,10 @@ def phase_resilience(seed: int, tokens, group, ref_loss: float):
         state, out = _steps16(trainer, state, batches, ARM_STEPS, spy=spy)
         launches = launch_counts()
         qsgd = cfg.communicator == "allgather"
-        expected = {"qsgd_quantize": ARM_STEPS if cfg.rs_mode == "quantized" else 0,
-                    "qsgd_encode_rows": ARM_STEPS if qsgd else 0}
+        # the unfused exchange decodes the gathered row and its own payload apart
+        decodes = ARM_STEPS * (2 if not cfg.fused else 1)
+        expected = _launches(ARM_STEPS if cfg.rs_mode == "quantized" else 0, ARM_STEPS if qsgd else 0,
+                             _bloom_counts(ex.codecs.values(), ARM_STEPS, decodes))
         _check(launches == expected, f"{arm}: kernel launches {launches}, expected {expected}")
         _check_trained(state, out["losses"], ref_loss, arm)
         _check(not any(out["syncs"]), f"{arm}: host syncs in the step: {out['syncs']}")
@@ -3199,7 +3414,9 @@ def _phase17_w1(seed: int, tokens, group, ref_loss: float) -> dict:
         reset_launch_counts()
         state, out = _steps16(trainer, state, batches, ARM_STEPS)
         launches = launch_counts()
-        expected = {"qsgd_quantize": 0, "qsgd_encode_rows": ARM_STEPS if arm == "hier_w1" else 0}
+        # a hierarchical exchanger's codecs are its DCN leg's
+        codecs = getattr(ex, "exchanger", ex).codecs.values()
+        expected = _launches(0, ARM_STEPS if arm == "hier_w1" else 0, _bloom_counts(codecs, ARM_STEPS, ARM_STEPS))
         _check(launches == expected, f"{arm}: kernel launches {launches}, expected {expected}")
         _check_trained(state, out["losses"], ref_loss, arm)
         _check(ex.payload_bytes() == PAYLOAD17[arm], f"{arm}: payload_bytes {ex.payload_bytes()}, "
@@ -3380,7 +3597,10 @@ def _phase17_grid(seed: int, tokens) -> dict:
         outs, syncs = _grid_steps(grid, trainers, states, tokens, ARM_STEPS)
         wall = (time.perf_counter() - t0) * 1e3
         launches = launch_counts()
-        expected = {"qsgd_quantize": per_quantize * W * ARM_STEPS, "qsgd_encode_rows": per_encode * W * ARM_STEPS}
+        # a worker-step encodes once and decodes the S rows of its DCN leg
+        codecs = getattr(ex, "exchanger", ex).codecs.values()  # the DCN leg's
+        expected = _launches(per_quantize * W * ARM_STEPS, per_encode * W * ARM_STEPS,
+                             _bloom_counts(codecs, W * ARM_STEPS, W * ARM_STEPS * S))
         _check(launches == expected, f"{arm}: kernel launches {launches}, expected {expected}")
         _check(not syncs, f"{arm}: host syncs at {syncs}")
         _check((ex.payload_bytes(), ex.ici_payload_bytes()) == (dcn_bytes, ici_bytes),
@@ -3659,7 +3879,8 @@ def _fed_linear(arm: str, spec: dict, seed: int, group) -> dict:
            f"{spec['ticks']} ticks, expected one a tick")
     _check(reduces["all_reduce_bytes"] == spec["ticks"] * law, f"{arm}: all_reduce bytes {reduces} against the law "
            f"{law} a tick")
-    _check(launches["qsgd_encode_rows"] == 0 and launches["qsgd_quantize"] == 0, f"{arm}: kernel launches {launches}")
+    expected = _launches(0, 0, *_fed_bloom(sim, masks))
+    _check(launches == expected, f"{arm}: kernel launches {launches}, expected {expected}")
     _check(all(bool(torch.isfinite(p).all()) for p in state.params.values()), f"{arm}: non-finite parameters")
     fails = float(sum(m["checksum_failures"].sum() for m in mets))
     _check(fails > 0, f"{arm}: no checksum failure caught under chaos")
@@ -3936,6 +4157,8 @@ def _fed_mobilenet_arm(seed: int, group) -> dict:
         want = rounds * (-(-segs_s2c // MAX_SEGMENTS) + blocks * per_block)
         _check(launches["qsgd_encode_rows"] == want, f"mobilenet {impl}: qsgd_encode_rows {launches}, the packing "
                f"gives {want}")
+        expected = _launches(0, want, *_fed_bloom(sim, [None] * rounds))
+        _check(launches == expected, f"mobilenet {impl}: kernel launches {launches}, expected {expected}")
         n = n_params
         _check(reduces == {"all_reduce": rounds, "all_reduce_bytes": rounds * 4 * (n + 6)},
                f"mobilenet {impl}: all_reduce {reduces}")
@@ -4164,10 +4387,10 @@ def _telemetry_flagship(seed: int, tokens, group, phase5: dict) -> dict:
     tok = tokens.cuda()
     batches = lambda i: (tok[i, :, :-1], tok[i, :, 1:])  # noqa: E731
     steps = TELE19_STEPS
-    expected = {"qsgd_quantize": 0, "qsgd_encode_rows": steps}
 
     off = Trainer(WordLSTM(seed=seed), _flagship_cfg(seed), lr=0.1, momentum=0.9, device="cuda", group=group)
     st_off = off.init_state()
+    expected = _launches(0, steps, _bloom_counts(off.exchanger.codecs.values(), steps, steps))
     torch.cuda.synchronize()
     reset_launch_counts()
     st_off, losses_off, dev_off, _, _, syncs_off = _run_steps(off, st_off, batches, steps)
@@ -4343,7 +4566,9 @@ def _ctrl_flagship(seed: int, tokens, group, err_cos: float, root: str) -> dict:
     run.finish({"telemetry": trainer.telemetry_summary(), "steps": steps})
     final = {n: p.detach().clone() for n, p in st.params.items()}
 
-    _check(launches == {"qsgd_quantize": 0, "qsgd_encode_rows": steps}, f"ctrl: launches {launches}")
+    # every rung compresses the same leaves
+    expected = _launches(0, steps, _bloom_counts(trainer.exchanger.codecs.values(), steps, steps))
+    _check(launches == expected, f"ctrl: launches {launches}, expected {expected}")
     _check(per_step == [1] * steps, f"ctrl: qsgd_encode_rows launches a step {per_step}")
     boundary = [i for i in range(steps) if i and i % TELE19_EVERY == 0]
     _check(not any(syncs[i] for i in range(steps) if i not in boundary),
@@ -4488,6 +4713,8 @@ def _fedsim_telemetry_arm(arm: str, spec: dict, seed: int, group) -> dict:
     K = sim.pop.num_classes if sim.pop is not None else 0
     law = _fed_law(cfg, g["dim"] + 1, D, K, T)
     _check(not any(syncs), f"{arm}: host syncs in a telemetry tick: {syncs}")
+    expected = _launches(0, 0, *_fed_bloom(sim, masks))
+    _check(launches == expected, f"{arm}: kernel launches {launches}, expected {expected}")
     _check(reduces["all_reduce"] == FED19_TICKS and reduces["all_reduce_bytes"] == FED19_TICKS * law,
            f"{arm}: all_reduce {reduces}, law {law} a tick")
     C = fed.clients_per_round
@@ -4709,7 +4936,7 @@ def _sp4_arm(mode: str, seed: int, tokens, plain: dict) -> dict:
     errs = _against20(logits, loss, grads, twin, f"bert_{mode}_sp4 against the local twin")
     plain_errs = errs if mode == "ulysses" else _against20(logits, loss, grads, plain,
                                                            f"bert_{mode}_sp4 against the plain reference")
-    _check(launches == {"qsgd_quantize": 0, "qsgd_encode_rows": 0}, f"bert_{mode}_sp4: launches {launches}")
+    _check(launches == _launches(), f"bert_{mode}_sp4: launches {launches}")
     return {"workers": SP20, "tokens": list(tokens.shape), "chunk": c, "causal": True, "loss": float(loss),
             "twin_loss": float(twin["loss"]), **errs, "plain_loss": float(plain["loss"]),
             **{f"plain_{k}": v for k, v in plain_errs.items()},
@@ -4743,7 +4970,7 @@ def _tp2_arm(seed: int, tokens) -> dict:
             {n: p.grad for n, p in m.flax_params().items()}, want, f"bert_tp2 rank {r}").items()})
     _check(logits_err <= TWIN20_REL and loss_err <= TWIN20_REL, f"bert_tp2: logits {logits_err:.3g}, loss "
            f"{loss_err:.3g} off the single-device model")
-    _check(launches == {"qsgd_quantize": 0, "qsgd_encode_rows": 0}, f"bert_tp2: launches {launches}")
+    _check(launches == _launches(), f"bert_tp2: launches {launches}")
     sharded = sorted({n for n, sp in specs.items() if any(a is not None for a in sp)})
     return {"workers": TP20, "tokens": list(tokens.shape), "sharded_leaves": len(sharded),
             "loss": float(outs[0][1]), "twin_loss": float(twin["loss"]), "logits_rel_err": logits_err,
@@ -4815,7 +5042,7 @@ def _dp_sp_arm(seed: int) -> dict:
                 _check(torch.equal(steps[r].params[n], p), f"bert_dp2_sp2_ring step {i}: worker {r}'s {n} differs")
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    expected = {"qsgd_quantize": 0, "qsgd_encode_rows": ENCODE20 * D * S * DP_SP20_STEPS}
+    expected = _launches(0, ENCODE20 * D * S * DP_SP20_STEPS)  # the integer index: no bloom kernel
     _check(launches == expected, f"bert_dp2_sp2_ring: launches {launches}, expected {expected}")
     _check(all(math.isfinite(l) for l in losses), f"bert_dp2_sp2_ring: losses {losses}")
     _check(all(0 < v < 1 for v in vols), f"bert_dp2_sp2_ring: rel_volume {vols}")
@@ -4887,6 +5114,19 @@ DRIVER21 = {  # arm: (model, grace config, steps, launches a step {kernel: n}, p
 RESUME21 = (4, 6, 2)  # killed after 4 steps (checkpoint every 2), resumed to 6
 RESUME21_RTOL = 1e-6
 STREAM21_STEPS = 6  # calibrate fits from >= 4 step times after its one-step warm-up drop
+
+
+def _lstm_bloom(seed: int, steps: int, **knobs) -> dict:
+    """The bloom kernels' launches of `steps` one-worker steps of the
+    full-width WordLSTM under the flagship's knobs and `knobs` (the driver's
+    'lstm' runs): each mod-p0 unit encoded and decoded once a step, from the
+    codec geometry (no card work)."""
+    from deepreduce_tpu_torch import GradientExchanger
+    from deepreduce_tpu_torch.models import WordLSTM
+
+    shapes = {n: tuple(p.shape) for n, p in WordLSTM(embed_dim=96, hidden_dim=670).flax_params().items()}
+    ex = GradientExchanger(shapes, _flagship_cfg(seed, **knobs), device="cpu")
+    return _bloom_counts(ex.codecs.values(), steps, steps)
 
 
 def _driver_args(model: str, grace: str, steps: int, **kw):
@@ -5007,7 +5247,8 @@ def _driver_arm(arm: str, seed: int, root: str, phase5: dict) -> dict:
                         track_dir=os.path.join(root, "track") if track else "", run_name=arm)
     out = _driver_run_counted(args, spy_kernels=True)
     res, launches = out["result"], out["launches"]
-    expected = {k: n * steps for k, n in per_step.items()}
+    bloom = _lstm_bloom(seed, steps) if arm == "driver_flagship" else {}  # the quick start's bloom is classic
+    expected = _launches(per_step["qsgd_quantize"] * steps, per_step["qsgd_encode_rows"] * steps, bloom)
     _check(launches == expected, f"{arm}: kernel launches {launches}, expected {expected}")
     _check(len(out["step_syncs"]) == steps and not any(out["step_syncs"][1:]),
            f"{arm}: host syncs in steps 2-{steps}: {out['step_syncs']}")
@@ -5058,12 +5299,12 @@ def _driver_resume(seed: int, root: str) -> dict:
     diff = abs(a["last_loss"] - b["last_loss"])
     _check(diff <= RESUME21_RTOL * abs(b["last_loss"]), f"resume: last loss {a['last_loss']} vs {b['last_loss']}")
     _check(a["telemetry"]["steps"] == float(total), f"resume: telemetry steps {a['telemetry']['steps']}")
-    # one qsgd_encode_rows launch a step in the uninterrupted run and in the
-    # killed and resumed runs together
-    for what, n in (("uninterrupted", full["launches"]["qsgd_encode_rows"]),
-                    ("killed + resumed", killed["launches"]["qsgd_encode_rows"]
-                     + resumed["launches"]["qsgd_encode_rows"])):
-        _check(n == total, f"resume: {what} run launched qsgd_encode_rows {n} times, expected {total}")
+    # one qsgd_encode_rows launch and each bloom leaf's three a step in the
+    # uninterrupted run and in the killed and resumed runs together
+    expected = _launches(0, total, _lstm_bloom(seed, total))
+    for what, n in (("uninterrupted", full["launches"]),
+                    ("killed + resumed", {k: killed["launches"][k] + resumed["launches"][k] for k in expected})):
+        _check(n == expected, f"resume: {what} run launched {n}, expected {expected}")
     launches = {k: full["launches"][k] + killed["launches"][k] + resumed["launches"][k] for k in full["launches"]}
     return {"last_loss_resumed": a["last_loss"], "last_loss_uninterrupted": b["last_loss"], "abs_diff": diff,
             "rel_diff": diff / abs(b["last_loss"]), "launches": launches,
@@ -5084,7 +5325,8 @@ def _driver_stream(seed: int, root: str) -> dict:
     t0 = time.perf_counter()
     barrier = _driver_run_counted(_driver_args("lstm", STREAM21 + ",'bucket_pipeline':False}", STREAM21_STEPS,
                                                seed=seed, telemetry=True, track_dir=track, run_name="barrier"))
-    expected = {"qsgd_encode_rows": STREAM21_STEPS, "qsgd_quantize": 0}
+    expected = _launches(0, STREAM21_STEPS, _lstm_bloom(seed, STREAM21_STEPS, bucket_bytes=BUCKET_BYTES,
+                                                       bucket_order="reverse"))
     _check(barrier["launches"] == expected, f"driver_barrier: launches {barrier['launches']}, expected {expected}")
     _check(not any(barrier["step_syncs"][1:]), f"driver_barrier: host syncs in steps 2-: {barrier['step_syncs']}")
     barrier_s = time.perf_counter() - t0
@@ -5164,11 +5406,30 @@ def phase_driver(seed: int, phase5: dict) -> dict:
 # law: qsgd_quantize twice a worker-step on a qar leg, qsgd_encode_rows once
 # an encode of a QSGD codec unit
 ANALYSIS22_AUDIT_STEPS = 2
+
+
+def _bloom22(units: int, workers: int, rows: int) -> dict:
+    """The bloom kernels' law of an audit trace: each of `workers` encodes
+    its `units` mod-leftmost bloom units a step (insert, select) and decodes
+    each unit's `rows` gathered rows (placement)."""
+    n = ANALYSIS22_AUDIT_STEPS * workers * units
+    return dict(zip(BLOOM_KERNELS, (n, n, n * rows)))
+
+
+# ... and the bloom kernels: a codec unit (one leaf) encodes and decodes once a
+# step; the exchanges' 8 workers decode the 8 rows of each unit (the bucketed
+# exchange's 3 bucket units), the two-tier harness's (2, 4) grid the 2
+# slices' rows of its DCN leg
 ANALYSIS22_LAUNCHES = {
+    "codec:bloom-mod": _bloom22(1, 1, 1),
+    "exchange:fused-loop": _bloom22(1, 8, 8),
+    "exchange:bucketed-loop": _bloom22(3, 8, 8),
+    "exchange:fused-vmap": _bloom22(1, 8, 8),
+    "exchange:fused-ring": _bloom22(1, 8, 8),
     "exchange:qar": {"qsgd_quantize": ANALYSIS22_AUDIT_STEPS * 8 * 2},
-    "hier:qar-ici": {"qsgd_quantize": ANALYSIS22_AUDIT_STEPS * 8 * 2},
+    "hier:qar-ici": {"qsgd_quantize": ANALYSIS22_AUDIT_STEPS * 8 * 2, **_bloom22(1, 8, 2)},
     "codec:qsgd": {"qsgd_encode_rows": 2},
-    "codec:both-modbloom-qsgd": {"qsgd_encode_rows": 2},
+    "codec:both-modbloom-qsgd": {"qsgd_encode_rows": 2, **_bloom22(1, 1, 1)},
 }
 ANALYSIS22_STEPS = 3  # full-width flagship steps under the recorder and the census
 
@@ -5196,7 +5457,7 @@ def _audit22() -> dict:
         recs = thunk()
         torch.cuda.synchronize()
         launches = launch_counts()
-        want = {"qsgd_encode_rows": 0, "qsgd_quantize": 0, **ANALYSIS22_LAUNCHES.get(label, {})}
+        want = _launches(0, 0, ANALYSIS22_LAUNCHES.get(label, {}))
         _check(launches == want, f"phase 22 {label}: launches {launches}, the law {want}")
         for r in recs:
             # jx-callback: a host sync on the card or a host read in the
@@ -5270,7 +5531,8 @@ def _flagship22(seed: int, tokens, group) -> dict:
                       "ops": len(ops), "f64_ops": sum(o.f64 for o in ops), "selections": census.selections(ops),
                       "census": census.census_hash(ops)})
     launches = launch_counts()
-    want = {"qsgd_encode_rows": ANALYSIS22_STEPS, "qsgd_quantize": 0}
+    want = _launches(0, ANALYSIS22_STEPS, _bloom_counts(trainer.exchanger.codecs.values(), ANALYSIS22_STEPS,
+                                                         ANALYSIS22_STEPS))
     _check(launches == want, f"phase 22 flagship launches {launches}, expected {want}")
     run = audit.Run(tuple(range(ANALYSIS22_STEPS)), tapes, [[None]] * ANALYSIS22_STEPS, payload, 1, [], syncs=syncs)
     ctx = AuditContext(label="flagship", expect_collectives={"all_gather": 1, "psum": 2}, wire_mode="allgather",
@@ -5313,7 +5575,7 @@ def phase_analysis(seed: int, tokens, group) -> dict:
         lap(f"mem {label}")
     print("phase 22 ok: mem " + json.dumps(mem), flush=True)
     print("phase 22 laps " + json.dumps(laps), flush=True)
-    total = {"qsgd_encode_rows": 0, "qsgd_quantize": 0}
+    total = _launches()
     for row in audit22.values():
         for k, n in row.get("launches", {}).items():
             total[k] += n
@@ -5321,12 +5583,13 @@ def phase_analysis(seed: int, tokens, group) -> dict:
     return {"analysis22_flagship": {"launches": flag["launches"]}, "analysis22_audit": {"launches": total}}
 
 
-def phase_timing(encode: dict, errs: dict, by_arm: dict, quantize: dict) -> None:
+def phase_timing(encode: dict, errs: dict, by_arm: dict, quantize: dict, bloom: list) -> None:
     # each path's run, counted from 0 just before it (phases 5 and 7-21)
     total = lambda name: sum(counts[name] for counts in by_arm.values())
     kernels = [
         _quantize_entry(quantize, total("qsgd_quantize"), errs["qsgd_quantize"]),
         dict(encode, launches=total("qsgd_encode_rows")),
+        *(dict(entry, launches=total(entry["name"])) for entry in bloom),
     ]
     for k in kernels:
         k["launches_by_arm"] = {arm: counts[k["name"]] for arm, counts in by_arm.items()}
@@ -5384,6 +5647,7 @@ def main(argv=None) -> int:
     # after the in-process phases the profiler drops kernel records (after
     # phase 17's grid and phases 12-13 it once saw none of a 200-launch window)
     encode = _time_encode(ex, 0, errs["qsgd_encode_rows"])
+    bloom_times = _time_bloom(ex, errs)
     lap("codec, 6 encode")
     import torch.distributed as dist
 
@@ -5434,7 +5698,7 @@ def main(argv=None) -> int:
     for phase in (arms, resnet, in_coll, bucketed, zoo, models14, fed, table6, host15, resil16, two_tier17, fedsim18,
                   tele19, seq20, driver21, analysis22):
         by_arm.update({a: r["launches"] for a, r in phase.items()})
-    phase_timing(encode, errs, by_arm, quantize)
+    phase_timing(encode, errs, by_arm, quantize, bloom_times)
     lap("timing")
     print("phase times " + json.dumps(laps), flush=True)
     print(f"chip_smoke total {time.perf_counter() - t0:.1f} s", flush=True)

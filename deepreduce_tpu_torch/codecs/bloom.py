@@ -34,6 +34,12 @@ a strided sample and runs no top-k at all. Where the JAX package branches
 on the device (`lax.cond` on t > 0), the port reads the predicate on the
 host (`sparse.host_branch`).
 
+On the card the mod layout under a prefix policy runs as three CUDA
+kernels (`ops.bloom_mod`): `insert`, the FP-aware query-and-gather and the
+decoder's placement, each one launch a leaf where the torch code below is
+some hundreds. `_on_kernel` is the one place that chooses them; the torch
+code runs everywhere else, and the kernels equal it bit for bit.
+
 The hashes are wrapping uint32 arithmetic, done here in int64 with
 masking (`u32`); filter words, `nsel` and positions are bitwise equal to
 the JAX package's, and so are the random policies' selections given the
@@ -53,6 +59,7 @@ import torch
 
 from deepreduce_tpu_torch import sparse as _sparse
 from deepreduce_tpu_torch import u32
+from deepreduce_tpu_torch.ops import bloom_mod
 from deepreduce_tpu_torch.ops.qsgd_kernel import philox_uniforms_plain
 from deepreduce_tpu_torch.sparse import SparseGrad, _prefix_positions
 
@@ -267,17 +274,26 @@ def _pack_bits(bits: torch.Tensor, n_words: int) -> torch.Tensor:
     return u32.to_bits((bits[: n_words * 32].view(n_words, 32) << shifts).sum(dim=1))
 
 
+def _on_kernel(meta: BloomMeta, t: torch.Tensor) -> bool:
+    """Whether `ops.bloom_mod`'s kernels run the stage: the mod layout under
+    a prefix policy, with the tensors on the card."""
+    return t.is_cuda and meta.blocked == "mod" and meta.policy in bloom_mod.PREFIX_POLICIES
+
+
 def insert(indices: torch.Tensor, nnz: torch.Tensor, meta: BloomMeta) -> torch.Tensor:
     """Filter words (int32 bit patterns) from the live indices.
 
     Mod layout: word w is the OR of the lane masks of the indices
     j = w mod W; every (index, lane) pair sets one bit of a [W, 32] bitmap,
-    and dead slots set a parked bit past the end.
+    and dead slots set a parked bit past the end (`bloom_mod.insert` on the
+    card under a prefix policy).
     Classic layout: every (index, hash) pair sets bit
     `hash_positions(j)` of an m-bit bitmap; hash layout: every (index, lane)
     pair sets bit `lane` of word `block(j)`. In both, dead slots re-point at
     the first index, as in the JAX package (a duplicate insert is a
     no-op)."""
+    if _on_kernel(meta, indices):
+        return bloom_mod.insert(indices, nnz, meta)
     dev = indices.device
     n_words = meta.n_words
     live = torch.arange(indices.shape[0], device=dev) < nnz
@@ -465,7 +481,11 @@ def select(
 
 def _fp_aware_payload(words: torch.Tensor, flat: torch.Tensor, meta: BloomMeta) -> BloomPayload:
     """Query the universe, take the first `budget` positives and re-read the
-    true dense values there (one ascending gather)."""
+    true dense values there (one ascending gather; `bloom_mod.select_gather`
+    on the card in the mod layout)."""
+    if _on_kernel(meta, flat):
+        values, nsel = bloom_mod.select_gather(words, flat, meta)
+        return BloomPayload(values=values, words=words, nsel=nsel)
     mask = query_universe(words, meta)
     pos, nsel = _prefix_positions(mask, meta.budget)
     live = torch.arange(meta.budget, device=flat.device) < nsel
@@ -559,7 +579,8 @@ def decode_dense(
     uniforms: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Rank-inversion decode straight to the dense tensor: value slot s goes
-    to universe position `_prefix_positions(mask)[s]` for s < nsel.
+    to universe position `_prefix_positions(mask)[s]` for s < nsel
+    (`bloom_mod.place` on the card in the mod layout).
     `values` overrides the payload's values ('both' mode passes the value
     codec's output, already in rank order). The random policies decode the
     list form (`decode`) with `values` substituted slot for slot."""
@@ -569,6 +590,8 @@ def decode_dense(
             sp = dataclasses.replace(sp, values=values)
         return sp.to_dense()
     vals = payload.values if values is None else values
+    if _on_kernel(meta, vals):
+        return bloom_mod.place(payload.words, vals, payload.nsel, meta).reshape(shape)
     n_v = vals.shape[0]
     vals = _sparse.fit_length(vals, meta.budget)
     mask = query_universe(payload.words, meta)

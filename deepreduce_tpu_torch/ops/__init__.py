@@ -2,6 +2,7 @@
 
 from typing import Dict
 
+from deepreduce_tpu_torch.ops import bloom_mod
 from deepreduce_tpu_torch.ops.qsgd_encode import (
     EncodeSegment,
     bucket_norms_ordered,
@@ -18,7 +19,13 @@ from deepreduce_tpu_torch.ops.qsgd_kernel import (
 )
 
 # kernel name -> its wrapper (each wrapper counts its own launches)
-KERNELS = {"qsgd_quantize": quantize_levels, "qsgd_encode_rows": qsgd_encode_rows}
+KERNELS = {
+    "qsgd_quantize": quantize_levels,
+    "qsgd_encode_rows": qsgd_encode_rows,
+    "bloom_mod_insert": bloom_mod.insert,
+    "bloom_mod_select": bloom_mod.select_gather,
+    "bloom_mod_place": bloom_mod.place,
+}
 
 
 def reset_launch_counts() -> None:

@@ -33,6 +33,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES: Dict[str, str] = {
     "qsgd_quantize": "qsgd_quantize.cu",
     "qsgd_encode": "qsgd_encode.cu",
+    "bloom_mod": "bloom_mod.cu",
 }
 # host library name -> source file (C++, built by g++)
 HOST_SOURCES: Dict[str, Path] = {

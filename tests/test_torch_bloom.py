@@ -12,8 +12,10 @@ import torch
 from deepreduce_tpu.codecs import bloom as jbloom
 from deepreduce_tpu.sparse import SparseGrad as JSparseGrad
 from deepreduce_tpu.sparse import _prefix_positions as j_prefix_positions
+from deepreduce_tpu_torch import ops as tops
 from deepreduce_tpu_torch import u32
 from deepreduce_tpu_torch.codecs import bloom as tbloom
+from deepreduce_tpu_torch.ops import bloom_mod
 from deepreduce_tpu_torch.sparse import SparseGrad, _prefix_positions, topk
 
 
@@ -243,3 +245,154 @@ def test_measured_fpr_and_fp_stats_match_jax(blocked):
     fp, universe = tbloom.fp_stats(tp, tm)
     jfp, juni = jax.jit(JBloomCodec(k, d, dict(fpr=0.05, policy="p0", bloom_blocked=blocked)).fp_stats)(jp)
     assert (float(fp), float(universe)) == (float(jfp), float(juni))
+
+
+# -- the mod layout under a prefix policy: the torch code the card's kernels
+# (ops/bloom_mod.py) equal, and the rule that chooses them ------------------ #
+
+
+def _mod_meta(d, k, n_words, h, budget, policy="p0"):
+    return tbloom.BloomMeta(d=d, k=k, m_bits=32 * n_words, num_hash=h, fpr=0.01, policy=policy, budget=budget,
+                            blocked="mod")
+
+
+def _spec_hits(words, meta):
+    """The universe positives by the kernels' definition, in numpy: j < d
+    with (words[j mod W] & lane_mask(j)) == lane_mask(j)."""
+    j = np.arange(meta.d)
+    m = tbloom.lane_mask(torch.from_numpy(j), meta.num_hash).numpy()
+    w = words.numpy().view(np.uint32).astype(np.int64)[j % meta.n_words]
+    return np.nonzero((w & m) == m)[0]
+
+
+# (d, k, W, h, nnz cut, budget: "under" the hits, "exact", "over" them)
+EDGE = [
+    (1001, 60, 47, 5, 7, "over"),     # d = 1,001, not a multiple of W; nnz < k; fewer hits than budget
+    (1001, 60, 47, 9, 0, "exact"),    # h > 6: two mixes; exactly `budget` hits
+    (1001, 80, 23, 3, 0, "under"),    # more hits than budget
+    (4099, 120, 101, 12, 31, "over"),
+    (777, 1, 1, 1, 0, "under"),       # one word
+]
+
+
+def _edge_case(d, k, n_words, h, cut, mode, seed):
+    rng = np.random.default_rng(seed)
+    idx = np.sort(rng.choice(d, size=k, replace=False)).astype(np.int32)
+    nnz = k - cut
+    # the insert's words under a wide budget give the hit count the budget is set from
+    meta = _mod_meta(d, k, n_words, h, d)
+    words = tbloom.insert(torch.from_numpy(idx), torch.tensor(nnz, dtype=torch.int32), meta)
+    hits = _spec_hits(words, meta).shape[0]
+    budget = {"over": min(d, hits + 13), "exact": hits, "under": max(1, hits - 9)}[mode]
+    flat = torch.from_numpy(rng.normal(size=d).astype(np.float32))
+    return idx, nnz, _mod_meta(d, k, n_words, h, budget), words, flat
+
+
+def _bloom_launches():
+    return {name: n for name, n in tops.launch_counts().items() if name.startswith("bloom_mod")}
+
+
+@pytest.mark.parametrize("d,k,n_words,h,cut,mode", EDGE)
+def test_bloom_mod_plain_entry_points_match_the_composition(d, k, n_words, h, cut, mode):
+    """The three stages the card's kernels take over, as the codec runs them
+    on CPU tensors (`insert`, `_fp_aware_payload`, `decode_dense`): bitwise
+    the numpy spec the kernels implement (the OR of live lane masks; values
+    at the first `budget` positives; the rank inversion bounded by
+    min(nsel, budget, len(vals))), and no kernel launch counted."""
+    before = _bloom_launches()
+    idx, nnz, meta, words, flat = _edge_case(d, k, n_words, h, cut, mode, seed=d + h)
+
+    want = np.zeros(n_words, dtype=np.uint32)
+    live = idx[:nnz]
+    np.bitwise_or.at(want, live % n_words, tbloom.lane_mask(torch.from_numpy(live), h).numpy().astype(np.uint32))
+    np.testing.assert_array_equal(words.numpy().view(np.uint32), want)
+    assert words.dtype == torch.int32
+
+    hits = _spec_hits(words, meta)
+    assert {"over": hits.shape[0] < meta.budget, "exact": hits.shape[0] == meta.budget,
+            "under": hits.shape[0] > meta.budget}[mode]
+    payload = tbloom._fp_aware_payload(words, flat, meta)
+    values, nsel = payload.values, payload.nsel
+    take = hits[: meta.budget]
+    want_v = np.zeros(meta.budget, dtype=np.float32)
+    want_v[: take.shape[0]] = flat.numpy()[take]
+    np.testing.assert_array_equal(values.numpy(), want_v)
+    assert nsel.dtype == torch.int32 and int(nsel) == take.shape[0]
+    # and the codec's composition for the other policies' path: select, then gather
+    pos, cnt = tbloom.select(tbloom.query_universe(words, meta), meta)
+    assert torch.equal(values, torch.where(torch.arange(meta.budget) < cnt, flat[pos.long()], 0.0))
+    assert torch.equal(nsel, cnt)
+
+    vals = torch.from_numpy(np.random.default_rng(k).normal(size=meta.budget).astype(np.float32))
+    for table, count in ((vals, nsel), (vals[: max(0, meta.budget - 7)], nsel), (vals, nsel - 3),
+                         (vals, torch.tensor(meta.budget + 5, dtype=torch.int32))):
+        bound = max(0, min(int(count), meta.budget, table.shape[0], take.shape[0]))
+        want_d = np.zeros(d, dtype=np.float32)
+        want_d[take[:bound]] = table.numpy()[:bound]
+        got = tbloom.decode_dense(tbloom.BloomPayload(values=vals, words=words, nsel=count), meta, (d,), values=table)
+        np.testing.assert_array_equal(got.numpy(), want_d)
+    assert _bloom_launches() == before
+
+
+class _OnCard:
+    is_cuda = True
+
+
+@pytest.mark.parametrize("blocked,policy,kernel", [("mod", "leftmost", True), ("mod", "p0", True),
+                                                   ("mod", "random", False), ("hash", "p0", False),
+                                                   ("", "leftmost", False)])
+def test_bloom_dispatch_takes_the_kernel_entry_for_mod_prefix_only(blocked, policy, kernel):
+    """The codec's one rule: the card's kernels for the mod layout under a
+    prefix policy with the tensors on the card, its torch code for every
+    other layout and policy and on the CPU."""
+    meta = tbloom.BloomMeta.create(50, 5000, fpr=0.01, policy=policy, blocked=blocked)
+    assert tbloom._on_kernel(meta, _OnCard()) is kernel
+    assert tbloom._on_kernel(meta, torch.zeros(3, dtype=torch.int32)) is False
+
+
+def test_bloom_mod_wrappers_refuse_cpu_tensors():
+    """The kernels' wrappers launch on the card only: CPU tensors raise and
+    count no launch (the codec runs its torch code there instead)."""
+    meta = _mod_meta(1001, 60, 47, 5, 80)
+    idx = torch.arange(0, 600, 10, dtype=torch.int32)
+    words = torch.zeros(47, dtype=torch.int32)
+    before = _bloom_launches()
+    for call in (lambda: bloom_mod.insert(idx, torch.tensor(60), meta),
+                 lambda: bloom_mod.select_gather(words, torch.zeros(1001), meta),
+                 lambda: bloom_mod.place(words, torch.zeros(80), torch.tensor(3), meta)):
+        with pytest.raises(ValueError, match="on the card"):
+            call()
+    assert _bloom_launches() == before
+
+
+def test_bloom_mod_vmap_rule_calls_the_entry_once_a_row():
+    """Under `torch.func.vmap` an entry point has no storage to launch on:
+    its vmap rule calls it once per row of the batch, with unbatched inputs
+    shared and rows taken along any batch dimension, and stacks the rows'
+    outputs (one tensor or a tuple)."""
+    from torch.func import vmap
+
+    meta = _mod_meta(1001, 60, 47, 5, 80)
+    rows = []
+
+    def entry(words, flat, meta_):
+        assert meta_ is meta and not torch._C._functorch.is_functorch_wrapped_tensor(words)
+        assert words.is_contiguous() and flat.is_contiguous()
+        rows.append((words.clone(), flat.clone()))
+        return words.sum() + flat.sum(), flat[:3] * 2
+
+    words = torch.arange(12, dtype=torch.float32).reshape(4, 3)
+    flat = torch.arange(15, dtype=torch.float32).reshape(5, 3)  # batched along dim 1: strided rows
+    shared = torch.ones(5)
+
+    sums, heads = vmap(lambda w, f: bloom_mod._PerRow.apply(entry, meta, w, f), in_dims=(0, 1))(words[:3], flat)
+    assert len(rows) == 3
+    for b in range(3):
+        assert torch.equal(rows[b][0], words[b]) and torch.equal(rows[b][1], flat[:, b])
+    assert torch.equal(sums, words[:3].sum(1) + flat.sum(0))
+    assert torch.equal(heads, flat[:3].T * 2)
+
+    rows.clear()
+    out = vmap(lambda w: bloom_mod._PerRow.apply(entry, meta, w, shared), in_dims=0)(words)
+    assert len(rows) == 4 and all(torch.equal(f, shared) for _, f in rows)
+    assert torch.equal(out[0], words.sum(1) + shared.sum())

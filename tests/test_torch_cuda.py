@@ -1089,3 +1089,263 @@ def test_sync_watch_sees_a_sync_below_the_dispatcher(cuda, monkeypatch):
     assert {v.rule for v in record.violations} == {rules.R_CALLBACK}
     (on_card,) = [v for v in record.violations if "on the card" in v.detail]
     assert "comm.py:3 (planted)" in on_card.detail
+
+
+# -- the mod-blocked bloom index codec's kernels (ops/bloom_mod.py) ---------- #
+
+
+# {(d, k, fpr, policy): leaves} of every compressed leaf of the two compressed
+# benchmark cells: ResNet-50 under top-k 1% with the leftmost mod bloom index
+# at fpr 0.001 (76 leaves) and BERT-base under top-k 0.1% with p0 at fpr 0.02
+# (88, the 23,440,896-element token embedding among them); k = int(d * ratio)
+CELL_GEOMETRIES = {
+    (1024, 10, 0.001, "leftmost"): 14, (2048, 20, 0.001, "leftmost"): 8, (4096, 40, 0.001, "leftmost"): 1,
+    (9408, 94, 0.001, "leftmost"): 1, (16384, 163, 0.001, "leftmost"): 6, (32768, 327, 0.001, "leftmost"): 1,
+    (36864, 368, 0.001, "leftmost"): 3, (65536, 655, 0.001, "leftmost"): 7, (131072, 1310, 0.001, "leftmost"): 2,
+    (147456, 1474, 0.001, "leftmost"): 4, (262144, 2621, 0.001, "leftmost"): 11,
+    (524288, 5242, 0.001, "leftmost"): 2, (589824, 5898, 0.001, "leftmost"): 6,
+    (1048576, 10485, 0.001, "leftmost"): 5, (2048000, 20480, 0.001, "leftmost"): 1,
+    (2097152, 20971, 0.001, "leftmost"): 1, (2359296, 23592, 0.001, "leftmost"): 3,
+    (3072, 3, 0.02, "p0"): 12, (30522, 30, 0.02, "p0"): 1, (393216, 393, 0.02, "p0"): 1,
+    (589824, 589, 0.02, "p0"): 48, (2359296, 2359, 0.02, "p0"): 24, (23440896, 23440, 0.02, "p0"): 2,
+}
+# (d, k, W, h, nnz cut, budget against the hits), as tests/test_torch_bloom.py's EDGE
+BLOOM_EDGE = [(1001, 60, 47, 5, 7, "over"), (1001, 60, 47, 9, 0, "exact"), (1001, 80, 23, 3, 0, "under"),
+              (4099, 120, 101, 12, 31, "over"), (777, 1, 1, 1, 0, "under")]
+
+
+def _torch_path():
+    """The codec's torch code on the card: its kernel rule made to say no."""
+    from unittest import mock
+
+    from deepreduce_tpu_torch.codecs import bloom
+
+    return mock.patch.object(bloom, "_on_kernel", lambda meta, t: False)
+
+
+def _bloom_launches():
+    from deepreduce_tpu_torch.ops import launch_counts
+
+    return {name: n for name, n in launch_counts().items() if name.startswith("bloom_mod")}
+
+
+def _bloom_kernels_vs_plain(meta, idx, nnz, flat, dev):
+    """The codec's three mod-layout stages (`insert`, `_fp_aware_payload`,
+    `decode_dense`) with the kernels against its torch code run on the card,
+    on the same inputs: the words, the encoder's values and count, and the
+    decoder's dense tensor for the encoder's values, a table shorter than
+    the budget and counts below and above it. Bitwise, one launch a call."""
+    from deepreduce_tpu_torch.codecs import bloom
+
+    def stages():
+        words = bloom.insert(idx_d, nnz_d, meta)
+        payload = bloom._fp_aware_payload(words, flat_d, meta)
+        values, nsel = payload.values, payload.nsel
+        short = values[: max(0, meta.budget - 7)]
+        cases = [(values, nsel), (short, nsel), (values, nsel - 3),
+                 (values, torch.full((), meta.budget + 5, device=dev))]
+        dense = [bloom.decode_dense(dataclasses.replace(payload, nsel=count), meta, (meta.d,), values=table)
+                 for table, count in cases]
+        return words, values, nsel, dense
+
+    idx_d, nnz_d, flat_d = idx.to(dev), nnz.to(dev), flat.to(dev)
+    before = _bloom_launches()
+    words, values, nsel, dense = stages()
+    torch.cuda.synchronize()
+    launched = {n: c - before[n] for n, c in _bloom_launches().items()}
+    assert launched == {"bloom_mod_insert": 1, "bloom_mod_select": 1, "bloom_mod_place": len(dense)}
+    with _torch_path():
+        ref = stages()
+    assert _bloom_launches() == {n: before[n] + launched[n] for n in before}
+    assert torch.equal(words, ref[0]) and torch.equal(values, ref[1])
+    assert nsel.dtype == torch.int32 and int(nsel) == int(ref[2])
+    for got, want in zip(dense, ref[3]):
+        assert torch.equal(got, want)
+    return int(nsel)
+
+
+@pytest.mark.parametrize("d,k,fpr,policy", sorted(CELL_GEOMETRIES))
+def test_bloom_mod_kernels_bitwise_at_the_cells_leaf_geometries(cuda, d, k, fpr, policy):
+    """Insert, select-and-gather and placement at every compressed leaf
+    geometry of the two compressed cells, on the exact top-k of a gradient
+    with zeros in it."""
+    from deepreduce_tpu_torch.codecs.bloom import BloomMeta
+    from deepreduce_tpu_torch.sparse import topk
+
+    meta = BloomMeta.create(k, d, fpr=fpr, policy=policy, blocked="mod")
+    gen = torch.Generator().manual_seed(d + k)
+    flat = torch.randn(d, generator=gen)
+    flat[torch.rand(d, generator=gen) < 0.3] = 0.0
+    sp = topk(flat.to(cuda), 1.0, k=k)
+    nsel = _bloom_kernels_vs_plain(meta, sp.indices.cpu(), sp.nnz.cpu(), flat, cuda)
+    assert k <= nsel <= meta.budget or nsel == meta.budget
+
+
+@pytest.mark.parametrize("d,k,n_words,h,cut,mode", BLOOM_EDGE)
+def test_bloom_mod_kernels_bitwise_at_the_edges(cuda, d, k, n_words, h, cut, mode):
+    """d not a multiple of W, h <= 6 and h > 6, nnz < k, fewer hits than the
+    budget, exactly the budget and more, int64 indices and counts."""
+    from deepreduce_tpu_torch.codecs import bloom
+
+    gen = torch.Generator().manual_seed(d + h)
+    idx = torch.randperm(d, generator=gen)[:k].sort().values.to(torch.int32)
+    flat = torch.randn(d, generator=gen)
+    wide = bloom.BloomMeta(d=d, k=k, m_bits=32 * n_words, num_hash=h, fpr=0.01, policy="p0", budget=d, blocked="mod")
+    hits = int(bloom._fp_aware_payload(bloom.insert(idx, torch.tensor(k - cut), wide), flat, wide).nsel)
+    budget = {"over": min(d, hits + 13), "exact": hits, "under": max(1, hits - 9)}[mode]
+    meta = dataclasses.replace(wide, budget=budget)
+    for idx_t, nnz_t in ((idx, torch.tensor(k - cut, dtype=torch.int32)), (idx.long(), torch.tensor(k - cut))):
+        _bloom_kernels_vs_plain(meta, idx_t, nnz_t, flat, cuda)
+
+
+def test_bloom_mod_kernels_refuse_what_they_do_not_take(cuda):
+    from deepreduce_tpu_torch.codecs.bloom import BloomMeta
+    from deepreduce_tpu_torch.ops import bloom_mod
+
+    meta = BloomMeta.create(40, 4000, fpr=0.01, policy="leftmost", blocked="mod")
+    idx = torch.arange(0, 4000, 100, dtype=torch.int32, device=cuda)
+    nnz = torch.full((), 40, dtype=torch.int32, device=cuda)
+    words = bloom_mod.insert(idx, nnz, meta)
+    flat = torch.randn(4000, device=cuda)
+    vals, nsel = bloom_mod.select_gather(words, flat, meta)
+    bad = [
+        lambda: bloom_mod.insert(idx.float(), nnz, meta),  # dtype
+        lambda: bloom_mod.insert(idx, nnz.cpu(), meta),  # device
+        lambda: bloom_mod.insert(idx[::2], nnz, meta),  # not contiguous
+        lambda: bloom_mod.select_gather(words.long(), flat, meta),
+        lambda: bloom_mod.select_gather(words, flat.int(), meta),
+        lambda: bloom_mod.select_gather(words, flat.cpu(), meta),
+        lambda: bloom_mod.select_gather(words, torch.randn(8000, device=cuda)[::2], meta),
+        lambda: bloom_mod.select_gather(words, flat[:-1], meta),  # not d elements
+        lambda: bloom_mod.place(words, vals.int(), nsel, meta),
+        lambda: bloom_mod.place(words, vals.cpu(), nsel, meta),
+        lambda: bloom_mod.place(words, vals, nsel.float(), meta),
+        lambda: bloom_mod.place(words, torch.randn(2 * meta.budget, device=cuda)[::2], nsel, meta),
+        lambda: bloom_mod.select_gather(words, flat, dataclasses.replace(meta, policy="random")),
+        lambda: bloom_mod.place(words, vals, nsel, dataclasses.replace(meta, blocked="hash")),
+    ]
+    before = bloom_mod.insert.launches, bloom_mod.select_gather.launches, bloom_mod.place.launches
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+    assert (bloom_mod.insert.launches, bloom_mod.select_gather.launches, bloom_mod.place.launches) == before
+
+
+def test_resnet50_step_exchange_kernels_equal_the_torch_path(cuda, monkeypatch):
+    """One ResNet-50 fused-allgather exchange under the `topk1_bloom_b512`
+    knobs on the card: with the kernels (one insert, one select and one
+    placement a compressed leaf, 76 each) and with the torch path the codec
+    takes off the card, the aggregate, the residuals, the wire stats and the
+    payload bytes are bitwise the same, and the kernel step calls the torch
+    chain's `_prefix_positions` nowhere. (The cell's configuration is read
+    from the benchmark's files here, on the card only.)"""
+    import json
+    from pathlib import Path
+
+    from deepreduce_tpu_torch import DeepReduceConfig, sparse
+    from deepreduce_tpu_torch.codecs import bloom
+    from deepreduce_tpu_torch.comm import GradientExchanger
+    from h100bench.configs import resnet50_bf16
+
+    root = Path(resnet50_bf16.__file__).resolve().parent.parent
+    knobs = json.loads((root / "traffic" / "topk1_bloom_b512.json").read_text())["knobs"]
+    specs = resnet50_bf16.param_specs(json.loads((root / "configs" / "resnet50_bf16.json").read_text()))
+    shapes = {name: shape for name, shape, _, _ in specs}
+    gen = torch.Generator().manual_seed(50)
+    grads = {n: torch.randn(s, generator=gen).to(cuda) * 1e-2 for n, s in shapes.items()}
+    res = {n: torch.randn(s, generator=gen).to(cuda) * 1e-3 for n, s in shapes.items()}
+    cfg = DeepReduceConfig(**knobs, seed=11)
+
+    def step():
+        ex = GradientExchanger(shapes, cfg, device=cuda)
+        agg, new_res, stats = ex.exchange(grads, res, step=3)
+        torch.cuda.synchronize()
+        return agg, new_res, stats, ex.payload_bytes()
+
+    prefix_calls = []
+    real_prefix = sparse._prefix_positions
+
+    def spy(mask, budget):
+        prefix_calls.append(budget)
+        return real_prefix(mask, budget)
+
+    monkeypatch.setattr(sparse, "_prefix_positions", spy)
+    monkeypatch.setattr(bloom, "_prefix_positions", spy)
+    before = _bloom_launches()
+    kern = step()
+    launched = {n: c - before[n] for n, c in _bloom_launches().items()}
+    assert launched == {"bloom_mod_insert": 76, "bloom_mod_select": 76, "bloom_mod_place": 76}
+    assert prefix_calls == []
+    with _torch_path():
+        torch_path = step()
+    assert len(prefix_calls) == 2 * 76
+    assert _bloom_launches() == {n: before[n] + launched[n] for n in before}
+    for name in shapes:
+        assert torch.equal(kern[0][name], torch_path[0][name]), name
+        assert torch.equal(kern[1][name], torch_path[1][name]), name
+    for a, b in zip(dataclasses.astuple(kern[2]), dataclasses.astuple(torch_path[2])):
+        assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+    assert kern[3] == torch_path[3]
+
+
+def test_fedsim_batched_codec_launches_the_bloom_kernels_once_a_client_leaf(cuda):
+    """FedSim's cohort codec vmaps each leaf's index stage over the clients:
+    under vmap each bloom kernel launches once per client and leaf (3
+    clients x 5 mod-p0 leaves), and the payloads and the decoded trees are
+    bitwise the codec's torch code on the card and each client's own
+    unbatched encode."""
+    from deepreduce_tpu_torch.fedsim import TreeCodec
+
+    cfg, shapes, gen = _qsgd_tree(5, 9)
+    clients, workers = 3, [4, 5, 6]
+    tree = {n: torch.randn((clients,) + s, generator=gen).to(cuda) for n, s in shapes.items()}
+    tc = TreeCodec("c2s", cfg, device=cuda)
+
+    def cohort():
+        parts, _, spec, _ = tc.encode_batched(tree, None, step=2, workers=workers)
+        mid = _bloom_launches()
+        return parts, tc.decode_batched(parts, spec, step=2), mid
+
+    before = _bloom_launches()
+    parts, dec, mid = cohort()
+    torch.cuda.synchronize()
+    after = _bloom_launches()
+    n = clients * len(shapes)
+    assert {k: mid[k] - before[k] for k in before} == {"bloom_mod_insert": n, "bloom_mod_select": n,
+                                                       "bloom_mod_place": 0}
+    assert {k: after[k] - mid[k] for k in mid} == {"bloom_mod_insert": 0, "bloom_mod_select": 0,
+                                                   "bloom_mod_place": n}
+    with _torch_path():
+        tparts, tdec, _ = cohort()
+    assert _bloom_launches() == after
+    for i, leaves in enumerate(parts):
+        for j, leaf in enumerate(leaves):
+            assert torch.equal(leaf, tparts[i][j]), (i, j)
+    for name in dec:
+        assert torch.equal(dec[name], tdec[name]), name
+    for c, w in enumerate(workers):
+        single, _, _ = tc.encode_tree({n: t[c] for n, t in tree.items()}, None, step=2, worker=w)
+        for i, p in enumerate(single):
+            for j, leaf in enumerate(p.leaves()):
+                assert torch.equal(parts[i][j][c], leaf), (c, i, j)
+
+
+def test_fedsim_round_launches_the_bloom_kernels_once_a_client_leaf(cuda):
+    """One FedSim round of the linear problem under DRQSGD-BF-P0 (its 600-wide
+    weight the one compressed leaf): the 8 clients' uplinks encode and decode
+    under vmap, one launch of each kernel a client, and the server's
+    downlink delta once more: 9 of each."""
+    from deepreduce_tpu_torch import DeepReduceConfig
+    from deepreduce_tpu_torch.fedsim import FedSim, synthetic_linear_problem
+
+    cfg = DeepReduceConfig(compressor="topk", compress_ratio=0.25, deepreduce="both", index="bloom", value="qsgd",
+                           policy="p0", bloom_blocked="mod", memory="residual", min_compress_size=8, fed=True,
+                           fed_num_clients=64, fed_clients_per_round=8, fed_local_steps=2)
+    p0, data, loss_fn = synthetic_linear_problem(600, 4, 2, device=cuda)
+    sim = FedSim(loss_fn, cfg, cfg.fed_config(), 0.1, data, client_chunk=4, device=cuda)
+    st = sim.init(p0)
+    before = _bloom_launches()
+    st, _ = sim.step(st, 0)
+    torch.cuda.synchronize()
+    assert {k: c - before[k] for k, c in _bloom_launches().items()} == {
+        "bloom_mod_insert": 9, "bloom_mod_select": 9, "bloom_mod_place": 9}
